@@ -1,0 +1,185 @@
+"""Onebit kernels and codec of the PyTorch port against the JAX package.
+
+The port's plain pack / unpack / merge (the versions its wrappers run on
+CPU tensors) are held against the Pallas kernels run in interpret mode,
+as tests/test_pallas_kernels.py runs them.  Words and decompressed values
+must be bit-exact (sign * scale is exact and the merge adds ranks in the
+same order); the scale, an L1 sum taken in another order, to rtol 1e-6.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from byteps_tpu.compression import create as jax_create
+from byteps_tpu.ops import pallas_kernels as pk
+from byteps_tpu_torch.compression import registry as port_registry
+from byteps_tpu_torch.ops import build as port_build
+from byteps_tpu_torch.ops import onebit_kernels as ok
+
+NUMELS = [100, 4096, 50000]
+
+
+def _x(numel, seed, specials=False):
+    x = np.random.RandomState(seed).randn(numel).astype(np.float32)
+    if specials:
+        # NaN packs as 0, -0.0 as 1, and both feed the scale
+        x[::7] = -0.0
+        x[3] = np.nan
+        x[5] = 0.0
+    return x
+
+
+def _pallas_pack(x):
+    L = pk.padded_lanes(len(x))
+    x2d = jnp.pad(jnp.asarray(x), (0, 32 * L - len(x))).reshape(32, L)
+    words, abs_sum = pk.onebit_pack(x2d, interpret=True)
+    return np.array(words), np.float32(abs_sum)
+
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+def test_padded_lanes_match():
+    for n in [1, 31, 32, 4095, 4096, 4097, 50000, 1024000]:
+        assert ok.padded_lanes(n) == pk.padded_lanes(n)
+
+
+@pytest.mark.parametrize("specials", [False, True], ids=["randn", "nan-negzero"])
+@pytest.mark.parametrize("numel", NUMELS)
+def test_pack_matches_pallas(numel, specials):
+    x = _x(numel, seed=1, specials=specials)
+    ref_words, ref_abs = _pallas_pack(x)
+    words, sums = ok.onebit_pack_plain(torch.from_numpy(x))
+    np.testing.assert_array_equal(_u32(words), ref_words)
+    np.testing.assert_allclose(sums[0].item(), ref_abs, rtol=1e-6)
+    np.testing.assert_allclose(sums[1].item(), ref_abs / numel, rtol=1e-6)
+    # padding elements are +0.0 and pack as 1 bits: the padded lanes of
+    # the last row are not zero words
+    L = ok.padded_lanes(numel)
+    if 32 * L > numel:
+        assert _u32(words)[-1] & (1 << 31)
+
+
+@pytest.mark.parametrize("numel", NUMELS)
+def test_unpack_matches_pallas(numel):
+    x = _x(numel, seed=2, specials=True)
+    words, _ = _pallas_pack(x)
+    scale = np.float32(0.375)
+    ref = np.asarray(pk.onebit_unpack(jnp.asarray(words), jnp.float32(scale),
+                                      interpret=True)).reshape(-1)[:numel]
+    got = ok.onebit_unpack_plain(
+        torch.from_numpy(words.view(np.int32)), torch.tensor(scale), numel)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("R", [2, 8])
+@pytest.mark.parametrize("numel", NUMELS)
+def test_unpack_sum_matches_pallas(numel, R):
+    words, scales = [], []
+    for r in range(R):
+        w, a = _pallas_pack(_x(numel, seed=10 + r))
+        words.append(w)
+        scales.append(a / numel)
+    words = np.stack(words)
+    scales = np.asarray(scales, np.float32)
+    ref = np.asarray(pk.onebit_unpack_sum(jnp.asarray(words),
+                                          jnp.asarray(scales),
+                                          interpret=True)).reshape(-1)[:numel]
+    got = ok.onebit_unpack_sum_plain(torch.from_numpy(words.view(np.int32)),
+                                     torch.from_numpy(scales), numel)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+def test_cpu_wrappers_take_the_plain_version():
+    ok.reset_launches()
+    x = torch.from_numpy(_x(5000, seed=3))
+    w, s = ok.onebit_pack(x)
+    w2, s2 = ok.onebit_pack_plain(x)
+    assert torch.equal(w, w2) and torch.equal(s, s2)
+    assert torch.equal(ok.onebit_unpack(w, s[1], 5000),
+                       ok.onebit_unpack_plain(w, s[1], 5000))
+    ws, ss = torch.stack([w, w]), torch.stack([s[1], s[1]])
+    assert torch.equal(ok.onebit_unpack_sum(ws, ss, 5000),
+                       ok.onebit_unpack_sum_plain(ws, ss, 5000))
+    # no kernel ran
+    assert ok.launches == {"onebit_pack": 0, "onebit_unpack": 0,
+                           "onebit_unpack_sum": 0}
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"compressor": "onebit"},
+    {"compressor": "onebit", "ef": "vanilla"},
+    {"compressor": "onebit", "scaling": "false"},
+], ids=["onebit", "onebit-ef", "onebit-noscale"])
+def test_codec_chain_matches_jax(kwargs):
+    """Three steps of the codec chain (error feedback threads its residual
+    through them): payloads and decompressions agree with the JAX codec."""
+    numel = 7000
+    jc = jax_create(dict(kwargs), numel)
+    pc = port_registry.create(dict(kwargs), numel)
+    jstate, pstate = jc.init_state(), pc.init_state(torch.device("cpu"))
+    for step in range(3):
+        x = _x(numel, seed=20 + step)
+        jp, jstate = jc.compress(jnp.asarray(x), jstate)
+        pp, pstate = pc.compress(torch.from_numpy(x), pstate)
+        np.testing.assert_array_equal(_u32(pp["words"]),
+                                      np.asarray(jp["words"]))
+        np.testing.assert_allclose(float(pp["scale"]), float(jp["scale"]),
+                                   rtol=1e-6)
+        # same payload in, bit-identical values out
+        jd = np.asarray(jc.decompress(jp))
+        pd = pc.decompress({"words": pp["words"],
+                            "scale": torch.tensor(np.float32(jp["scale"]))})
+        np.testing.assert_array_equal(_bits(pd), _bits(jd))
+        if "ef" in kwargs:
+            np.testing.assert_allclose(pstate["error"].numpy(),
+                                       np.asarray(jstate["error"]),
+                                       rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("numel", NUMELS)
+def test_wire_frames_byte_identical_and_cross_decode(numel):
+    kw = {"compressor": "onebit", "ef": "vanilla"}
+    jc, pc = jax_create(dict(kw), numel), port_registry.create(dict(kw),
+                                                               numel)
+    words, abs_sum = _pallas_pack(_x(numel, seed=4))
+    scale = np.float32(abs_sum / numel)
+    jframe = jc.wire_encode({"words": jnp.asarray(words),
+                             "scale": jnp.float32(scale)})
+    pframe = pc.wire_encode({"words": torch.from_numpy(words.view(np.int32)),
+                             "scale": torch.tensor(scale)})
+    assert pframe == jframe
+    from_jax = pc.wire_decode(jframe)
+    np.testing.assert_array_equal(_u32(from_jax["words"]), words)
+    assert float(from_jax["scale"]) == float(scale)
+    from_port = jc.wire_decode(pframe)
+    np.testing.assert_array_equal(np.asarray(from_port["words"]), words)
+    assert float(from_port["scale"]) == float(scale)
+    with pytest.raises(ValueError, match="expected"):
+        port_registry.create(dict(kw), numel + 5000).wire_decode(jframe)
+
+
+def test_registry_names_what_is_registered():
+    with pytest.raises(ValueError, match=r"registered: compressors \['onebit'\]"):
+        port_registry.create({"compressor": "topk"}, 100)
+    with pytest.raises(ValueError, match="unknown ef"):
+        port_registry.create({"compressor": "onebit", "ef": "vanila"}, 100)
+    with pytest.raises(ValueError, match="not ported"):
+        port_registry.create({"compressor": "onebit",
+                              "momentum": "nesterov"}, 100)
+    assert port_registry.create(None, 100).name == "identity"
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    """No silent fallback: a missing toolchain is an error."""
+    monkeypatch.setattr(port_build.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(port_build, "DEFAULT_NVCC", "/nonexistent/nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        port_build.nvcc_path()
