@@ -10,10 +10,14 @@ codec re-compresses the merged sum so the "pull" is quantized too.
 
 The JAX package compiles this into one program; here it is a plain
 sequence of steps on the current stream.  Compressor state (the worker's
-and the server's error-feedback residuals) is **updated in place**.
+and the server's error-feedback residuals) is returned anew and the
+states passed in are left as they were, so the caller decides when the
+step counts (the engine commits at dispatch and rolls back on failure).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.distributed as dist
@@ -33,13 +37,15 @@ def _all_gather(comm: CommContext, t: torch.Tensor) -> torch.Tensor:
 def fused_compressed_push_pull(comm: CommContext, x: torch.Tensor,
                                worker: Compressor, server: Compressor,
                                worker_state: State,
-                               server_state: State) -> torch.Tensor:
+                               server_state: State
+                               ) -> Tuple[torch.Tensor, State, State]:
     """Reduce this rank's flat chunk ``x``: returns the merged sum (the
-    caller divides for an average) in ``x.dtype``."""
-    payload, _ = worker.compress(x, worker_state)
+    caller divides for an average) in ``x.dtype``, and the new worker and
+    server states."""
+    payload, worker_state = worker.compress(x, worker_state)
     gathered = {k: _all_gather(comm, v) for k, v in payload.items()}
     y = worker.decompress_sum(gathered).to(torch.float32)
     if worker.bidirectional:
-        p2, _ = server.compress(y, server_state)
+        p2, server_state = server.compress(y, server_state)
         y = server.decompress(p2).to(torch.float32)
-    return y.to(x.dtype)
+    return y.to(x.dtype), worker_state, server_state

@@ -7,10 +7,10 @@ gathered payloads (leaves stacked on axis 0) into the f32 sum of their
 decompressions, the "server sum" of the compressed all-reduce.
 ``bidirectional`` compressors are applied again to the merged sum.
 
-The JAX package threads state functionally.  Here a compressor **updates
-its state dict in place** (an error-feedback residual is overwritten, not
-replaced) and returns the same dict, so the engine keeps one state per
-chunk for the life of the tensor.
+State is threaded functionally, as in the JAX package: ``compress``
+returns a new state and never writes into the one it was given.  The
+engine commits the new state when the chunk is dispatched and restores
+the old one if the chunk fails (``core/engine.py``).
 """
 
 from __future__ import annotations

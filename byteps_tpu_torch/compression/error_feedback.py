@@ -3,8 +3,9 @@
 
 ``compress``: ``corrected = x + error``; compress ``corrected`` with the
 inner codec; ``error = corrected - decompress(payload)``.  The residual is
-kept in gradient space, as in the JAX package, and is overwritten in
-place in the state dict.
+kept in gradient space, as in the JAX package, and returned in a fresh
+state dict: the caller's state is never written, so a push_pull that
+fails after ``compress`` leaves it as it was.
 """
 
 from __future__ import annotations
@@ -31,11 +32,9 @@ class ErrorFeedback(Compressor):
 
     def compress(self, x: torch.Tensor, state: State):
         corrected = x.to(torch.float32) + state["error"]
-        payload, state["inner"] = self.inner.compress(corrected,
-                                                      state["inner"])
+        payload, inner = self.inner.compress(corrected, state["inner"])
         decompressed = self.inner.decompress(payload).to(torch.float32)
-        torch.sub(corrected, decompressed, out=state["error"])
-        return payload, state
+        return payload, {"error": corrected - decompressed, "inner": inner}
 
     def decompress(self, payload):
         return self.inner.decompress(payload)

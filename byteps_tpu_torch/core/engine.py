@@ -56,8 +56,10 @@ _DRAIN_BUDGET_S = 60.0  # shutdown waits this long, in all, for handles
 
 
 class _CompressionSlot:
-    """Per-chunk compressor pair and its state (updated in place by the
-    dispatcher, in dispatch order, on the engine stream)."""
+    """Per-chunk compressor pair and its state.  The dispatcher commits
+    each step's new state when it dispatches the chunk (so the next step
+    of the chunk, which may be dispatched before this one syncs, starts
+    from it); the syncer puts the previous state back if the step fails."""
 
     __slots__ = ("worker", "server", "wstate", "sstate")
 
@@ -265,6 +267,7 @@ class PushPullEngine:
                 self._dispatch(task)
 
     def _dispatch(self, task: ChunkTask):
+        rollback = None
         try:
             with self._on_stream():
                 if task.ready is not None:
@@ -273,17 +276,27 @@ class PushPullEngine:
                               task.offset_elems + task.num_elems]
                 slot = task.compression
                 if slot is not None:
-                    out = fused_compressed_push_pull(
+                    out, wstate, sstate = fused_compressed_push_pull(
                         self.comm, x, slot.worker, slot.server,
                         slot.wstate, slot.sstate)
+                    rollback = (slot, slot.wstate, slot.sstate)
+                    slot.wstate, slot.sstate = wstate, sstate
                 else:
                     out = push_pull_array(self.comm, x, op="sum",
                                           keep_acc=True, scale=task.scale)
                 done = self._record()
-            self._sync_q.put((task, out, done, None))
+            self._sync_q.put((task, out, done, rollback, None))
         except Exception as e:  # noqa: BLE001 — report on the handle
             _log.exception("dispatch failed for %s", task.name)
-            self._sync_q.put((task, None, None, e))
+            self._restore(rollback)
+            self._sync_q.put((task, None, None, None, e))
+
+    @staticmethod
+    def _restore(rollback) -> None:
+        """Put back the compressor state a failed step replaced."""
+        if rollback is not None:
+            slot, wstate, sstate = rollback
+            slot.wstate, slot.sstate = wstate, sstate
 
     def _sync_loop(self):
         # exits only on the sentinel, which shutdown enqueues after the
@@ -293,12 +306,13 @@ class PushPullEngine:
             item = self._sync_q.get()
             if item is _SHUTDOWN:
                 return
-            task, out, done, err = item
+            task, out, done, rollback, err = item
             if err is None and done is not None:
                 try:
                     done.synchronize()
                 except Exception as e:  # noqa: BLE001 — device fault
                     err = e
+                    self._restore(rollback)
             self.scheduler.report_finish(task.nbytes)
             if err is not None:
                 task.callback(None, Status.error(str(err)))

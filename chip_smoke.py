@@ -6,22 +6,58 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels from byteps_tpu_torch/csrc, one nvcc per
-   source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card, at
+2. build: the CUDA kernels from byteps_tpu_torch/csrc (onebit.cu and
+   flash_attention.cu), one nvcc per source, all started together, with
+   ptxas's register, shared-memory and spill lines;
+3. onebit kernels: each against its plain PyTorch version on the card, at
    the main path's chunk shape and at ragged sizes (words and values
    bit-exact, the scale to rtol 1e-6), then timed with CUDA events against
    its plain version and its device-memory bound;
-4. slice: the main path, ResNet-50 at full width (1000 classes, 224x224
-   NHWC, bf16 compute, batch 32, seeded synthetic data) trained through
+4. resnet slice: ResNet-50 at full width (1000 classes, 224x224 NHWC,
+   bf16 compute, batch 32, seeded synthetic data) trained through
    ``DistributedOptimizer(SGD(momentum=0.9), compression=onebit+ef)`` ->
    the push_pull engine -> NCCL (a world of one) for 1 warm-up and 3
-   timed steps.  The kernels' launch counters are zeroed just before and
+   timed steps.  The onebit launch counters are zeroed just before and
    read just after; each must show the launches the compressed chunks
    need.  The loss must be finite, and for one compressed and one
    uncompressed parameter the gradient the optimizer received must equal
    the plain path's result (the same codec run on the CPU) on the same
-   input.
+   input;
+5. flash kernels: the forward, dK/dV and dQ kernels against their plain
+   versions on the card (same inputs, the plain lse and delta for both
+   backward kernels), f32 and bf16, at the two slice shapes and at ragged
+   ones (T=100 with D=48, decode Tq=64 < Tk=256, non-causal).  Tolerances:
+   f32 those of the JAX package's flash tests (2e-5 forward, 5e-4
+   gradients: sums in another order).  bf16 holds each row of each output
+   against that row's max-abs (``row_share``), so that small late rows
+   cannot hide behind large early ones: the forward to 2**-6 (two bf16
+   steps of the row's max: its P is exponentiated against the running
+   max and can round the other way); the gradients to 2**-7, with at most
+   2**-10 of their elements differing at all, since the backward kernels
+   recompute P and dS as the plain versions do.  A control, the plain
+   versions with P and dS left in f32, must break the gradients' bound,
+   so the check sees a bf16 instance that skips those roundings.
+   Then each kernel is timed at the Llama slice shape beside its plain
+   version, its FLOP bound, and torch's scaled_dot_product_attention
+   (its forward for the forward kernel; its forward+backward minus its
+   forward, for both backward kernels together), and alone at the GPT
+   slice shape;
+6. llama slice and gpt slice: Llama-3-8B at full width with 4 of its 32
+   layers (batch 2 x 4096 tokens) and GPT-small (batch 1 x 8192 tokens),
+   bf16 compute over f32 parameters, attention through ``flash_attention``,
+   trained through ``DistributedOptimizer(SGD(momentum=0.9))`` -> the
+   engine -> NCCL for 1 warm-up and 3 timed steps.  The flash launch
+   counters are zeroed just before and read just after: each kernel must
+   have run ``num_layers`` times per step.  The loss must be finite at
+   every step, one parameter's received gradient must equal its raw
+   gradient (an all-reduce over one rank is the identity), and a forward
+   with ``flash_attention`` and one with the exact ``full_attention`` on
+   the same weights and batch must agree to 5e-2 of the logits' max-abs
+   (bf16 compute through every layer), while two controls on the same
+   weights (attention output zeroed for the later half of the positions,
+   and everywhere) must not.  Each slice prints its mean
+   step, its peak memory and the flash kernels' share of the step
+   (``num_layers`` x their device ms at its shape, over the mean step).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -29,13 +65,17 @@ exits non-zero and prints no result.
 """
 
 import collections
+import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import time
 
 ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 BATCH, IMAGE, CLASSES = 32, 224, 1000
 TIMED_STEPS = 3
 
@@ -44,6 +84,31 @@ KERNELS = {   # wrapper name -> the Pallas kernel it replaces (def line)
     "onebit_unpack": "byteps_tpu/ops/pallas_kernels.py:113",
     "onebit_unpack_sum": "byteps_tpu/ops/pallas_kernels.py:142",
 }
+# the backward's two kernels are two pallas_call sites of _bwd_impl (:255)
+FLASH_KERNELS = {
+    "flash_fwd": "byteps_tpu/ops/flash_attention.py:115",
+    "flash_bwd_dkv": "byteps_tpu/ops/flash_attention.py:265",
+    "flash_bwd_dq": "byteps_tpu/ops/flash_attention.py:294",
+}
+# matrix products of [Tq, Tk] x D per kernel, 2 FLOPs per multiply-add
+FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
+# (forward, gradients); see the module docstring
+FLASH_F32_TOL = (2e-5, 5e-4)      # allclose rtol = atol
+FLASH_BF16_TOL = (                # (row_share, share of elements differing)
+    (2**-6, 1.0),                 # forward
+    (2**-7, 2**-10),              # gradients
+)
+# (name, shape [B, Tq, Tk, H, D], causal) of the flash checks, each run
+# in f32 and bf16
+FLASH_CASES = [
+    ("llama", (2, 4096, 4096, 32, 128), True),
+    ("gpt", (1, 8192, 8192, 8, 64), True),
+    ("ragged_t100_d48", (2, 100, 100, 3, 48), True),
+    ("decode_tq64_tk256", (2, 64, 256, 4, 64), True),
+    ("noncausal_t130_t70", (2, 130, 70, 4, 128), False),
+]
+LM_LR = 1e-2
+LM_LOGIT_TOL = 5e-2              # share of the exact forward's max-abs
 
 
 def log(msg):
@@ -54,6 +119,52 @@ def check(ok, msg):
     """A failed check fails the run (unlike assert, never compiled out)."""
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def row_share(got, want):
+    """The largest, over rows (all but the last axis), of the row's max
+    |got - want| over the row's max |want|; inf where a row that is zero in
+    ``want`` is not zero in ``got``."""
+    import torch
+    diff = (got.float() - want.float()).abs().amax(-1)
+    top = want.float().abs().amax(-1)
+    share = torch.where(top > 0, diff / top.clamp_min(1e-30),
+                        torch.where(diff > 0, math.inf, 0.0))
+    return float(share.max())
+
+
+def bf16_errors(got, want):
+    """(row_share, the share of elements that differ at all)."""
+    return row_share(got, want), float((got != want).float().mean())
+
+
+def check_bf16(what, pairs, ctl):
+    """Hold each bf16 kernel's outputs against its plain version's with
+    FLASH_BF16_TOL, and show that the bound on the gradients is tight
+    enough to see a kernel that left P and dS in f32 (``ctl``)."""
+    seen, ctl_seen = {}, {}
+    for kname, (got, want) in pairs.items():
+        rs_tol, frac_tol = FLASH_BF16_TOL[kname != "flash_fwd"]
+        for g, w, c in zip(got, want, ctl[kname]):
+            rs, frac = bf16_errors(g, w)
+            crs, cfrac = bf16_errors(c.to(g.dtype), w)
+            seen[kname] = tuple(map(max, seen.get(kname, (0.0, 0.0)),
+                                    (rs, frac)))
+            ctl_seen[kname] = tuple(map(min, ctl_seen.get(kname, (1.0, 1.0)),
+                                        (crs, cfrac)))
+            check(rs <= rs_tol and frac <= frac_tol,
+                  f"{kname} differs from its plain version at {what}: row "
+                  f"share {rs:.3g}, {frac:.3g} of elements differ")
+            if kname != "flash_fwd":
+                check(crs > rs_tol or cfrac > frac_tol,
+                      f"{kname} at {what}: the bound does not see P and dS "
+                      f"left in f32 (row share {crs:.3g}, {cfrac:.3g} of "
+                      f"elements differ)")
+    log(f"flash: {what}: all three within bounds of their plain versions; "
+        f"(row share, share of elements differing) " + ", ".join(
+            f"{k} ({a:.3e}, {b:.3e})" for k, (a, b) in seen.items())
+        + "; control with P and dS left in f32: " + ", ".join(
+            f"{k} ({a:.3e}, {b:.3e})" for k, (a, b) in ctl_seen.items()))
 
 
 def device_phase(torch):
@@ -67,13 +178,29 @@ def device_phase(torch):
         f"count {torch.cuda.device_count()}")
 
 
-def build_phase(ok, build):
+def build_phase(build, sources):
     t0 = time.perf_counter()
-    build.build([ok.SOURCE])
-    log(f"build: {time.perf_counter() - t0:.2f} s for {ok.SOURCE}")
-    for line in build.build_logs.get(ok.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build.build(sources)
+    log(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(sources)}")
+    for src in sources:
+        entry = ""
+        for line in build.build_logs.get(src, "").splitlines():
+            if "Compiling entry function" in line:
+                entry = _kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {src} {entry}: {line.strip()}")
+
+
+def _kernel_name(ptxas_line):
+    """'fwd_kernel<bf16, 128>' from ptxas's mangled entry name."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I(13__nv_bfloat16|f)Li(\d+)E)?",
+                  ptxas_line)
+    if m is None:
+        return ptxas_line.strip()
+    if m.group(2) is None:
+        return m.group(1)
+    dt = "bf16" if "bfloat16" in m.group(2) else "f32"
+    return f"{m.group(1)}<{dt}, {m.group(3)}>"
 
 
 def device_ms(torch, fn, args_list, reps=100):
@@ -254,6 +381,249 @@ def slice_phase(torch, bps, ok, api, registry, resnet):
     return launches, step_ms
 
 
+def flash_kernel_phase(torch, fa):
+    """Each flash kernel against its plain version, then timed at both
+    slice shapes; returns the JSON rows' numbers per kernel (at the Llama
+    shape) and each kernel's ms at each slice shape."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = {k: 0.0 for k in FLASH_KERNELS}
+    for name, (b, tq, tk, h, d), causal in FLASH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(b * h, tq, d, generator=gen, device=dev)
+                     .to(dt) for _ in range(2))
+            k, v = (torch.randn(b * h, tk, d, generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+            args = (1.0 / math.sqrt(d), causal, tk - tq, tk)
+            o0, lse0 = fa.flash_fwd_plain(q, k, v, *args)
+            dl = fa.delta(do, o0)
+            bwd = (q, k, v, do, lse0, dl, *args)
+            pairs = {
+                "flash_fwd": ([fa.flash_fwd(q, k, v, *args)[0]], [o0]),
+                "flash_bwd_dkv": (fa.flash_bwd_dkv(*bwd),
+                                  fa.flash_bwd_dkv_plain(*bwd)),
+                "flash_bwd_dq": ([fa.flash_bwd_dq(*bwd)],
+                                 [fa.flash_bwd_dq_plain(*bwd)]),
+            }
+            torch.cuda.synchronize()
+            what = f"{name} {str(dt)[6:]} causal={causal}"
+            for kname, (got, want) in pairs.items():
+                for g, w in zip(got, want):
+                    check(g.dtype == dt and g.shape == w.shape,
+                          f"{kname} {what}: {g.dtype} {tuple(g.shape)}")
+                    err[kname] = max(err[kname], float(
+                        (g.float() - w.float()).abs().max()))
+            if dt == torch.float32:
+                for kname, (got, want) in pairs.items():
+                    tol = FLASH_F32_TOL[kname != "flash_fwd"]
+                    check(all(torch.allclose(g, w, rtol=tol, atol=tol)
+                              for g, w in zip(got, want)),
+                          f"{kname} differs from its plain version at {what}")
+                log(f"flash: {what}: all three within the JAX tests' "
+                    f"tolerances of their plain versions")
+            else:
+                # the control: the plain versions with P and dS left in f32
+                f32 = [t.float() for t in (q, k, v, do)]
+                fbwd = (*f32, lse0, dl, *args)
+                ctl = {"flash_fwd": [fa.flash_fwd_plain(*f32[:3], *args)[0]],
+                       "flash_bwd_dkv": fa.flash_bwd_dkv_plain(*fbwd),
+                       "flash_bwd_dq": [fa.flash_bwd_dq_plain(*fbwd)]}
+                check_bf16(what, pairs, ctl)
+            del o0, dl, bwd, pairs
+            ctl = fbwd = f32 = None
+            torch.cuda.empty_cache()
+
+    # timing at both slice shapes, bf16; the JSON rows are the Llama one's
+    shapes = {}
+    for name, (b, t, _, h, d), causal in FLASH_CASES[:2]:
+        shapes[name] = time_flash(torch, fa, gen, b, t, h, d, causal,
+                                  full=name == "llama")
+    rows = shapes["llama"]
+    for kname, r in rows.items():
+        r["max_abs_err"] = err[kname]
+    return rows, {name: {k: r["ms"] for k, r in rs.items()}
+                  for name, rs in shapes.items()}
+
+
+def time_flash(torch, fa, gen, b, t, h, d, causal, full):
+    """Device ms of each flash kernel at [b, t, h, d] bf16; with ``full``
+    also its plain version's, its FLOP bound and the SDPA yardstick."""
+    dev, bh, dt = gen.device, b * h, torch.bfloat16
+    q, k, v, do = (torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
+                   for _ in range(4))
+    args = (1.0 / math.sqrt(d), causal, 0, t)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    bwd = [(q, k, v, do, lse, fa.delta(do, o), *args)]
+    live = (t + 1) / (2 * t) if causal else 1.0       # causal share of T^2
+    timing = {
+        "flash_fwd": (fa.flash_fwd, fa.flash_fwd_plain, [(q, k, v, *args)]),
+        "flash_bwd_dkv": (fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, bwd),
+        "flash_bwd_dq": (fa.flash_bwd_dq, fa.flash_bwd_dq_plain, bwd),
+    }
+    rows = {}
+    for kname, (kern, plain, targs) in timing.items():
+        rows[kname] = {"ms": device_ms(torch, kern, targs, reps=10)}
+        if full:
+            flops = 2 * FLASH_PRODUCTS[kname] * bh * t * t * d * live
+            rows[kname].update(
+                plain_ms=device_ms(torch, plain, targs, reps=3),
+                bound_ms=flops / BF16_FLOP_PER_S * 1e3)
+        torch.cuda.empty_cache()
+    shape = f"[{b}, {t}, {h}, {d}] bf16 causal={causal}"
+    if not full:
+        log(f"  at {shape}: " + ", ".join(
+            f"{kname} {r['ms']:.3f} ms" for kname, r in rows.items()))
+        return rows
+    lib_fwd, lib_bwd = sdpa_ms(torch, q, k, v, do, b, h, causal)
+    rows["flash_fwd"]["library_ms"] = lib_fwd
+    rows["flash_bwd_dkv"]["library_ms"] = lib_bwd
+    rows["flash_bwd_dq"]["library_ms"] = lib_bwd
+    for kname, r in rows.items():
+        log(f"  {kname}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms, sdpa {r['library_ms']:.3f} ms"
+            f"{' (whole backward)' if kname != 'flash_fwd' else ''}) at "
+            f"{shape}")
+    return rows
+
+
+def sdpa_ms(torch, q3, k3, v3, do3, b, h, causal):
+    """torch's scaled_dot_product_attention on the same bf16 inputs, a
+    yardstick only: (forward ms, forward+backward minus forward ms)."""
+    import torch.nn.functional as F
+
+    def to4(x):
+        return x.reshape(b, h, x.shape[1], x.shape[2])
+
+    q, k, v, do = map(to4, (q3, k3, v3, do3))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd(*xs):
+        return F.scaled_dot_product_attention(*xs, is_causal=causal)
+
+    def fwd_bwd(*xs):
+        return torch.autograd.grad(fwd(*xs), xs, do)
+
+    with torch.no_grad():
+        f_ms = device_ms(torch, fwd, [(q, k, v)], reps=10)
+    fb_ms = device_ms(torch, fwd_bwd, [tuple(leaves)], reps=10)
+    return f_ms, fb_ms - f_ms
+
+
+def lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg, batch, seq,
+                   watch, kernel_ms):
+    """Train ``cfg`` through the port's main path with flash attention;
+    returns the flash launches of its run.  ``kernel_ms`` (each flash
+    kernel's device ms at this slice's shape) gives the flash share of
+    the step."""
+    from byteps_tpu_torch.models.gpt import lm_loss
+    from byteps_tpu_torch.ops.flash_attention import flash_attention
+    from byteps_tpu_torch.parallel.long_context import synthetic_lm_batch
+    from byteps_tpu_torch.parallel.sequence import full_attention
+
+    bps.init()                                     # NCCL, world of one
+    dev = api.device()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = model_fn(cfg, attn_fn=flash_attention, device=dev, generator=gen)
+    data = synthetic_lm_batch(gen, cfg, batch, seq)
+    ids, labels = data["input_ids"], data["labels"]
+    n_params = sum(p.numel() for p in model.parameters())
+    param = dict(model.named_parameters())[watch]
+    raw = {}
+    param.register_post_accumulate_grad_hook(
+        lambda p: raw.__setitem__(watch, p.grad.clone()))
+    opt = bps.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=LM_LR, momentum=0.9),
+        named_parameters=model.named_parameters())
+
+    def step():
+        opt.zero_grad()
+        loss = lm_loss(model(ids), labels)
+        loss.backward()
+        opt.step()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_ms = [], []
+    for i in range(1 + TIMED_STEPS):               # warm-up, timed steps
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        check(math.isfinite(losses[-1]), f"{name}: loss {losses[-1]} at "
+                                         f"step {i}")
+    launches = dict(fa.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    timed = step_ms[1:]
+    mean_ms = sum(timed) / len(timed)
+    log(f"{name}: {n_params} parameters, {cfg.num_layers} layers, batch "
+        f"{batch} x {seq}; warm-up {step_ms[0]:.1f} ms, steps "
+        f"{[round(t, 2) for t in timed]} ms, mean {mean_ms:.2f} ms; losses "
+        f"{[round(x, 4) for x in losses]}; peak memory {peak_gib:.2f} GiB")
+    want = {k: cfg.num_layers * (1 + TIMED_STEPS) for k in FLASH_KERNELS}
+    flash_ms = cfg.num_layers * sum(kernel_ms.values())
+    log(f"{name}: flash launches {launches} over {1 + TIMED_STEPS} steps; "
+        f"flash kernels {flash_ms:.2f} ms per step ({cfg.num_layers} x "
+        f"their device ms at this shape), {flash_ms / mean_ms:.1%} of the "
+        f"mean step")
+    check(launches == want, f"{name}: flash launches {launches}, expected "
+                            f"{want}")
+    check(torch.equal(param.grad, raw[watch]),
+          f"{name}: {watch} gradient differs from the raw gradient")
+
+    # flash against exact attention, same weights and batch
+    del opt
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    def late_rows_zeroed(q, k, v, **kw):   # a control: a fault in late rows
+        out = full_attention(q, k, v, **kw)
+        out[:, out.shape[1] // 2:] = 0
+        return out
+
+    def zeroed(q, k, v, **kw):             # a control: no attention at all
+        return torch.zeros_like(q)
+
+    def logits(attn_fn):
+        for m in model.modules():
+            if hasattr(m, "attn_fn"):
+                m.attn_fn = attn_fn
+        with torch.no_grad():
+            return model(ids)
+
+    got = logits(flash_attention)
+    exact = logits(full_attention)
+    check(bool(torch.isfinite(got).all()) and got.shape == exact.shape,
+          f"{name}: non-finite or misshapen logits")
+    shares = {}
+    for what, out in (("flash", got), ("late rows zeroed", None),
+                      ("attention zeroed", None)):
+        if out is None:
+            out = logits(late_rows_zeroed if what.startswith("late")
+                         else zeroed)
+        d = (out - exact).float()
+        shares[what] = {
+            "max": float(d.abs().max() / exact.abs().max()),
+            "rms": float(d.norm() / exact.float().norm()),
+            "row": row_share(out, exact)}
+        del d, out
+    log(f"{name}: logits against exact attention (max: max |diff| / max "
+        f"|logit|; rms: |diff| / |logits|; row: row_share over positions; "
+        f"bound {LM_LOGIT_TOL} on max): " + "; ".join(
+            f"{what} " + ", ".join(f"{k} {v:.3e}" for k, v in sh.items())
+            for what, sh in shares.items()))
+    check(shares["flash"]["max"] <= LM_LOGIT_TOL,
+          f"{name}: flash and exact attention disagree")
+    check(min(shares["late rows zeroed"]["max"],
+              shares["attention zeroed"]["max"]) > LM_LOGIT_TOL,
+          f"{name}: the logit bound does not see a faulty attention")
+    bps.shutdown()
+    del model, got, exact, raw, param
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _cpu(tree):
     if isinstance(tree, dict):
         return {k: _cpu(v) for k, v in tree.items()}
@@ -269,16 +639,31 @@ def main():
     from byteps_tpu_torch.common.config import Config
     from byteps_tpu_torch.compression import registry
     from byteps_tpu_torch.core import api
-    from byteps_tpu_torch.models import resnet
+    from byteps_tpu_torch.models import gpt, llama, resnet
     from byteps_tpu_torch.ops import build
+    from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.ops import onebit_kernels as ok
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     t_start = time.perf_counter()
     device_phase(torch)
-    build_phase(ok, build)
+    build_phase(build, [ok.SOURCE, fa.SOURCE])
     chunk_numel = Config().partition_bytes // 4        # f32 gradients
     rows = kernel_phase(torch, ok, chunk_numel)
     launches, _ = slice_phase(torch, bps, ok, api, registry, resnet)
+    torch.cuda.empty_cache()
+    flash_rows, shape_ms = flash_kernel_phase(torch, fa)
+    flash_launches = {k: 0 for k in FLASH_KERNELS}
+    for name, model_fn, cfg, batch, seq, watch, shape in (
+            ("llama slice", llama.Llama,
+             dataclasses.replace(llama.llama3_8b(), num_layers=4), 2, 4096,
+             "norm_f.scale", "llama"),
+            ("gpt slice", gpt.GPT, gpt.gpt_small(), 1, 8192, "ln_f.scale",
+             "gpt")):
+        run = lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg,
+                             batch, seq, watch, shape_ms[shape])
+        for k in flash_launches:
+            flash_launches[k] += run[k]
     kernels = []
     for name, replaces in KERNELS.items():
         r = rows[name]
@@ -289,6 +674,15 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
+    for name, replaces in FLASH_KERNELS.items():
+        r = flash_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "byteps_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": flash_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations", "library_ms": r["library_ms"]})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each CUDA kernel is held against its plain version on the same inputs:
-bit-exact words and values; the scale (an L1 sum taken in another order)
-to rtol 1e-6.
+the onebit kernels bit-exact in words and values, their scale (an L1 sum
+taken in another order) to rtol 1e-6; the flash kernels to the
+tolerances stated in ``test_flash_kernels_match_plain``.
 """
 
 import numpy as np
@@ -103,3 +104,98 @@ def test_engine_push_pull_on_card(card):
                                    atol=0)
     finally:
         bps.shutdown()
+
+
+# --- flash attention -------------------------------------------------------
+
+FLASH_CASES = [   # (bh, tq, tk, d, causal, kv_len)
+    (3, 128, 128, 64, True, 128), (2, 100, 100, 48, False, 100),
+    (2, 100, 100, 48, True, 100), (2, 72, 72, 32, True, 72),
+    (2, 64, 256, 64, True, 256), (2, 130, 70, 128, False, 70),
+    (2, 100, 100, 48, False, 37), (2, 64, 256, 64, True, 200),
+]
+# bf16 bounds (row share, share of elements that differ at all), as in
+# chip_smoke.py: (forward, gradients)
+FLASH_BF16_TOL = ((2**-6, 1.0), (2**-7, 2**-10))
+
+
+def _flash_inputs(card, bh, tq, tk, d, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(bh, tq, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(bh, tk, d, generator=g) for _ in range(2))
+    return [t.to(card, dtype) for t in (q, k, v, do)]
+
+
+def _row_share(got, want):
+    """The largest, over rows, of the row's max |got - want| over the row's
+    max |want|; inf where a row that is zero in ``want`` is not in ``got``."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    top = want.float().abs().amax(-1)
+    share = torch.where(top > 0, diff / top.clamp_min(1e-30),
+                        torch.where(diff > 0, np.inf, 0.0))
+    return float(share.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,tq,tk,d,causal,kv_len", FLASH_CASES)
+def test_flash_kernels_match_plain(card, dtype, bh, tq, tk, d, causal,
+                                   kv_len):
+    """Each kernel against its plain version on the same inputs.  f32:
+    the JAX tests' tolerances (2e-5 forward, 5e-4 gradients; sums in
+    another order).  bf16 (FLASH_BF16_TOL): each row of each output is
+    held against that row's max-abs, so a row of small values cannot hide
+    behind a large one elsewhere.  The forward's P is exponentiated
+    against the running max, so it can round the other way: two bf16
+    steps of the row's max.  The backward kernels recompute P and dS as
+    the plain versions do: one step of the row's max, and at most 2**-10
+    of the elements may differ at all (P and dS left in f32 change about
+    40 % of them)."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(card, bh, tq, tk, d, dtype, tq + d)
+    scale, q_off = 1.0 / np.sqrt(d), tk - tq
+    args = (scale, causal, q_off, kv_len)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o0, lse0 = fa.flash_fwd_plain(q, k, v, *args)
+    dl = fa.delta(do, o0)
+    got = [o, *fa.flash_bwd_dkv(q, k, v, do, lse0, dl, *args),
+           fa.flash_bwd_dq(q, k, v, do, lse0, dl, *args)]
+    want = [o0, *fa.flash_bwd_dkv_plain(q, k, v, do, lse0, dl, *args),
+            fa.flash_bwd_dq_plain(q, k, v, do, lse0, dl, *args)]
+    torch.cuda.synchronize()
+    assert all(g.dtype == dtype and g.shape == w.shape
+               for g, w in zip(got, want))
+    if dtype == torch.float32:
+        torch.testing.assert_close(lse, lse0, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-4)
+    else:
+        torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-4)
+        for i, (g, w) in enumerate(zip(got, want)):
+            share, frac = _row_share(g, w), float((g != w).float().mean())
+            rs_tol, frac_tol = FLASH_BF16_TOL[i > 0]
+            assert share <= rs_tol and frac <= frac_tol, (i, share, frac)
+
+
+def test_flash_wrappers_count_and_reject(card):
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    q = torch.randn(2, 64, 4, 64, device=card, requires_grad=True)
+    fa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dkv": 1,
+                           "flash_bwd_dq": 1}
+    h = torch.randn(2, 64, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError, match="not supported"):
+        fa.flash_fwd(h, h, h, 0.125, True, 0, 64)
+    x = torch.randn(2, 64, 64, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(x.transpose(1, 2), x, x, 0.125, False, 0, 64)
+    with pytest.raises(ValueError, match="head sizes"):
+        y = torch.randn(2, 64, 160, device=card)
+        fa.flash_fwd(y, y, y, 0.1, False, 0, 64)
+    for kv_len in (0, 65):
+        with pytest.raises(ValueError, match="kv_len"):
+            fa.flash_fwd(x, x, x, 0.125, False, 0, kv_len)
+    assert fa.launches["flash_fwd"] == 1

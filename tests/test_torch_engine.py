@@ -164,9 +164,9 @@ def test_engine_compressed_chunks_run_the_codec_chain(engine1):
             ONEBIT_EF, ln, for_server=True)
         ws, ss = wc.init_state("cpu"), sc.init_state("cpu")
         for _ in range(2):
-            p, _ = wc.compress(x[off:off + ln], ws)
+            p, ws = wc.compress(x[off:off + ln], ws)
             y = wc.decompress_sum({k: v[None] for k, v in p.items()})
-            p2, _ = sc.compress(y, ss)
+            p2, ss = sc.compress(y, ss)
             last = sc.decompress(p2)
         ref.append(last)
     assert torch.equal(out, torch.cat(ref))
@@ -314,3 +314,86 @@ def test_concurrent_pushers_stress(engine1):
     assert not errors, errors[:5]
     assert engine1.scheduler.bytes_in_flight == 0
     assert not engine1.handles.outstanding()
+
+
+def _codec_chain(x, steps):
+    """The onebit+ef chain of one chunk over ``steps``, from fresh state."""
+    wc = codecs.create(ONEBIT_EF, x.numel())
+    sc = codecs.create(ONEBIT_EF, x.numel(), for_server=True)
+    ws, ss = wc.init_state("cpu"), sc.init_state("cpu")
+    for xs in steps:
+        p, ws = wc.compress(xs, ws)
+        y = wc.decompress_sum({k: v[None] for k, v in p.items()})
+        p2, ss = sc.compress(y, ss)
+        out = sc.decompress(p2)
+    return out, ws, ss
+
+
+def _states(slot):
+    return (slot.wstate["error"].clone(), slot.sstate["error"].clone())
+
+
+def test_failed_dispatch_leaves_compressor_state(engine1, monkeypatch):
+    """An all-gather that raises after the worker compressed its chunk:
+    the handle carries the error, the slot keeps its pre-dispatch
+    residuals, and the next push_pull continues from them."""
+    from byteps_tpu_torch.comm import compressed
+
+    rng = np.random.RandomState(4)
+    xs = [torch.from_numpy(rng.randn(900).astype(np.float32))
+          for _ in range(3)]
+    api.push_pull(xs[0], "g1", compression=ONEBIT_EF)   # residuals != 0
+    slot, = engine1.registry.get("g1").compressor        # one chunk
+    before = _states(slot)
+    assert before[0].abs().sum() > 0
+
+    real, calls = compressed._all_gather, []
+
+    def failing_once(comm, t):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("injected all-gather fault")
+        return real(comm, t)
+
+    monkeypatch.setattr(compressed, "_all_gather", failing_once)
+    with pytest.raises(RuntimeError, match="injected all-gather fault"):
+        api.push_pull(xs[1], "g1", compression=ONEBIT_EF)
+    after = _states(slot)
+    assert torch.equal(after[0], before[0]) and torch.equal(after[1],
+                                                            before[1])
+    out = api.push_pull(xs[2], "g1", compression=ONEBIT_EF)
+    want, ws, ss = _codec_chain(xs[0], [xs[0], xs[2]])
+    assert torch.equal(out, want)
+    assert torch.equal(slot.wstate["error"], ws["error"])
+    assert torch.equal(slot.sstate["error"], ss["error"])
+
+
+def test_failed_sync_rolls_compressor_state_back(engine1, monkeypatch):
+    """A fault seen when the syncer waits on the chunk's completion (a
+    device fault on the card) puts back the state the dispatch replaced."""
+    rng = np.random.RandomState(5)
+    xs = [torch.from_numpy(rng.randn(700).astype(np.float32))
+          for _ in range(3)]
+    api.push_pull(xs[0], "g2", compression=ONEBIT_EF)
+    slot, = engine1.registry.get("g2").compressor
+    before = _states(slot)
+
+    class _FaultyEvent:
+        def synchronize(self):
+            raise RuntimeError("injected device fault")
+
+    real, calls = engine1._record, []
+
+    def record_once():
+        calls.append(1)
+        return _FaultyEvent() if len(calls) == 1 else real()
+
+    monkeypatch.setattr(engine1, "_record", record_once)
+    with pytest.raises(RuntimeError, match="injected device fault"):
+        api.push_pull(xs[1], "g2", compression=ONEBIT_EF)
+    after = _states(slot)
+    assert torch.equal(after[0], before[0]) and torch.equal(after[1],
+                                                            before[1])
+    out = api.push_pull(xs[2], "g2", compression=ONEBIT_EF)
+    want, _, _ = _codec_chain(xs[0], [xs[0], xs[2]])
+    assert torch.equal(out, want)

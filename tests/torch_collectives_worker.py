@@ -91,8 +91,8 @@ def main(out_path, device="cpu"):
         for step in range(CODEC_STEPS):
             x = mine(300 + step, CODEC_NUMEL)
             gathered.clear()
-            out = compressed.fused_compressed_push_pull(comm, x, wc, sc,
-                                                        ws, ss)
+            out, ws, ss = compressed.fused_compressed_push_pull(
+                comm, x, wc, sc, ws, ss)
             res[f"codec/{name}/{step}/out"] = out.cpu().numpy()
             res[f"codec/{name}/{step}/words"] = gathered[0].cpu().numpy()
             res[f"codec/{name}/{step}/scales"] = gathered[1].cpu().numpy()
