@@ -18,10 +18,10 @@
 // skipped (the Pallas `live` predicate).  q_off and kv_len are runtime
 // arguments, so one build serves every causal offset.
 //
-// Casts follow the JAX kernels: tiles are read in the input type and
-// widened to f32 (exact), products are summed in f32, P is rounded to the
-// input type before P.V and before dV, dS is rounded to it before dK and
-// dQ, and outputs are rounded to it at the end.
+// Casts follow the JAX kernels: tiles are read in the input type, products
+// are summed in f32, P is rounded to the input type before P.V and before
+// dV, dS is rounded to it before dK and dQ, and outputs are rounded to it
+// at the end.
 //
 // Structure.  The TPU runs a sequential grid axis over the reduction
 // tiles and carries the sums in VMEM scratch; here each block owns one
@@ -32,40 +32,83 @@
 //   dQ       one block per (bh, 64-row Q tile), loop over K tiles.
 //
 // No block writes another's output, so there are no atomics and every run
-// gives the same bits.  256 threads form a 16 x 16 grid; thread (ty, tx)
-// owns rows ty + 16i (i < 4) and columns tx + 16j of every 64-wide tile,
-// so a row of a score tile lives in the 16 lanes of one half-warp and its
-// max and sum are shuffles.  Tiles sit in shared memory as f32 with an odd
-// row stride (D + 1, 65), which keeps the strided reads of K^T, P^T and
-// dS^T free of bank conflicts.  Ragged T is masked in the kernel (rows past
-// T read as zero and are never written); D is 32, 64 or 128, and the
-// wrapper pads other head sizes with zero columns, which are exact.
+// gives the same bits.  Ragged T is masked in the kernel (rows past T read
+// as zero and are never written); D is 32, 64 or 128, and the wrapper pads
+// other head sizes with zero columns, which are exact.
 //
 // Bound (H100 SXM): the work is 2 (forward), 4 (dK/dV) and 3 (dQ) matrix
 // products of [Tq, Tk] x D per head, half of them live when causal, against
 // 989 TFLOP/s of bf16 tensor cores; the bytes (Q, K, V, O, dO once each)
-// are far below the memory bound.  These kernels are the plain first
-// version: the products run as f32 FMAs on the CUDA cores (67 TFLOP/s at
-// most), fed from shared memory.  Tensor-core MMA, TMA and warp
-// specialisation are later work.
+// are far below the memory bound.
+//
+// Two designs:
+//
+// * SIMT (the forward, and the f32 backward).  256 threads form a 16 x 16
+//   grid; thread (ty, tx) owns rows ty + 16i (i < 4) and columns tx + 16j
+//   of every 64-wide tile, so a row of a score tile lives in the 16 lanes
+//   of one half-warp and its max and sum are shuffles.  Tiles sit in
+//   shared memory as f32 with an odd row stride (D + 1, 65), which keeps
+//   the strided reads of K^T, P^T and dS^T free of bank conflicts.  The
+//   products run as f32 FMAs on the CUDA cores (67 TFLOP/s at most); f32
+//   stays there, since TF32 tensor cores would miss the JAX tests' 5e-4.
+//
+// * Tensor cores (the bf16 backward).  Four warps, each owning 16 rows of
+//   the 64-row output tile, run every product as
+//   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands, f32
+//   accumulators in registers.  Tiles stay bf16 in shared memory, rows
+//   padded to D + 8 elements so that ldmatrix's eight 16-byte row reads
+//   fall in distinct banks, and arrive by cp.async (16 bytes a thread,
+//   zero-filled past T).  The tile the loop walks (Q, dO, lse and delta
+//   for dK/dV; K and V for dQ) is double-buffered: each iteration waits
+//   for its tile, passes one __syncthreads, issues the next tile's copy
+//   and computes while it lands.
+//     dK/dV computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are
+//   accumulators with the warp's K rows as rows; the scale, the masks
+//   and exp(s - lse[q]) apply there (lse and delta are per column).  Two
+//   adjacent n8 accumulator tiles repack into one bf16 A fragment: that
+//   repack is JAX's rounding of P and dS to the input type, and it keeps
+//   them out of shared memory.  Then dV += P^T dO and dK += dS^T Q take
+//   dO and Q as B operands through ldmatrix.trans.  At D = 128 the Q tile
+//   is 32 rows, so that dK, dV (128 registers a thread), S^T and dP^T fit
+//   in registers without spilling; at D <= 64 it is 64, and each warp
+//   keeps its K and V A fragments in registers through the loop.
+//     dQ computes S = Q K^T and dP = dO V^T with K and V as B operands
+//   (plain ldmatrix), forms dS in registers, repacks it to A fragments
+//   and accumulates dQ += dS K with K through ldmatrix.trans.
+//     The masks are evaluated only in tiles that cross the causal
+//   diagonal or kv_len.  The dK/dV loop starts at the first live Q tile.
+//   Blocks run heavy-first over the whole grid (tile_major_coords): early
+//   K tiles for dK/dV, late Q tiles for dQ, every head's before the next
+//   tile of any, so that the light tiles fill the tail.
+//   Outputs are rounded to bf16, staged through each warp's own rows of
+//   shared memory and stored 16 bytes a lane.  The sum order differs from
+//   the plain version's, so results agree with it to rounding, not bit for
+//   bit; each run gives the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;      // SIMT kernels
 constexpr int kTile = 64;          // rows of a Q or K tile
 constexpr int kLdp = kTile + 1;    // row stride of a score tile in smem
 constexpr float kNeg = -1e30f;
+
+constexpr int kMmaThreads = 128;   // tensor-core kernels: 4 warps x 16 rows
+constexpr int kPad = 8;            // bf16 padding of a shared-memory row
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) {
   return __bfloat162float(x);
 }
 
@@ -73,8 +116,7 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as astype
 }
 
@@ -187,10 +229,21 @@ struct Mask {
     return k0 < kv_len && (!causal || k0 <= q_off + q0 + kTile - 1);
   }
 
-  // scale, then the kv-tail and causal masks (_mask_block)
+  // the kv-tail and causal masks (_mask_block) keep the score at (qrow, kcol)
+  __device__ __forceinline__ bool valid(int qrow, int kcol) const {
+    return kcol < kv_len && (!causal || q_off + qrow >= kcol);
+  }
+
+  // scale, then the masks
   __device__ __forceinline__ float apply(float s, int qrow, int kcol) const {
-    const bool valid = kcol < kv_len && (!causal || q_off + qrow >= kcol);
-    return valid ? s * scale : kNeg;
+    return valid(qrow, kcol) ? s * scale : kNeg;
+  }
+
+  // whether some score of the tile of Q rows [q0, ...) and K columns
+  // [k0, k0 + ncols) is masked (the diagonal or kv_len crosses it); Q rows
+  // past T are never stored, so they need no mask
+  __device__ __forceinline__ bool partial(int q0, int k0, int ncols) const {
+    return k0 + ncols > kv_len || (causal && q_off + q0 < k0 + ncols - 1);
   }
 };
 
@@ -200,6 +253,17 @@ __device__ __forceinline__ void block_coords(int ntiles, bool reverse,
                                              int* bh, int* tile) {
   *bh = blockIdx.x / ntiles;
   const int t = blockIdx.x % ntiles;
+  *tile = reverse ? ntiles - 1 - t : t;
+}
+
+// the same grid with the tile as the slow axis: every head's heaviest tile
+// starts before any head's lighter ones, so the light tiles fill the tail
+// (a longest-first order over the whole grid, not only within a head)
+__device__ __forceinline__ void tile_major_coords(int ntiles, bool reverse,
+                                                  int* bh, int* tile) {
+  const int nbh = gridDim.x / ntiles;
+  *bh = blockIdx.x % nbh;
+  const int t = blockIdx.x / nbh;
   *tile = reverse ? ntiles - 1 - t : t;
 }
 
@@ -280,7 +344,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- backward
+// ----------------------------------------------------- backward, f32 SIMT
 
 // P = exp(mask(Q K^T) - lse) and dS = P * (dO V^T - delta) * scale for one
 // (Q tile, K tile) pair; P and dS land in smem rounded to T
@@ -307,12 +371,10 @@ __device__ __forceinline__ void recompute_p_ds(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int tq, int tk, Mask mask) {
+__device__ __forceinline__ void dkv_simt(const T* q, const T* k, const T* v,
+                                         const T* dout, const float* lse,
+                                         const float* delta, T* dk, T* dv,
+                                         int tq, int tk, const Mask& mask) {
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + kTile * (D + 1);
@@ -361,12 +423,10 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dq, int tq,
-              int tk, Mask mask) {
+__device__ __forceinline__ void dq_simt(const T* q, const T* k, const T* v,
+                                        const T* dout, const float* lse,
+                                        const float* delta, T* dq, int tq,
+                                        int tk, const Mask& mask) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + kTile * (D + 1);
@@ -410,15 +470,481 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------- backward, bf16 tensor cores
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared without passing through registers;
+// with pred false nothing is read and the destination is zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies have all landed (then __syncthreads for everyone's)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives, of each matrix i, in r[i], the
+// pair at row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (with .trans: of
+// the transposed matrix)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, f32 accumulator.
+// Lane l = 4 g + t holds c[g][2t, 2t+1] in c[0..1] and c[g+8][2t, 2t+1] in
+// c[2..3]; a[0..3] = a[g][2t..], a[g+8][2t..], a[g][2t+8..], a[g+8][2t+8..]
+// (pairs of bf16); b[0..1] = b[2t, 2t+1][g], b[2t+8, 2t+9][g]
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to nearest-even bf16 (as astype), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// the accumulators of n8 tiles 2j and 2j + 1 (columns 16j .. 16j + 15 of
+// the warp's 16 rows) as the A fragment of k slice j, rounded to bf16
+__device__ __forceinline__ void to_a_frag(uint32_t (&a)[4],
+                                          const float (&c0)[4],
+                                          const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Lane offsets into a shared tile of row stride LD.  kOffA: A fragments
+// (rows r0 + [0, 16), columns k0 + [0, 16)) of a row-major tile, and B
+// fragments through .trans of a tile stored [k][n] (k rows k0 + [0, 16),
+// n columns n0 + [0, 16)): r[0..1] are n tile n0, r[2..3] n tile n0 + 8.
+// kOffB: B fragments of a tile stored [n][k] (n rows n0 + [0, 16), k
+// columns k0 + [0, 16)): r[0..1] are n tile n0, r[2..3] n tile n0 + 8.
+template <int LD> __device__ __forceinline__ int off_a(int lane) {
+  return (lane & 15) * LD + (lane >> 4) * 8;
+}
+template <int LD> __device__ __forceinline__ int off_b(int lane) {
+  return ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+}
+
+// rows [row0, row0 + ROWS) of a row-major [nrows, D] bf16 matrix into a
+// shared tile of row stride D + kPad, by cp.async; rows past nrows are
+// zero-filled (the source address stays in bounds, nothing is read)
+template <int ROWS, int D>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int row0,
+                                        int nrows) {
+  constexpr int kChunks = D / 8;                    // 16 bytes each
+  static_assert(ROWS * kChunks % kMmaThreads == 0, "tile shape");
+#pragma unroll
+  for (int m = 0; m < ROWS * kChunks / kMmaThreads; ++m) {
+    const int i = threadIdx.x + m * kMmaThreads;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int gr = row0 + r;
+    const bool in = gr < nrows;
+    cp_async16(dst + r * (D + kPad) + c, src + (long long)(in ? gr : 0) * D + c,
+               in);
+  }
+}
+
+// per-row f32 values (lse, delta) of rows [row0, row0 + ROWS); zero past
+// nrows
+template <int ROWS>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src,
+                                        int row0, int nrows) {
+  static_assert(ROWS <= kMmaThreads, "rows");
+  if (threadIdx.x < ROWS) {
+    const int gr = row0 + threadIdx.x;
+    cp_async4(dst + threadIdx.x, src + (gr < nrows ? gr : 0), gr < nrows);
+  }
+}
+
+// this warp's 16 output rows, [16][D] f32 accumulators in n8 tiles, rounded
+// to bf16 and stored to rows [row0, row0 + 16) of dst ([nrows, D]) through
+// the warp's own rows of a shared tile (stride D + kPad), 16 bytes a lane;
+// rows past nrows are not written
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, bf16* stage,
+                                           const float (&acc)[D / 8][4],
+                                           int row0, int nrows, int lane) {
+  constexpr int LD = D + kPad;
+  const int g = lane / 4, t = lane % 4;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(stage + g * LD + c) =
+        pack_bf16(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + c) =
+        pack_bf16(acc[nt][2], acc[nt][3]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int m = 0; m < 16 * kChunks / 32; ++m) {
+    const int i = lane + 32 * m;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (row0 + r < nrows)
+      *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+  }
+}
+
+// Q rows of the dK/dV loop's tile: 32 at D = 128, where the dK and dV
+// accumulators take 128 registers a thread, else 64
+__host__ __device__ constexpr int dkv_bq(int d) { return d > 64 ? 32 : 64; }
+
+template <int D>
+__device__ __forceinline__ void dkv_mma(const bf16* q, const bf16* k,
+                                        const bf16* v, const bf16* dout,
+                                        const float* lse, const float* delta,
+                                        bf16* dk, bf16* dv, int tq, int tk,
+                                        const Mask& mask) {
+  constexpr int LD = D + kPad;
+  constexpr int kBq = dkv_bq(D);
+  extern __shared__ float smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);        // [kTile][LD]
+  bf16* sV = sK + kTile * LD;                      // [kTile][LD]
+  bf16* sQ = sV + kTile * LD;                      // [2][kBq][LD]
+  bf16* sdO = sQ + 2 * kBq * LD;                   // [2][kBq][LD]
+  float* sL = reinterpret_cast<float*>(sdO + 2 * kBq * LD);   // [2][kBq]
+  float* sDl = sL + 2 * kBq;                                   // [2][kBq]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  int bh, ik;
+  tile_major_coords((tk + kTile - 1) / kTile, false, &bh, &ik);
+  const int k0 = ik * kTile;
+  const long long qbase = (long long)bh * tq;
+  const bf16* qb = q + qbase * D;
+  const bf16* dob = dout + qbase * D;
+
+  // live Q tiles [iq0, nq): none when the K tile is wholly past kv_len;
+  // under the causal mask, from the first tile whose last row reaches k0
+  const int nq = (tq + kBq - 1) / kBq;
+  int iq0 = 0;
+  if (k0 >= mask.kv_len)
+    iq0 = nq;
+  else if (mask.causal && k0 - mask.q_off > 0)
+    iq0 = min(nq, (k0 - mask.q_off) / kBq);
+
+  auto load_q = [&](int buf, int iq) {
+    cp_tile<kBq, D>(sQ + buf * kBq * LD, qb, iq * kBq, tq);
+    cp_tile<kBq, D>(sdO + buf * kBq * LD, dob, iq * kBq, tq);
+    cp_rows<kBq>(sL + buf * kBq, lse + qbase, iq * kBq, tq);
+    cp_rows<kBq>(sDl + buf * kBq, delta + qbase, iq * kBq, tq);
+  };
+  cp_tile<kTile, D>(sK, k + (long long)bh * tk * D, k0, tk);
+  cp_tile<kTile, D>(sV, v + (long long)bh * tk * D, k0, tk);
+  if (iq0 < nq) load_q(0, iq0);
+  cp_async_commit();
+
+  float acc_dk[D / 8][4] = {}, acc_dv[D / 8][4] = {};
+  const bf16* sKw = sK + warp * 16 * LD;           // this warp's K, V rows
+  const bf16* sVw = sV + warp * 16 * LD;
+  const int oa = off_a<LD>(lane), ob = off_b<LD>(lane);
+  const int krow = k0 + warp * 16 + g;             // and krow + 8
+
+  // At D <= 64 the warp's K and V A fragments stay in registers through
+  // the loop; at D = 128 the dK and dV accumulators leave no room, and
+  // each k slice is read from shared memory when it is used.
+  constexpr int kHeld = D <= 64 ? D / 16 : 1;
+  uint32_t fk[kHeld][4], fv[kHeld][4];
+  if constexpr (kHeld > 1) {
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kHeld; ++kk) {
+      ldsm_x4(fk[kk], sKw + oa + kk * 16);
+      ldsm_x4(fv[kk], sVw + oa + kk * 16);
+    }
+  }
+
+  for (int iq = iq0; iq < nq; ++iq) {
+    const int buf = (iq - iq0) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile iq is in; every warp is done with tile iq - 1
+    if (iq + 1 < nq) load_q(buf ^ 1, iq + 1);
+    cp_async_commit();
+    const bf16* cQ = sQ + buf * kBq * LD;
+    const bf16* cdO = sdO + buf * kBq * LD;
+    const float* cL = sL + buf * kBq;
+    const float* cDl = sDl + buf * kBq;
+    const int q0 = iq * kBq;
+
+    // S^T = K Q^T and dP^T = V dO^T: [16 K rows] x [kBq Q columns]
+    float st[kBq / 8][4] = {}, dpt[kBq / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int f = kHeld > 1 ? kk : 0;
+      if constexpr (kHeld == 1) {
+        ldsm_x4(fk[0], sKw + oa + kk * 16);
+        ldsm_x4(fv[0], sVw + oa + kk * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < kBq / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, cQ + ob + np * 16 * LD + kk * 16);
+        mma_bf16(st[2 * np], fk[f], b[0], b[1]);
+        mma_bf16(st[2 * np + 1], fk[f], b[2], b[3]);
+        ldsm_x4(b, cdO + ob + np * 16 * LD + kk * 16);
+        mma_bf16(dpt[2 * np], fv[f], b[0], b[1]);
+        mma_bf16(dpt[2 * np + 1], fv[f], b[2], b[3]);
+      }
+    }
+
+    // P^T = exp(mask(S^T) - lse[q]), dS^T = P^T (dP^T - delta[q]) scale,
+    // in place, then rounded to bf16 A fragments
+    const bool edge = mask.partial(q0, k0, kTile);
+#pragma unroll
+    for (int nt = 0; nt < kBq / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = nt * 8 + 2 * t + (e & 1);
+        float x = st[nt][e] * mask.scale;
+        if (edge && !mask.valid(q0 + qc, krow + 8 * (e >> 1))) x = kNeg;
+        const float p = expf(x - cL[qc]);
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - cDl[qc]) * mask.scale;
+      }
+    }
+    uint32_t pf[kBq / 16][4], dsf[kBq / 16][4];
+#pragma unroll
+    for (int j = 0; j < kBq / 16; ++j) {
+      to_a_frag(pf[j], st[2 * j], st[2 * j + 1]);     // P to dO's type
+      to_a_frag(dsf[j], dpt[2 * j], dpt[2 * j + 1]);  // dS to Q's type
+    }
+
+    // dV += P^T dO and dK += dS^T Q: [16 K rows] x [D]
+#pragma unroll
+    for (int j = 0; j < kBq / 16; ++j) {
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, cdO + oa + j * 16 * LD + np * 16);
+        mma_bf16(acc_dv[2 * np], pf[j], b[0], b[1]);
+        mma_bf16(acc_dv[2 * np + 1], pf[j], b[2], b[3]);
+        ldsm_x4_t(b, cQ + oa + j * 16 * LD + np * 16);
+        mma_bf16(acc_dk[2 * np], dsf[j], b[0], b[1]);
+        mma_bf16(acc_dk[2 * np + 1], dsf[j], b[2], b[3]);
+      }
+    }
+  }
+
+  cp_async_wait_all();   // nothing in flight into sK, sV (no live tile)
+  __syncthreads();
+  const long long kbase = (long long)bh * tk * D;
+  store_rows<D>(dk + kbase, sK + warp * 16 * LD, acc_dk, k0 + warp * 16, tk,
+                lane);
+  store_rows<D>(dv + kbase, sV + warp * 16 * LD, acc_dv, k0 + warp * 16, tk,
+                lane);
+}
+
+template <int D>
+__device__ __forceinline__ void dq_mma(const bf16* q, const bf16* k,
+                                       const bf16* v, const bf16* dout,
+                                       const float* lse, const float* delta,
+                                       bf16* dq, int tq, int tk,
+                                       const Mask& mask) {
+  constexpr int LD = D + kPad;
+  constexpr int kBk = kTile;
+  extern __shared__ float smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);        // [kTile][LD]
+  bf16* sdO = sQ + kTile * LD;                     // [kTile][LD]
+  bf16* sK = sdO + kTile * LD;                     // [2][kBk][LD]
+  bf16* sV = sK + 2 * kBk * LD;                    // [2][kBk][LD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  int bh, iq;
+  tile_major_coords((tq + kTile - 1) / kTile, mask.causal, &bh, &iq);
+  const int q0 = iq * kTile;
+  const long long qbase = (long long)bh * tq;
+  const bf16* kb = k + (long long)bh * tk * D;
+  const bf16* vb = v + (long long)bh * tk * D;
+
+  // live K tiles [0, nk): before kv_len and, under the causal mask, not
+  // wholly in the future of the tile's last row
+  int nk = min((tk + kBk - 1) / kBk, (mask.kv_len + kBk - 1) / kBk);
+  if (mask.causal) {
+    const int last = mask.q_off + q0 + kTile - 1;
+    nk = last < 0 ? 0 : min(nk, last / kBk + 1);
+  }
+
+  cp_tile<kTile, D>(sQ, q + qbase * D, q0, tq);
+  cp_tile<kTile, D>(sdO, dout + qbase * D, q0, tq);
+  if (nk > 0) {
+    cp_tile<kBk, D>(sK, kb, 0, tk);
+    cp_tile<kBk, D>(sV, vb, 0, tk);
+  }
+  cp_async_commit();
+
+  // lse and delta of this thread's two rows, qrow and qrow + 8
+  const int qrow = q0 + warp * 16 + g;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = qrow + 8 * i < tq;
+    lr[i] = in ? lse[qbase + qrow + 8 * i] : 0.0f;
+    dr[i] = in ? delta[qbase + qrow + 8 * i] : 0.0f;
+  }
+
+  float acc[D / 8][4] = {};
+  const bf16* sQw = sQ + warp * 16 * LD;           // this warp's Q, dO rows
+  const bf16* sdOw = sdO + warp * 16 * LD;
+  const int oa = off_a<LD>(lane), ob = off_b<LD>(lane);
+
+  for (int it = 0; it < nk; ++it) {
+    const int buf = it & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile it is in; every warp is done with tile it - 1
+    if (it + 1 < nk) {
+      cp_tile<kBk, D>(sK + (buf ^ 1) * kBk * LD, kb, (it + 1) * kBk, tk);
+      cp_tile<kBk, D>(sV + (buf ^ 1) * kBk * LD, vb, (it + 1) * kBk, tk);
+    }
+    cp_async_commit();
+    const bf16* cK = sK + buf * kBk * LD;
+    const bf16* cV = sV + buf * kBk * LD;
+    const int k0 = it * kBk;
+
+    // S = Q K^T and dP = dO V^T: [16 Q rows] x [kBk K columns]
+    float s[kBk / 8][4] = {}, dp[kBk / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, sQw + oa + kk * 16);
+      ldsm_x4(ado, sdOw + oa + kk * 16);
+#pragma unroll
+      for (int np = 0; np < kBk / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, cK + ob + np * 16 * LD + kk * 16);
+        mma_bf16(s[2 * np], aq, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], aq, b[2], b[3]);
+        ldsm_x4(b, cV + ob + np * 16 * LD + kk * 16);
+        mma_bf16(dp[2 * np], ado, b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], ado, b[2], b[3]);
+      }
+    }
+
+    // dS = exp(mask(S) - lse) (dP - delta) scale, rounded to K's type
+    const bool edge = mask.partial(q0, k0, kBk);
+#pragma unroll
+    for (int nt = 0; nt < kBk / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = s[nt][e] * mask.scale;
+        if (edge && !mask.valid(qrow + 8 * i, k0 + nt * 8 + 2 * t + (e & 1)))
+          x = kNeg;
+        const float p = expf(x - lr[i]);
+        dp[nt][e] = p * (dp[nt][e] - dr[i]) * mask.scale;
+      }
+    }
+    uint32_t dsf[kBk / 16][4];
+#pragma unroll
+    for (int j = 0; j < kBk / 16; ++j)
+      to_a_frag(dsf[j], dp[2 * j], dp[2 * j + 1]);
+
+    // dQ += dS K: [16 Q rows] x [D]
+#pragma unroll
+    for (int j = 0; j < kBk / 16; ++j) {
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, cK + oa + j * 16 * LD + np * 16);
+        mma_bf16(acc[2 * np], dsf[j], b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], dsf[j], b[2], b[3]);
+      }
+    }
+  }
+
+  cp_async_wait_all();   // nothing in flight into sQ (no live tile)
+  __syncthreads();
+  store_rows<D>(dq + qbase * D, sQ + warp * 16 * LD, acc, q0 + warp * 16, tq,
+                lane);
+}
+
+// threads and dynamic shared memory of the backward kernels
+template <typename T, int D> struct Bwd {           // f32: SIMT
+  static constexpr int threads = kThreads;
+  static constexpr int dkv_smem =
+      (4 * kTile * (D + 1) + 2 * kTile * kLdp + 2 * kTile) * 4;
+  static constexpr int dq_smem =
+      (4 * kTile * (D + 1) + kTile * kLdp + 2 * kTile) * 4;
+};
+template <int D> struct Bwd<bf16, D> {              // bf16: tensor cores
+  static constexpr int threads = kMmaThreads;
+  static constexpr int dkv_smem =
+      (2 * kTile + 4 * dkv_bq(D)) * (D + kPad) * 2 + 4 * dkv_bq(D) * 4;
+  static constexpr int dq_smem = 6 * kTile * (D + kPad) * 2;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Bwd<T, D>::threads)
+bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv, int tq, int tk, Mask mask) {
+  if constexpr (std::is_same<T, bf16>::value)
+    dkv_mma<D>(q, k, v, dout, lse, delta, dk, dv, tq, tk, mask);
+  else
+    dkv_simt<T, D>(q, k, v, dout, lse, delta, dk, dv, tq, tk, mask);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Bwd<T, D>::threads)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dq, int tq,
+              int tk, Mask mask) {
+  if constexpr (std::is_same<T, bf16>::value)
+    dq_mma<D>(q, k, v, dout, lse, delta, dq, tq, tk, mask);
+  else
+    dq_simt<T, D>(q, k, v, dout, lse, delta, dq, tq, tk, mask);
+}
+
 // ------------------------------------------------------------------ launch
 
 constexpr int fwd_smem(int d) { return (3 * kTile * (d + 1) + kTile * kLdp) * 4; }
-constexpr int dkv_smem(int d) {
-  return (4 * kTile * (d + 1) + 2 * kTile * kLdp + 2 * kTile) * 4;
-}
-constexpr int dq_smem(int d) {
-  return (4 * kTile * (d + 1) + kTile * kLdp + 2 * kTile) * 4;
-}
 
 // dynamic shared memory above 48 KB must be allowed once per kernel
 template <typename K>
@@ -438,6 +964,15 @@ struct Args {
   cudaStream_t stream;
 };
 
+// cp.async and the 16-byte stores of the tensor-core kernels need every
+// [BH, T, D] tensor 16-byte aligned
+bool aligned16(const Args& a) {
+  for (const void* p : {a.q, a.k, a.v, a.dout, (const void*)a.dk,
+                        (const void*)a.dv, (const void*)a.dq})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 template <typename T, int D>
 cudaError_t run(int which, const Args& a) {
   const T* q = static_cast<const T*>(a.q);
@@ -445,22 +980,27 @@ cudaError_t run(int which, const Args& a) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   const int nq = (a.tq + kTile - 1) / kTile, nk = (a.tk + kTile - 1) / kTile;
+  constexpr int threads = Bwd<T, D>::threads;
   cudaError_t err;
+  if (which != 0 && std::is_same<T, bf16>::value && !aligned16(a))
+    return cudaErrorMisalignedAddress;
   if (which == 0) {
     err = allow_smem(fwd_kernel<T, D>, fwd_smem(D));
     if (err != cudaSuccess) return err;
     fwd_kernel<T, D><<<a.bh * nq, kThreads, fwd_smem(D), a.stream>>>(
         q, k, v, static_cast<T*>(a.o), a.lse_out, a.tq, a.tk, a.mask);
   } else if (which == 1) {
-    err = allow_smem(bwd_dkv_kernel<T, D>, dkv_smem(D));
+    constexpr int smem = Bwd<T, D>::dkv_smem;
+    err = allow_smem(bwd_dkv_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
-    bwd_dkv_kernel<T, D><<<a.bh * nk, kThreads, dkv_smem(D), a.stream>>>(
+    bwd_dkv_kernel<T, D><<<a.bh * nk, threads, smem, a.stream>>>(
         q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.tq, a.tk, a.mask);
   } else {
-    err = allow_smem(bwd_dq_kernel<T, D>, dq_smem(D));
+    constexpr int smem = Bwd<T, D>::dq_smem;
+    err = allow_smem(bwd_dq_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
-    bwd_dq_kernel<T, D><<<a.bh * nq, kThreads, dq_smem(D), a.stream>>>(
+    bwd_dq_kernel<T, D><<<a.bh * nq, threads, smem, a.stream>>>(
         q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.tq, a.tk,
         a.mask);
   }
@@ -481,7 +1021,7 @@ cudaError_t run_d(int which, int d, const Args& a) {
 int dispatch(int which, int dtype, int d, const Args& a) {
   if (a.bh <= 0 || a.tq <= 0 || a.tk <= 0) return 0;
   if (dtype == 0) return run_d<float>(which, d, a);
-  if (dtype == 1) return run_d<__nv_bfloat16>(which, d, a);
+  if (dtype == 1) return run_d<bf16>(which, d, a);
   return cudaErrorInvalidValue;
 }
 

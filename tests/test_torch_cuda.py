@@ -8,7 +8,8 @@ the port is installed:
 Each CUDA kernel is held against its plain version on the same inputs:
 the onebit kernels bit-exact in words and values, their scale (an L1 sum
 taken in another order) to rtol 1e-6; the flash kernels to the
-tolerances stated in ``test_flash_kernels_match_plain``.
+tolerances stated in ``test_flash_kernels_match_plain``, which are
+``chip_smoke.py``'s (its ``row_share`` and ``FLASH_BF16_TOL``).
 """
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from byteps_tpu_torch.ops import onebit_kernels as ok
+from chip_smoke import FLASH_BF16_TOL, row_share
 
 pytestmark = pytest.mark.cuda
 
@@ -114,9 +116,6 @@ FLASH_CASES = [   # (bh, tq, tk, d, causal, kv_len)
     (2, 64, 256, 64, True, 256), (2, 130, 70, 128, False, 70),
     (2, 100, 100, 48, False, 37), (2, 64, 256, 64, True, 200),
 ]
-# bf16 bounds (row share, share of elements that differ at all), as in
-# chip_smoke.py: (forward, gradients)
-FLASH_BF16_TOL = ((2**-6, 1.0), (2**-7, 2**-10))
 
 
 def _flash_inputs(card, bh, tq, tk, d, dtype, seed):
@@ -126,16 +125,6 @@ def _flash_inputs(card, bh, tq, tk, d, dtype, seed):
     return [t.to(card, dtype) for t in (q, k, v, do)]
 
 
-def _row_share(got, want):
-    """The largest, over rows, of the row's max |got - want| over the row's
-    max |want|; inf where a row that is zero in ``want`` is not in ``got``."""
-    diff = (got.float() - want.float()).abs().amax(-1)
-    top = want.float().abs().amax(-1)
-    share = torch.where(top > 0, diff / top.clamp_min(1e-30),
-                        torch.where(diff > 0, np.inf, 0.0))
-    return float(share.max())
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,tq,tk,d,causal,kv_len", FLASH_CASES)
 def test_flash_kernels_match_plain(card, dtype, bh, tq, tk, d, causal,
@@ -143,17 +132,30 @@ def test_flash_kernels_match_plain(card, dtype, bh, tq, tk, d, causal,
     """Each kernel against its plain version on the same inputs.  f32:
     the JAX tests' tolerances (2e-5 forward, 5e-4 gradients; sums in
     another order).  bf16 (FLASH_BF16_TOL): each row of each output is
-    held against that row's max-abs, so a row of small values cannot hide
-    behind a large one elsewhere.  The forward's P is exponentiated
-    against the running max, so it can round the other way: two bf16
-    steps of the row's max.  The backward kernels recompute P and dS as
-    the plain versions do: one step of the row's max, and at most 2**-10
-    of the elements may differ at all (P and dS left in f32 change about
-    40 % of them)."""
+    held against that row's max-abs (no smaller than 2**-10 of the
+    tensor's, so that a row of cancellation noise is held to the tensor's
+    scale), so a row of small values cannot hide behind a large one
+    elsewhere: two bf16 steps of the row's max.  The forward's P is
+    exponentiated against the running max and the backward kernels sum on
+    tensor cores in another order, so P and dS can round the other way;
+    at most 2**-6 of the gradients' elements may differ at all (P and dS
+    left in f32 change 32-43 % of them)."""
+    _check_flash(card, dtype, bh, tq, tk, d, causal, tk - tq, kv_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_at_ring_offset(card, dtype):
+    """A ring step's runtime mask: q_off = 32, not a multiple of the
+    64-row tile, so the diagonal crosses two K tiles, and kv_len = 100
+    cuts the second; the same bounds."""
+    _check_flash(card, dtype, 3, 128, 128, 64, True, 32, 100)
+
+
+def _check_flash(card, dtype, bh, tq, tk, d, causal, q_off, kv_len):
     from byteps_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = _flash_inputs(card, bh, tq, tk, d, dtype, tq + d)
-    scale, q_off = 1.0 / np.sqrt(d), tk - tq
+    scale = 1.0 / np.sqrt(d)
     args = (scale, causal, q_off, kv_len)
     o, lse = fa.flash_fwd(q, k, v, *args)
     o0, lse0 = fa.flash_fwd_plain(q, k, v, *args)
@@ -173,9 +175,22 @@ def test_flash_kernels_match_plain(card, dtype, bh, tq, tk, d, causal,
     else:
         torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-4)
         for i, (g, w) in enumerate(zip(got, want)):
-            share, frac = _row_share(g, w), float((g != w).float().mean())
+            share, frac = row_share(g, w), float((g != w).float().mean())
             rs_tol, frac_tol = FLASH_BF16_TOL[i > 0]
             assert share <= rs_tol and frac <= frac_tol, (i, share, frac)
+
+
+def test_flash_backward_is_repeatable(card):
+    """Two runs of the bf16 backward kernels give the same bits: no
+    atomics, no order that changes between runs."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(card, 8, 512, 512, 128, torch.bfloat16, 12)
+    args = (1.0 / np.sqrt(128), True, 0, 512)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    bwd = (q, k, v, do, lse, fa.delta(do, o), *args)
+    first = fa.flash_bwd(*bwd)
+    assert all(torch.equal(a, b) for a, b in zip(first, fa.flash_bwd(*bwd)))
 
 
 def test_flash_wrappers_count_and_reject(card):

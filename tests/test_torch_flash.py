@@ -7,6 +7,8 @@ run them on the CPU) and through the port, whose wrappers run their plain
 versions for CPU tensors.  Tolerances are the JAX package's own flash
 tests': 2e-5 for the forward and lse, 5e-4 for gradients (f32; the two
 sides sum in other orders, and the gradients chain more of those sums).
+In bf16 the two sides are held to the rounding points instead (see
+``test_bf16_rounding_points_match_jax_kernels``).
 """
 
 import math
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from byteps_tpu.ops.flash_attention import _bwd_impl, _delta, _fwd
 from byteps_tpu.ops.flash_attention import flash_attention as jax_flash
 from byteps_tpu.parallel import full_attention as jax_full_attention
@@ -216,3 +219,126 @@ def test_entry_points_reject_kv_len_outside_keys(kv_len):
 def test_kernel_dim_rejects_large_heads():
     with pytest.raises(ValueError, match="head sizes up to 128"):
         fa.kernel_dim(129)
+
+
+# name: (bh, tq, tk, d, causal, q_off, kv_len)
+BF16_CASES = {
+    "t128": (4, 128, 128, 64, False, 0, 128),
+    "t128_causal": (4, 128, 128, 64, True, 0, 128),
+    "ragged_t100_d48_causal": (3, 100, 100, 48, True, 0, 100),
+    "ragged_t72_d32_causal": (2, 72, 72, 32, True, 0, 72),
+    "decode_tq64_tk256": (2, 64, 256, 64, True, 192, 256),
+    "ring_qoff32_kvlen100": (3, 128, 128, 64, True, 32, 100),
+}
+
+
+@pytest.mark.parametrize("name", BF16_CASES)
+def test_bf16_rounding_points_match_jax_kernels(name):
+    """bf16 inputs through the JAX package's ``_fwd`` and ``_bwd_impl``
+    (interpret mode, 64-row blocks, T zero-padded to them) and through
+    ``flash_fwd_plain``, ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``,
+    the backward fed JAX's lse and delta.  Both round P to dO's (and V's)
+    type and dS to Q's and K's before the products that use them, sum in
+    f32, and round the outputs; they differ only in sum order.
+
+    Tolerances, with ``chip_smoke.row_share`` (each row's max |diff| over
+    its max |JAX|, no smaller than 2**-10 of the tensor's max-abs, which
+    holds causal query row 0, whose dQ is cancellation noise, to the
+    tensor's scale): the forward to 2**-6 (P is rounded against JAX's
+    running max and can round the other way; read: up to 7.7e-3); the
+    gradients to 2**-7 (read: up to 3.8e-3), with at most 2**-6 of their
+    elements differing (read: up to 3.3e-3).  The control, the plain
+    backward on f32 inputs (P and dS left in f32), must differ on at least
+    25 % of the gradient elements (read: 32-42 %), so a missing rounding
+    point shows."""
+    bh, tq, tk, d, causal, q_off, kv_len = BF16_CASES[name]
+    rng = np.random.RandomState(20 + sorted(BF16_CASES).index(name))
+    q, do = (rng.randn(bh, tq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(bh, tk, d).astype(np.float32) for _ in range(2))
+    scale, block = 1.0 / math.sqrt(d), 64
+
+    def to_jax(x):
+        t = -(-x.shape[1] // block) * block
+        return jnp.asarray(np.pad(x, ((0, 0), (0, t - x.shape[1]), (0, 0))),
+                           jnp.bfloat16)
+
+    def to_torch(x, t):   # unpadded rows, f32 values of the bf16 result
+        return torch.from_numpy(np.asarray(x[:, :t].astype(jnp.float32)))
+
+    jq, jk, jv, jdo = map(to_jax, (q, k, v, do))
+    jo, jlse = _fwd(jq, jk, jv, scale, causal, q_off, kv_len, block, block,
+                    True)
+    jdelta = _delta(jdo, jo)
+    jdq, jdk, jdv = _bwd_impl(jq, jk, jv, jdo, jlse, jdelta, scale, causal,
+                              q_off, kv_len, block, block, True)
+
+    tq_, tk_, tv_, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                          for x in (q, k, v, do))
+    args = (scale, causal, q_off, kv_len)
+    lse = to_torch(jlse, tq)[..., 0].contiguous()
+    dlt = to_torch(jdelta, tq)[..., 0].contiguous()
+    o, _ = fa.flash_fwd_plain(tq_, tk_, tv_, *args)
+    assert chip_smoke.row_share(o, to_torch(jo, tq)) <= 2**-6
+    bwd = (tq_, tk_, tv_, tdo, lse, dlt, *args)
+    got = [*fa.flash_bwd_dkv_plain(*bwd), fa.flash_bwd_dq_plain(*bwd)]
+    f32 = [t.float() for t in (tq_, tk_, tv_, tdo)]
+    fbwd = (*f32, lse, dlt, *args)
+    ctl = [*fa.flash_bwd_dkv_plain(*fbwd), fa.flash_bwd_dq_plain(*fbwd)]
+    want = [to_torch(jdk, tk), to_torch(jdv, tk), to_torch(jdq, tq)]
+    for g, w, c, what in zip(got, want, ctl, ("dk", "dv", "dq")):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, what
+        g = g.float()
+        assert chip_smoke.row_share(g, w) <= 2**-7, what
+        assert float((g != w).float().mean()) <= 2**-6, what
+        c = c.to(torch.bfloat16).float()
+        assert float((c != w).float().mean()) >= 0.25, what
+
+
+def test_chip_smoke_bf16_checks_hold_cancellation_rows():
+    """``chip_smoke.check_bf16`` on the plain versions at a small causal
+    shape with q_off = 0.  The stand-in for a kernel is the plain versions
+    run over a permuted head dimension (the same values summed in another
+    order, as a kernel sums them).  Causal query row 0 sees one key, so
+    its dS = P (dP - delta) subtracts two sums of the same products and its
+    dQ is rounding noise, whose two orders disagree: without the floor of
+    ``row_share`` that row reads as inf; with it the check passes.  The
+    control, P and dS left in f32, fails the same check."""
+    rng = np.random.RandomState(0)
+    bh, t, d = 4, 128, 64
+    q, k, v, do = (torch.from_numpy(rng.randn(bh, t, d).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    args = (1.0 / math.sqrt(d), True, 0, t)
+    perm = torch.from_numpy(np.random.RandomState(1).permutation(d))
+    inv = torch.argsort(perm)
+
+    def permuted(fn, xs, *rest):   # xs: the [BH, T, D] inputs
+        out = fn(*(x[..., perm].contiguous() for x in xs), *rest)
+        return [o[..., inv] for o in (out if isinstance(out, tuple)
+                                      else (out,))]
+
+    o0, lse = fa.flash_fwd_plain(q, k, v, *args)
+    dlt = fa.delta(do, o0)
+    bwd = (q, k, v, do, lse, dlt, *args)
+    f32 = [x.float() for x in (q, k, v, do)]
+    fbwd = (*f32, lse, dlt, *args)
+    want = {"flash_fwd": [o0],
+            "flash_bwd_dkv": list(fa.flash_bwd_dkv_plain(*bwd)),
+            "flash_bwd_dq": [fa.flash_bwd_dq_plain(*bwd)]}
+    got = {"flash_fwd": permuted(lambda *a: fa.flash_fwd_plain(*a)[0],
+                                 (q, k, v), *args),
+           "flash_bwd_dkv": permuted(fa.flash_bwd_dkv_plain, bwd[:4],
+                                     *bwd[4:]),
+           "flash_bwd_dq": permuted(fa.flash_bwd_dq_plain, bwd[:4],
+                                    *bwd[4:])}
+    ctl = {"flash_fwd": [fa.flash_fwd_plain(*f32[:3], *args)[0]],
+           "flash_bwd_dkv": list(fa.flash_bwd_dkv_plain(*fbwd)),
+           "flash_bwd_dq": [fa.flash_bwd_dq_plain(*fbwd)]}
+    dq, dq0 = got["flash_bwd_dq"][0], want["flash_bwd_dq"][0]
+    assert not torch.equal(dq, dq0)
+    assert math.isinf(chip_smoke.row_share(dq, dq0, floor=0.0))
+    chip_smoke.check_bf16("permuted D", {k: (got[k], want[k]) for k in got},
+                          ctl)
+    with pytest.raises(RuntimeError, match="differs from its plain version"):
+        chip_smoke.check_bf16(
+            "control", {k: ([c.to(torch.bfloat16) for c in ctl[k]],
+                            want[k]) for k in ctl}, ctl)
