@@ -27,7 +27,8 @@
 // tiles and carries the sums in VMEM scratch; here each block owns one
 // output tile and loops over the reduction tiles itself:
 //
-//   forward  one block per (bh, 64-row Q tile), loop over K/V tiles;
+//   forward  one block per (bh, Q tile: 128 rows in bf16, 64 in f32),
+//            loop over 64-wide K/V tiles;
 //   dK/dV    one block per (bh, 64-row K tile), loop over Q tiles;
 //   dQ       one block per (bh, 64-row Q tile), loop over K tiles.
 //
@@ -43,7 +44,7 @@
 //
 // Two designs:
 //
-// * SIMT (the forward, and the f32 backward).  256 threads form a 16 x 16
+// * SIMT (the f32 instances).  256 threads form a 16 x 16
 //   grid; thread (ty, tx) owns rows ty + 16i (i < 4) and columns tx + 16j
 //   of every 64-wide tile, so a row of a score tile lives in the 16 lanes
 //   of one half-warp and its max and sum are shuffles.  Tiles sit in
@@ -52,16 +53,25 @@
 //   products run as f32 FMAs on the CUDA cores (67 TFLOP/s at most); f32
 //   stays there, since TF32 tensor cores would miss the JAX tests' 5e-4.
 //
-// * Tensor cores (the bf16 backward).  Four warps, each owning 16 rows of
-//   the 64-row output tile, run every product as
+// * Tensor cores (the bf16 instances).  Four warps, each owning 16 rows
+//   of the output tile (32 in the forward), run every product as
 //   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands, f32
 //   accumulators in registers.  Tiles stay bf16 in shared memory, rows
 //   padded to D + 8 elements so that ldmatrix's eight 16-byte row reads
 //   fall in distinct banks, and arrive by cp.async (16 bytes a thread,
 //   zero-filled past T).  The tile the loop walks (Q, dO, lse and delta
-//   for dK/dV; K and V for dQ) is double-buffered: each iteration waits
-//   for its tile, passes one __syncthreads, issues the next tile's copy
-//   and computes while it lands.
+//   for dK/dV; K and V for the forward and dQ) is double-buffered: each
+//   iteration waits for its tile, passes one __syncthreads, issues the
+//   next tile's copy and computes while it lands.
+//     The forward gives each warp 32 Q rows (two m tiles, so that each K
+//   or V fragment read from shared memory feeds two products), computes
+//   S = Q K^T with K as the B operand (plain ldmatrix), and runs
+//   _fwd_kernel's online softmax on the accumulators: scale, masks, the
+//   row max over the four lanes of a quad, p = exp(s - m_new), l from the
+//   f32 p, O rescaled by alpha.  Two adjacent n8 tiles of P repack into one
+//   bf16 A fragment (JAX's p.astype(v.dtype)) for O += P V, with V through
+//   ldmatrix.trans.  The key tile is 64 wide (kFwdBlockK), since where P
+//   is rounded depends on it.
 //     dK/dV computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are
 //   accumulators with the warp's K rows as rows; the scale, the masks
 //   and exp(s - lse[q]) apply there (lse and delta are per column).  Two
@@ -78,8 +88,8 @@
 //     The masks are evaluated only in tiles that cross the causal
 //   diagonal or kv_len.  The dK/dV loop starts at the first live Q tile.
 //   Blocks run heavy-first over the whole grid (tile_major_coords): early
-//   K tiles for dK/dV, late Q tiles for dQ, every head's before the next
-//   tile of any, so that the light tiles fill the tail.
+//   K tiles for dK/dV, late Q tiles for the forward and dQ, every head's
+//   before the next tile of any, so that the light tiles fill the tail.
 //   Outputs are rounded to bf16, staged through each warp's own rows of
 //   shared memory and stored 16 bytes a lane.  The sum order differs from
 //   the plain version's, so results agree with it to rounding, not bit for
@@ -267,13 +277,12 @@ __device__ __forceinline__ void tile_major_coords(int ntiles, bool reverse,
   *tile = reverse ? ntiles - 1 - t : t;
 }
 
-// ----------------------------------------------------------------- forward
+// ------------------------------------------------------ forward, f32 SIMT
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
-           float* __restrict__ lse, int tq, int tk, Mask mask) {
+__device__ __forceinline__ void fwd_simt(const T* q, const T* k, const T* v,
+                                         T* o, float* lse, int tq, int tk,
+                                         const Mask& mask) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + kTile * (D + 1);
@@ -901,6 +910,232 @@ __device__ __forceinline__ void dq_mma(const bf16* q, const bf16* k,
                 lane);
 }
 
+// ------------------------------------------------ forward, bf16 tensor cores
+
+// Width of the forward's key tile.  P is rounded to bf16 against the
+// running row max of each key tile, so the result depends on it: it must
+// equal FWD_BLOCK_K in ops/flash_attention.py, whose reference walks the
+// keys in blocks of that width.
+constexpr int kFwdBlockK = 64;
+
+// Q rows of a forward block: four warps of two 16-row m tiles each, so
+// that every K and V fragment read from shared memory feeds two m tiles.
+// At D = 128 that takes 255 registers a thread without spilling; Q is read
+// from shared memory at each k slice rather than held.  (The Q tile's
+// height changes no result: rows are independent.)
+constexpr int kFwdMt = 2;
+constexpr int kFwdBq = 4 * 16 * kFwdMt;
+
+// the max and the sum of row half i (elements 2i, 2i + 1) of N n8 tiles,
+// as trees, so that the dependent chains are log2(2N) long
+template <int N>
+__device__ __forceinline__ float tree_max(const float (&c)[N][4], int i) {
+  float x[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) x[n] = fmaxf(c[n][2 * i], c[n][2 * i + 1]);
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int n = 0; n < w; ++n) x[n] = fmaxf(x[n], x[n + w]);
+  return x[0];
+}
+
+template <int N>
+__device__ __forceinline__ float tree_sum(const float (&c)[N][4], int i) {
+  float x[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) x[n] = c[n][2 * i] + c[n][2 * i + 1];
+#pragma unroll
+  for (int w = N / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int n = 0; n < w; ++n) x[n] += x[n + w];
+  return x[0];
+}
+
+template <int D>
+__device__ __forceinline__ void fwd_mma(const bf16* q, const bf16* k,
+                                        const bf16* v, bf16* o, float* lse,
+                                        int tq, int tk, const Mask& mask) {
+  constexpr int LD = D + kPad;
+  constexpr int kMt = kFwdMt, kBq = kFwdBq, kBk = kFwdBlockK;
+  extern __shared__ float smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);        // [kBq][LD]
+  bf16* sK = sQ + kBq * LD;                        // [2][kBk][LD]
+  bf16* sV = sK + 2 * kBk * LD;                    // [2][kBk][LD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  int bh, iq;
+  tile_major_coords((tq + kBq - 1) / kBq, mask.causal, &bh, &iq);
+  const int q0 = iq * kBq;
+  const int w0 = q0 + warp * kMt * 16;             // the warp's first row
+  const long long qbase = (long long)bh * tq;
+  const bf16* kb = k + (long long)bh * tk * D;
+  const bf16* vb = v + (long long)bh * tk * D;
+
+  // live K tiles [0, nk): before kv_len and, under the causal mask, not
+  // wholly in the future of the tile's last row
+  int nk = min((tk + kBk - 1) / kBk, (mask.kv_len + kBk - 1) / kBk);
+  if (mask.causal) {
+    const int last = mask.q_off + q0 + kBq - 1;
+    nk = last < 0 ? 0 : min(nk, last / kBk + 1);
+  }
+
+  cp_tile<kBq, D>(sQ, q + qbase * D, q0, tq);
+  if (nk > 0) {
+    cp_tile<kBk, D>(sK, kb, 0, tk);
+    cp_tile<kBk, D>(sV, vb, 0, tk);
+  }
+  cp_async_commit();
+
+  // running max and sum of rows g and g + 8 of each m tile, and O
+  float m[kMt][2], l[kMt][2], acc[kMt][D / 8][4] = {};
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[mt][i] = kNeg;
+      l[mt][i] = 0.0f;
+    }
+  const bf16* sQw = sQ + (w0 - q0) * LD;           // the warp's Q rows
+  const int oa = off_a<LD>(lane), ob = off_b<LD>(lane);
+
+  for (int it = 0; it < nk; ++it) {
+    const int buf = it & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile it is in; every warp is done with tile it - 1
+    if (it + 1 < nk) {
+      cp_tile<kBk, D>(sK + (buf ^ 1) * kBk * LD, kb, (it + 1) * kBk, tk);
+      cp_tile<kBk, D>(sV + (buf ^ 1) * kBk * LD, vb, (it + 1) * kBk, tk);
+    }
+    cp_async_commit();
+    const bf16* cK = sK + buf * kBk * LD;
+    const bf16* cV = sV + buf * kBk * LD;
+    const int k0 = it * kBk;
+
+    // S = Q K^T: [16 kMt Q rows] x [kBk K columns], Q as A fragments, K
+    // as the B operand (plain ldmatrix)
+    float s[kMt][kBk / 8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[kMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+        ldsm_x4(a[mt], sQw + mt * 16 * LD + oa + kk * 16);
+#pragma unroll
+      for (int np = 0; np < kBk / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, cK + ob + np * 16 * LD + kk * 16);
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          mma_bf16(s[mt][2 * np], a[mt], b[0], b[1]);
+          mma_bf16(s[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+
+    // the online softmax of _fwd_kernel, in registers: the scale (rounded
+    // before the subtraction, as the plain version rounds it), the masks
+    // where the tile crosses the diagonal or kv_len, the new row max over
+    // the quad's four lanes, p = exp(s - m_new), l from the f32 p, O
+    // rescaled by alpha (skipped, exactly, where every alpha is 1)
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kBk / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[mt][nt][e] = __fmul_rn(s[mt][nt][e], mask.scale);
+    if (mask.partial(w0, k0, kBk)) {
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kBk / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!mask.valid(w0 + mt * 16 + g + 8 * (e >> 1),
+                            k0 + nt * 8 + 2 * t + (e & 1)))
+              s[mt][nt][e] = kNeg;
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+      float m_new[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = tree_max<kBk / 8>(s[mt], i);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m_new[i] = fmaxf(m[mt][i], mx);
+        alpha[i] = expf(m[mt][i] - m_new[i]);
+        m[mt][i] = m_new[i];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kBk / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[mt][nt][e] = expf(s[mt][nt][e] - m_new[e >> 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float ps = tree_sum<kBk / 8>(s[mt], i);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        l[mt][i] = l[mt][i] * alpha[i] + ps;
+      }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          acc[mt][nt][0] *= alpha[0];
+          acc[mt][nt][1] *= alpha[0];
+          acc[mt][nt][2] *= alpha[1];
+          acc[mt][nt][3] *= alpha[1];
+        }
+      }
+    }
+
+    // O += P V: P rounded to bf16 A fragments (p.astype(v.dtype)), V as
+    // the B operand through ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < kBk / 16; ++j) {
+      uint32_t pf[kMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+        to_a_frag(pf[mt], s[mt][2 * j], s[mt][2 * j + 1]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, cV + oa + j * 16 * LD + np * 16);
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          mma_bf16(acc[mt][2 * np], pf[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * np + 1], pf[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // O = acc / max(l, 1e-30), a division as _fwd_kernel writes it, rounded
+  // to bf16 and stored through the warp's own Q rows of shared memory
+  // (only this warp read them); lse = m + log(max(l, 1e-30))
+  cp_async_wait_all();   // nothing in flight into sQ when no tile is live
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+    const int row0 = w0 + mt * 16;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float lc = fmaxf(l[mt][i], 1e-30f);
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        acc[mt][nt][2 * i] = acc[mt][nt][2 * i] / lc;
+        acc[mt][nt][2 * i + 1] = acc[mt][nt][2 * i + 1] / lc;
+      }
+      const int row = row0 + g + 8 * i;
+      if (t == 0 && row < tq) lse[qbase + row] = m[mt][i] + logf(lc);
+    }
+    store_rows<D>(o + qbase * D, sQ + (row0 - q0) * LD, acc[mt], row0, tq,
+                  lane);
+  }
+}
+
 // threads and dynamic shared memory of the backward kernels
 template <typename T, int D> struct Bwd {           // f32: SIMT
   static constexpr int threads = kThreads;
@@ -915,6 +1150,29 @@ template <int D> struct Bwd<bf16, D> {              // bf16: tensor cores
       (2 * kTile + 4 * dkv_bq(D)) * (D + kPad) * 2 + 4 * dkv_bq(D) * 4;
   static constexpr int dq_smem = 6 * kTile * (D + kPad) * 2;
 };
+
+// threads, Q rows and dynamic shared memory of a forward block
+template <typename T, int D> struct Fwd {           // f32: SIMT
+  static constexpr int threads = kThreads;
+  static constexpr int bq = kTile;
+  static constexpr int smem = (3 * kTile * (D + 1) + kTile * kLdp) * 4;
+};
+template <int D> struct Fwd<bf16, D> {              // bf16: tensor cores
+  static constexpr int threads = kMmaThreads;
+  static constexpr int bq = kFwdBq;
+  static constexpr int smem = (kFwdBq + 4 * kFwdBlockK) * (D + kPad) * 2;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Fwd<T, D>::threads)
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ o,
+           float* __restrict__ lse, int tq, int tk, Mask mask) {
+  if constexpr (std::is_same<T, bf16>::value)
+    fwd_mma<D>(q, k, v, o, lse, tq, tk, mask);
+  else
+    fwd_simt<T, D>(q, k, v, o, lse, tq, tk, mask);
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(Bwd<T, D>::threads)
@@ -944,8 +1202,6 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-constexpr int fwd_smem(int d) { return (3 * kTile * (d + 1) + kTile * kLdp) * 4; }
-
 // dynamic shared memory above 48 KB must be allowed once per kernel
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -965,10 +1221,11 @@ struct Args {
 };
 
 // cp.async and the 16-byte stores of the tensor-core kernels need every
-// [BH, T, D] tensor 16-byte aligned
+// [BH, T, D] tensor 16-byte aligned (those a kernel does not take are null)
 bool aligned16(const Args& a) {
-  for (const void* p : {a.q, a.k, a.v, a.dout, (const void*)a.dk,
-                        (const void*)a.dv, (const void*)a.dq})
+  for (const void* p : {a.q, a.k, a.v, a.dout, (const void*)a.o,
+                        (const void*)a.dk, (const void*)a.dv,
+                        (const void*)a.dq})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
 }
@@ -982,12 +1239,14 @@ cudaError_t run(int which, const Args& a) {
   const int nq = (a.tq + kTile - 1) / kTile, nk = (a.tk + kTile - 1) / kTile;
   constexpr int threads = Bwd<T, D>::threads;
   cudaError_t err;
-  if (which != 0 && std::is_same<T, bf16>::value && !aligned16(a))
+  if (std::is_same<T, bf16>::value && !aligned16(a))
     return cudaErrorMisalignedAddress;
   if (which == 0) {
-    err = allow_smem(fwd_kernel<T, D>, fwd_smem(D));
+    using F = Fwd<T, D>;
+    err = allow_smem(fwd_kernel<T, D>, F::smem);
     if (err != cudaSuccess) return err;
-    fwd_kernel<T, D><<<a.bh * nq, kThreads, fwd_smem(D), a.stream>>>(
+    const int nqf = (a.tq + F::bq - 1) / F::bq;
+    fwd_kernel<T, D><<<a.bh * nqf, F::threads, F::smem, a.stream>>>(
         q, k, v, static_cast<T*>(a.o), a.lse_out, a.tq, a.tk, a.mask);
   } else if (which == 1) {
     constexpr int smem = Bwd<T, D>::dkv_smem;

@@ -57,6 +57,10 @@ from . import build as _build
 
 SOURCE = "flash_attention.cu"
 KERNEL_DIMS = (32, 64, 128)      # head sizes the kernels are built for
+# Width of the bf16 forward kernel's key tile, over which P is rounded
+# against the running row max; must equal kFwdBlockK in the .cu, and the
+# reference of the bf16 forward walks the keys in blocks of it
+FWD_BLOCK_K = 64
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,12 +97,41 @@ def _scores(q3, k3, scale, causal, q_off, kv_len) -> torch.Tensor:
 
 
 def flash_fwd_plain(q3, k3, v3, scale: float, causal: bool, q_off: int,
-                    kv_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    s = _scores(q3, k3, scale, causal, q_off, kv_len)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    acc = torch.matmul(p.to(v3.dtype).float(), v3.float())
+                    kv_len: int, block_k: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(O, lse)``.  With ``block_k=None`` the exact softmax, P rounded to
+    V's type against the global row max.  With an integer, the keys are
+    walked in blocks of ``block_k`` as ``_fwd_kernel`` walks them: a running
+    row max, ``p = exp(s - m_new)`` in f32, ``l = l * alpha + sum(p)`` from
+    the f32 p, and ``acc = acc * alpha + p.to(V's type) @ V``.  That rounds
+    P where the kernels round it, so it is the reference of a low-precision
+    kernel whose key tile is ``block_k`` wide (FWD_BLOCK_K)."""
+    if block_k is None:
+        s = _scores(q3, k3, scale, causal, q_off, kv_len)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        acc = torch.matmul(p.to(v3.dtype).float(), v3.float())
+        return (acc / l).to(q3.dtype), (m + torch.log(l)).squeeze(-1)
+    bh, tq, d = q3.shape
+    m = torch.full((bh, tq, 1), _NEG, dtype=torch.float32, device=q3.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(bh, tq, d, dtype=torch.float32, device=q3.device)
+    # blocks wholly past kv_len or past the last row's diagonal add p = 0
+    # and alpha = 1 to every row, exactly, so they are left out
+    end = min(k3.shape[1], kv_len)
+    if causal:
+        end = min(end, max(q_off + tq, 1))
+    for k0 in range(0, end, block_k):
+        kb, vb = k3[:, k0:k0 + block_k], v3[:, k0:k0 + block_k]
+        s = _scores(q3, kb, scale, causal, q_off - k0, kv_len - k0)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v3.dtype).float(), vb.float())
+        m = m_new
+    l = l.clamp_min(1e-30)
     return (acc / l).to(q3.dtype), (m + torch.log(l)).squeeze(-1)
 
 

@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flash_attention.cu), one nvcc per source, all started together, with
    ptxas's register, shared-memory and spill lines, and each flash
    kernel's count of tensor-core instructions in ``cuobjdump -sass``:
-   every bf16 instance of the two backward kernels must have some;
+   every bf16 instance of the forward and the two backward kernels must
+   have some;
 3. onebit kernels: each against its plain PyTorch version on the card, at
    the main path's chunk shape and at ragged sizes (words and values
    bit-exact, the scale to rtol 1e-6), then timed with CUDA events against
@@ -29,27 +30,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    versions on the card (same inputs, the plain lse and delta for both
    backward kernels), f32 and bf16, at the two slice shapes and at ragged
    ones (T=100 with D=48, decode Tq=64 < Tk=256, non-causal, and a ring
-   step's q_off=32 with kv_len=100).  Tolerances: f32 those of the JAX
-   package's flash tests (2e-5 forward, 5e-4 gradients: sums in another
-   order).  bf16 holds each row of each output against that row's max-abs
+   step's q_off=32 with kv_len=100).  The bf16 forward's plain version is
+   ``flash_fwd_plain(..., block_k=FWD_BLOCK_K)``, which rounds P to bf16
+   against the running max of each 64-wide key tile, where the kernel
+   (and the JAX kernel) round it; the exact softmax rounds it against the
+   global row max, so it differs from a right kernel on a third of O's
+   elements and is used only in the LM slices' logit check.  Tolerances:
+   f32 those of the JAX package's flash tests (2e-5 forward and lse, 5e-4
+   gradients: sums in another order); the bf16 lse to rtol 1e-5, atol
+   1e-4.  bf16 holds each row of each output against that row's max-abs
    (``row_share``, whose floor of 2**-10 of the tensor's max-abs keeps
    rows of cancellation noise from reading as inf), so that small late
    rows cannot hide behind large early ones: all outputs to 2**-6 (two
-   bf16 steps of the row's max).  The forward's P is exponentiated
-   against the running max and can round the other way; the backward
-   kernels sum on tensor cores in another order than the plain versions,
-   so a P or dS element can round the other way and an early causal row
-   of dQ, whose terms nearly cancel, moves by more than one step.  The
-   gradients are also held to at most 2**-6 of their elements differing
-   at all (the card reads at most 4.5e-3), and a control, the plain
-   versions with P and dS left in f32 (32-43 % of elements differ), must
-   break that bound, so the check sees a bf16 instance that skips those
-   roundings.  A second run of the backward kernels on the Llama inputs
-   must give the same bits.  Then each kernel is timed at the Llama
-   slice shape beside its plain version, its FLOP bound, and torch's
-   scaled_dot_product_attention (its forward for the forward kernel; its
-   forward+backward minus its forward, for both backward kernels
-   together), and beside its bound at the GPT slice shape;
+   bf16 steps of the row's max), and to at most 2**-6 of their elements
+   differing at all.  The kernels sum on tensor cores in another order
+   than the plain versions, so a P or dS element can round the other way
+   and an early causal row of dQ, whose terms nearly cancel, moves by
+   more than one step.  A control, the plain versions with P and dS left
+   in f32 (the forward's tiled as well; a third of the elements differ),
+   must break the bound of every kernel, so the check sees a bf16
+   instance that skips those roundings.  A second run of all three
+   kernels on the Llama inputs must give the same bits (O and lse too).
+   Then each kernel is timed at the Llama slice shape beside its plain
+   version, its FLOP bound, and torch's scaled_dot_product_attention (its
+   forward for the forward kernel; its forward+backward minus its
+   forward, for both backward kernels together), and beside its bound at
+   the GPT slice shape;
 6. llama slice and gpt slice: Llama-3-8B at full width with 4 of its 32
    layers (batch 2 x 4096 tokens) and GPT-small (batch 1 x 8192 tokens),
    bf16 compute over f32 parameters, attention through ``flash_attention``,
@@ -107,9 +113,10 @@ FLASH_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dkv": 4, "flash_bwd_dq": 3}
 # (forward, gradients); see the module docstring
 FLASH_F32_TOL = (2e-5, 5e-4)      # allclose rtol = atol
 FLASH_BF16_TOL = (                # (row_share, share of elements differing)
-    (2**-6, 1.0),                 # forward
+    (2**-6, 2**-6),               # forward, against the tiled reference
     (2**-6, 2**-6),               # gradients
 )
+FLASH_LSE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 1e-4)}
 ROW_FLOOR = 2**-10                # of the tensor's max-abs, in row_share
 # (name, shape [B, Tq, Tk, H, D], causal[, (q_off, kv_len)]) of the flash
 # checks, each run in f32 and bf16; q_off defaults to Tk - Tq and kv_len
@@ -123,7 +130,8 @@ FLASH_CASES = [
     ("ring_qoff32_kvlen100", (3, 128, 128, 1, 64), True, (32, 100)),
 ]
 # kernels of the flash library that must run on tensor cores
-MMA_KERNELS = [f"{k}<bf16, {d}>" for k in ("bwd_dkv_kernel", "bwd_dq_kernel")
+MMA_KERNELS = [f"{k}<bf16, {d}>" for k in ("fwd_kernel", "bwd_dkv_kernel",
+                                           "bwd_dq_kernel")
                for d in (32, 64, 128)]
 LM_LR = 1e-2
 LM_LOGIT_TOL = 5e-2              # share of the exact forward's max-abs
@@ -163,8 +171,8 @@ def bf16_errors(got, want):
 
 def check_bf16(what, pairs, ctl):
     """Hold each bf16 kernel's outputs against its plain version's with
-    FLASH_BF16_TOL, and show that the bound on the gradients is tight
-    enough to see a kernel that left P and dS in f32 (``ctl``)."""
+    FLASH_BF16_TOL, and show that each bound is tight enough to see a
+    kernel that left P (and dS) in f32 (``ctl``)."""
     seen, ctl_seen = {}, {}
     for kname, (got, want) in pairs.items():
         rs_tol, frac_tol = FLASH_BF16_TOL[kname != "flash_fwd"]
@@ -178,15 +186,14 @@ def check_bf16(what, pairs, ctl):
             check(rs <= rs_tol and frac <= frac_tol,
                   f"{kname} differs from its plain version at {what}: row "
                   f"share {rs:.3g}, {frac:.3g} of elements differ")
-            if kname != "flash_fwd":
-                check(crs > rs_tol or cfrac > frac_tol,
-                      f"{kname} at {what}: the bound does not see P and dS "
-                      f"left in f32 (row share {crs:.3g}, {cfrac:.3g} of "
-                      f"elements differ)")
+            check(crs > rs_tol or cfrac > frac_tol,
+                  f"{kname} at {what}: the bound does not see P (and dS) "
+                  f"left in f32 (row share {crs:.3g}, {cfrac:.3g} of "
+                  f"elements differ)")
     log(f"flash: {what}: all three within bounds of their plain versions; "
         f"(row share, share of elements differing) " + ", ".join(
             f"{k} ({a:.3e}, {b:.3e})" for k, (a, b) in seen.items())
-        + "; control with P and dS left in f32: " + ", ".join(
+        + "; control with P (and dS) left in f32: " + ", ".join(
             f"{k} ({a:.3e}, {b:.3e})" for k, (a, b) in ctl_seen.items()))
 
 
@@ -449,8 +456,14 @@ def flash_kernel_phase(torch, fa):
             o0, lse0 = fa.flash_fwd_plain(q, k, v, *args)
             dl = fa.delta(do, o0)
             bwd = (q, k, v, do, lse0, dl, *args)
+            # the bf16 forward's reference rounds P where the kernel does,
+            # against the running max of each FWD_BLOCK_K-wide key tile
+            fwd_ref = (fa.flash_fwd_plain(q, k, v, *args,
+                                          block_k=fa.FWD_BLOCK_K)
+                       if dt == torch.bfloat16 else (o0, lse0))
+            o, lse = fa.flash_fwd(q, k, v, *args)
             pairs = {
-                "flash_fwd": ([fa.flash_fwd(q, k, v, *args)[0]], [o0]),
+                "flash_fwd": ([o], [fwd_ref[0]]),
                 "flash_bwd_dkv": (fa.flash_bwd_dkv(*bwd),
                                   fa.flash_bwd_dkv_plain(*bwd)),
                 "flash_bwd_dq": ([fa.flash_bwd_dq(*bwd)],
@@ -464,6 +477,12 @@ def flash_kernel_phase(torch, fa):
                           f"{kname} {what}: {g.dtype} {tuple(g.shape)}")
                     err[kname] = max(err[kname], float(
                         (g.float() - w.float()).abs().max()))
+            rtol, atol = FLASH_LSE_TOL[str(dt)[6:]]
+            lse_err = float((lse - fwd_ref[1]).abs().max())
+            check(lse.shape == fwd_ref[1].shape and torch.allclose(
+                lse, fwd_ref[1], rtol=rtol, atol=atol),
+                f"flash_fwd lse differs from its plain version at {what}: "
+                f"max |diff| {lse_err:.3g}")
             if dt == torch.float32:
                 for kname, (got, want) in pairs.items():
                     tol = FLASH_F32_TOL[kname != "flash_fwd"]
@@ -471,18 +490,22 @@ def flash_kernel_phase(torch, fa):
                               for g, w in zip(got, want)),
                           f"{kname} differs from its plain version at {what}")
                 log(f"flash: {what}: all three within the JAX tests' "
-                    f"tolerances of their plain versions")
+                    f"tolerances of their plain versions; lse max |diff| "
+                    f"{lse_err:.3e}")
             else:
                 # the control: the plain versions with P and dS left in f32
                 f32 = [t.float() for t in (q, k, v, do)]
                 fbwd = (*f32, lse0, dl, *args)
-                ctl = {"flash_fwd": [fa.flash_fwd_plain(*f32[:3], *args)[0]],
+                ctl = {"flash_fwd": [fa.flash_fwd_plain(
+                           *f32[:3], *args, block_k=fa.FWD_BLOCK_K)[0]],
                        "flash_bwd_dkv": fa.flash_bwd_dkv_plain(*fbwd),
                        "flash_bwd_dq": [fa.flash_bwd_dq_plain(*fbwd)]}
                 check_bf16(what, pairs, ctl)
+                log(f"flash: {what}: forward lse max |diff| {lse_err:.3e}")
                 if name == "llama":
-                    check_repeatable(torch, fa, bwd, pairs, what)
-            del o0, dl, bwd, pairs
+                    check_repeatable(torch, fa, (q, k, v, *args), lse, bwd,
+                                     pairs, what)
+            del o0, dl, bwd, pairs, fwd_ref, o, lse
             ctl = fbwd = f32 = None
             torch.cuda.empty_cache()
 
@@ -498,16 +521,22 @@ def flash_kernel_phase(torch, fa):
                   for name, rs in shapes.items()}
 
 
-def check_repeatable(torch, fa, bwd, pairs, what):
-    """A second run of each backward kernel on the same inputs gives the
-    same bits as the first (no atomics, no order that changes)."""
-    again = {"flash_bwd_dkv": fa.flash_bwd_dkv(*bwd),
+def check_repeatable(torch, fa, fwd, lse, bwd, pairs, what):
+    """A second run of each kernel on the same inputs gives the same bits
+    as the first (no atomics, no order that changes); ``lse`` is the first
+    forward's."""
+    o2, lse2 = fa.flash_fwd(*fwd)
+    again = {"flash_fwd": [o2, lse2],
+             "flash_bwd_dkv": fa.flash_bwd_dkv(*bwd),
              "flash_bwd_dq": [fa.flash_bwd_dq(*bwd)]}
+    first = {k: list(got) for k, (got, _) in pairs.items()}
+    first["flash_fwd"].append(lse)
     torch.cuda.synchronize()
     for kname, got in again.items():
-        check(all(torch.equal(a, b) for a, b in zip(got, pairs[kname][0])),
+        check(all(torch.equal(a, b) for a, b in zip(got, first[kname])),
               f"{kname} at {what}: two runs differ")
-    log(f"flash: {what}: a second run of dK/dV and dQ gives the same bits")
+    log(f"flash: {what}: a second run of the forward (O and lse), dK/dV "
+        f"and dQ gives the same bits")
 
 
 def time_flash(torch, fa, gen, b, t, h, d, causal, full):
@@ -521,8 +550,11 @@ def time_flash(torch, fa, gen, b, t, h, d, causal, full):
     o, lse = fa.flash_fwd(q, k, v, *args)
     bwd = [(q, k, v, do, lse, fa.delta(do, o), *args)]
     live = (t + 1) / (2 * t) if causal else 1.0       # causal share of T^2
+    def fwd_plain(*a):   # the bf16 forward's reference
+        return fa.flash_fwd_plain(*a, block_k=fa.FWD_BLOCK_K)
+
     timing = {
-        "flash_fwd": (fa.flash_fwd, fa.flash_fwd_plain, [(q, k, v, *args)]),
+        "flash_fwd": (fa.flash_fwd, fwd_plain, [(q, k, v, *args)]),
         "flash_bwd_dkv": (fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, bwd),
         "flash_bwd_dq": (fa.flash_bwd_dq, fa.flash_bwd_dq_plain, bwd),
     }

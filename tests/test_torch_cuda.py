@@ -129,17 +129,19 @@ def _flash_inputs(card, bh, tq, tk, d, dtype, seed):
 @pytest.mark.parametrize("bh,tq,tk,d,causal,kv_len", FLASH_CASES)
 def test_flash_kernels_match_plain(card, dtype, bh, tq, tk, d, causal,
                                    kv_len):
-    """Each kernel against its plain version on the same inputs.  f32:
-    the JAX tests' tolerances (2e-5 forward, 5e-4 gradients; sums in
-    another order).  bf16 (FLASH_BF16_TOL): each row of each output is
-    held against that row's max-abs (no smaller than 2**-10 of the
-    tensor's, so that a row of cancellation noise is held to the tensor's
-    scale), so a row of small values cannot hide behind a large one
-    elsewhere: two bf16 steps of the row's max.  The forward's P is
-    exponentiated against the running max and the backward kernels sum on
-    tensor cores in another order, so P and dS can round the other way;
-    at most 2**-6 of the gradients' elements may differ at all (P and dS
-    left in f32 change 32-43 % of them)."""
+    """Each kernel against its plain version on the same inputs; the bf16
+    forward's is ``flash_fwd_plain(..., block_k=FWD_BLOCK_K)``, which
+    rounds P against the running max of each key tile as the kernel does.
+    f32: the JAX tests' tolerances (2e-5 forward and lse, 5e-4 gradients;
+    sums in another order); bf16 lse to rtol 1e-5, atol 1e-4.  bf16
+    outputs (FLASH_BF16_TOL): each row of each output is held against that
+    row's max-abs (no smaller than 2**-10 of the tensor's, so that a row of
+    cancellation noise is held to the tensor's scale), so a row of small
+    values cannot hide behind a large one elsewhere: two bf16 steps of the
+    row's max.  The kernels sum on tensor cores in another order, so P and
+    dS can round the other way; at most 2**-6 of each output's elements
+    may differ at all, and the control, the plain versions with P and dS
+    left in f32 (the forward's tiled as well), must differ on more."""
     _check_flash(card, dtype, bh, tq, tk, d, causal, tk - tq, kv_len)
 
 
@@ -157,40 +159,70 @@ def _check_flash(card, dtype, bh, tq, tk, d, causal, q_off, kv_len):
     q, k, v, do = _flash_inputs(card, bh, tq, tk, d, dtype, tq + d)
     scale = 1.0 / np.sqrt(d)
     args = (scale, causal, q_off, kv_len)
+    bf16 = dtype == torch.bfloat16
     o, lse = fa.flash_fwd(q, k, v, *args)
     o0, lse0 = fa.flash_fwd_plain(q, k, v, *args)
+    ref, ref_lse = (fa.flash_fwd_plain(q, k, v, *args, block_k=fa.FWD_BLOCK_K)
+                    if bf16 else (o0, lse0))
     dl = fa.delta(do, o0)
-    got = [o, *fa.flash_bwd_dkv(q, k, v, do, lse0, dl, *args),
-           fa.flash_bwd_dq(q, k, v, do, lse0, dl, *args)]
-    want = [o0, *fa.flash_bwd_dkv_plain(q, k, v, do, lse0, dl, *args),
-            fa.flash_bwd_dq_plain(q, k, v, do, lse0, dl, *args)]
+    bwd = (q, k, v, do, lse0, dl, *args)
+    got = [o, *fa.flash_bwd_dkv(*bwd), fa.flash_bwd_dq(*bwd)]
+    want = [ref, *fa.flash_bwd_dkv_plain(*bwd), fa.flash_bwd_dq_plain(*bwd)]
     torch.cuda.synchronize()
     assert all(g.dtype == dtype and g.shape == w.shape
                for g, w in zip(got, want))
-    if dtype == torch.float32:
+    if not bf16:
         torch.testing.assert_close(lse, lse0, rtol=2e-5, atol=2e-5)
         torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
         for g, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-4)
-    else:
-        torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-4)
-        for i, (g, w) in enumerate(zip(got, want)):
-            share, frac = row_share(g, w), float((g != w).float().mean())
-            rs_tol, frac_tol = FLASH_BF16_TOL[i > 0]
-            assert share <= rs_tol and frac <= frac_tol, (i, share, frac)
+        return
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    f32 = [t.float() for t in (q, k, v, do)]
+    fbwd = (*f32, lse0, dl, *args)
+    ctl = [fa.flash_fwd_plain(*f32[:3], *args, block_k=fa.FWD_BLOCK_K)[0],
+           *fa.flash_bwd_dkv_plain(*fbwd), fa.flash_bwd_dq_plain(*fbwd)]
+    for i, (g, w, c) in enumerate(zip(got, want, ctl)):
+        share, frac = row_share(g, w), float((g != w).float().mean())
+        rs_tol, frac_tol = FLASH_BF16_TOL[i > 0]
+        assert share <= rs_tol and frac <= frac_tol, (i, share, frac)
+        c = c.to(dtype)
+        assert float((c != w).float().mean()) > frac_tol, i
 
 
-def test_flash_backward_is_repeatable(card):
-    """Two runs of the bf16 backward kernels give the same bits: no
-    atomics, no order that changes between runs."""
+def test_flash_forward_and_backward_are_repeatable(card):
+    """Two runs of each bf16 kernel (the forward's O and lse, dK/dV, dQ)
+    give the same bits: no atomics, no order that changes between runs."""
     from byteps_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = _flash_inputs(card, 8, 512, 512, 128, torch.bfloat16, 12)
     args = (1.0 / np.sqrt(128), True, 0, 512)
     o, lse = fa.flash_fwd(q, k, v, *args)
+    assert all(torch.equal(a, b)
+               for a, b in zip((o, lse), fa.flash_fwd(q, k, v, *args)))
     bwd = (q, k, v, do, lse, fa.delta(do, o), *args)
     first = fa.flash_bwd(*bwd)
     assert all(torch.equal(a, b) for a, b in zip(first, fa.flash_bwd(*bwd)))
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_forward_rejects_misaligned_bf16(card, which):
+    """The bf16 forward copies tiles 16 bytes at a time (cp.async) and
+    stores O 16 bytes a lane, so its [BH, T, D] tensors must be 16-byte
+    aligned: a contiguous view one element into its storage is refused
+    with a RuntimeError, before any launch."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+
+    bh, t, d = 2, 64, 64
+    xs = {n: torch.randn(bh, t, d, device=card, dtype=torch.bfloat16)
+          for n in "qkv"}
+    store = torch.empty(bh * t * d + 1, device=card, dtype=torch.bfloat16)
+    xs[which] = store[1:].view(bh, t, d).copy_(xs[which])
+    assert xs[which].is_contiguous() and xs[which].data_ptr() % 16 != 0
+    fa.reset_launches()
+    with pytest.raises(RuntimeError, match="flash_fwd kernel launch failed"):
+        fa.flash_fwd(xs["q"], xs["k"], xs["v"], 0.125, True, 0, t)
+    assert fa.launches["flash_fwd"] == 0
 
 
 def test_flash_wrappers_count_and_reject(card):

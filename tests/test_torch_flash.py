@@ -236,21 +236,25 @@ BF16_CASES = {
 def test_bf16_rounding_points_match_jax_kernels(name):
     """bf16 inputs through the JAX package's ``_fwd`` and ``_bwd_impl``
     (interpret mode, 64-row blocks, T zero-padded to them) and through
-    ``flash_fwd_plain``, ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``,
-    the backward fed JAX's lse and delta.  Both round P to dO's (and V's)
-    type and dS to Q's and K's before the products that use them, sum in
-    f32, and round the outputs; they differ only in sum order.
+    ``flash_fwd_plain(..., block_k=64)``, ``flash_bwd_dkv_plain`` and
+    ``flash_bwd_dq_plain``, the backward fed JAX's lse and delta.  Both
+    round P to dO's (and V's) type against the same running max of each
+    64-wide key block, and dS to Q's and K's, before the products that use
+    them, sum in f32, and round the outputs; they differ only in sum order.
 
     Tolerances, with ``chip_smoke.row_share`` (each row's max |diff| over
     its max |JAX|, no smaller than 2**-10 of the tensor's max-abs, which
     holds causal query row 0, whose dQ is cancellation noise, to the
-    tensor's scale): the forward to 2**-6 (P is rounded against JAX's
-    running max and can round the other way; read: up to 7.7e-3); the
-    gradients to 2**-7 (read: up to 3.8e-3), with at most 2**-6 of their
-    elements differing (read: up to 3.3e-3).  The control, the plain
-    backward on f32 inputs (P and dS left in f32), must differ on at least
-    25 % of the gradient elements (read: 32-42 %), so a missing rounding
-    point shows."""
+    tensor's scale): the forward's O to 2**-7 with at most 2**-8 of its
+    elements differing (read: up to 9.8e-4), its lse to 1e-5 (read: up to
+    4.8e-7); the gradients to 2**-7 (read: up to 3.8e-3), with at most
+    2**-6 of their elements differing (read: up to 3.3e-3).  The controls,
+    the plain versions on f32 inputs (P and dS left in f32; the forward's
+    tiled as well), must differ on at least 25 % of the elements of O
+    (read: 34-38 %) and of the gradients (read: 32-42 %), so a missing
+    rounding point shows.  The exact softmax, which rounds P against the
+    global row max, differs from the JAX kernel on up to 29 % of O's
+    elements, so it is not the bf16 forward's reference."""
     bh, tq, tk, d, causal, q_off, kv_len = BF16_CASES[name]
     rng = np.random.RandomState(20 + sorted(BF16_CASES).index(name))
     q, do = (rng.randn(bh, tq, d).astype(np.float32) for _ in range(2))
@@ -277,11 +281,20 @@ def test_bf16_rounding_points_match_jax_kernels(name):
     args = (scale, causal, q_off, kv_len)
     lse = to_torch(jlse, tq)[..., 0].contiguous()
     dlt = to_torch(jdelta, tq)[..., 0].contiguous()
-    o, _ = fa.flash_fwd_plain(tq_, tk_, tv_, *args)
-    assert chip_smoke.row_share(o, to_torch(jo, tq)) <= 2**-6
+    assert fa.FWD_BLOCK_K == block
+    o, o_lse = fa.flash_fwd_plain(tq_, tk_, tv_, *args, block_k=block)
+    jo_t = to_torch(jo, tq)
+    assert o.dtype == torch.bfloat16 and o.shape == jo_t.shape
+    assert chip_smoke.row_share(o, jo_t) <= 2**-7
+    assert float((o.float() != jo_t).float().mean()) <= 2**-8
+    np.testing.assert_allclose(o_lse.numpy(), lse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    f32 = [t.float() for t in (tq_, tk_, tv_, tdo)]
+    o_ctl, _ = fa.flash_fwd_plain(*f32[:3], *args, block_k=block)
+    o_ctl = o_ctl.to(torch.bfloat16).float()
+    assert float((o_ctl != jo_t).float().mean()) >= 0.25
     bwd = (tq_, tk_, tv_, tdo, lse, dlt, *args)
     got = [*fa.flash_bwd_dkv_plain(*bwd), fa.flash_bwd_dq_plain(*bwd)]
-    f32 = [t.float() for t in (tq_, tk_, tv_, tdo)]
     fbwd = (*f32, lse, dlt, *args)
     ctl = [*fa.flash_bwd_dkv_plain(*fbwd), fa.flash_bwd_dq_plain(*fbwd)]
     want = [to_torch(jdk, tk), to_torch(jdv, tk), to_torch(jdq, tq)]
@@ -298,11 +311,52 @@ def test_chip_smoke_bf16_checks_hold_cancellation_rows():
     """``chip_smoke.check_bf16`` on the plain versions at a small causal
     shape with q_off = 0.  The stand-in for a kernel is the plain versions
     run over a permuted head dimension (the same values summed in another
-    order, as a kernel sums them).  Causal query row 0 sees one key, so
-    its dS = P (dP - delta) subtracts two sums of the same products and its
-    dQ is rounding noise, whose two orders disagree: without the floor of
+    order, as a kernel sums them); the forward's plain version is the
+    tiled one, as on the card.  Causal query row 0 sees one key, so its
+    dS = P (dP - delta) subtracts two sums of the same products and its dQ
+    is rounding noise, whose two orders disagree: without the floor of
     ``row_share`` that row reads as inf; with it the check passes.  The
     control, P and dS left in f32, fails the same check."""
+    got, want, ctl = _bf16_check_inputs()
+    dq, dq0 = got["flash_bwd_dq"][0], want["flash_bwd_dq"][0]
+    assert not torch.equal(dq, dq0)
+    assert math.isinf(chip_smoke.row_share(dq, dq0, floor=0.0))
+    chip_smoke.check_bf16("permuted D", {k: (got[k], want[k]) for k in got},
+                          ctl)
+    with pytest.raises(RuntimeError, match="differs from its plain version"):
+        chip_smoke.check_bf16(
+            "control", {k: ([c.to(torch.bfloat16) for c in ctl[k]],
+                            want[k]) for k in ctl}, ctl)
+
+
+@pytest.mark.parametrize("fault", ["kernel_is_control", "control_passes"])
+def test_chip_smoke_bf16_check_sees_forward_without_p_rounding(fault):
+    """``chip_smoke.check_bf16`` on the forward alone.  A forward that left
+    P in f32 (the tiled plain version on f32 inputs, rounded only at the
+    end) is refused by the element bound; and a control that the bound
+    would let pass (here the reference itself) is refused too, so the check
+    cannot run blind."""
+    got, want, ctl = _bf16_check_inputs()
+    fwd_ctl = ctl["flash_fwd"][0]
+    if fault == "kernel_is_control":
+        pairs = {"flash_fwd": ([fwd_ctl.to(torch.bfloat16)],
+                               want["flash_fwd"])}
+        match = "differs from its plain version"
+    else:
+        pairs = {"flash_fwd": (got["flash_fwd"], want["flash_fwd"])}
+        ctl = {"flash_fwd": want["flash_fwd"]}
+        match = "does not see"
+    _, frac = chip_smoke.bf16_errors(fwd_ctl.to(torch.bfloat16),
+                                     want["flash_fwd"][0])
+    assert frac > 0.25
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.check_bf16(fault, pairs, ctl)
+
+
+def _bf16_check_inputs():
+    """(got, want, ctl) of ``chip_smoke.check_bf16`` per kernel at a small
+    causal shape: the stand-in kernels are the plain versions over a
+    permuted head dimension; the controls leave P and dS in f32."""
     rng = np.random.RandomState(0)
     bh, t, d = 4, 128, 64
     q, k, v, do = (torch.from_numpy(rng.randn(bh, t, d).astype(np.float32))
@@ -316,29 +370,23 @@ def test_chip_smoke_bf16_checks_hold_cancellation_rows():
         return [o[..., inv] for o in (out if isinstance(out, tuple)
                                       else (out,))]
 
+    def fwd(*a):                   # the bf16 forward's plain version
+        return fa.flash_fwd_plain(*a, block_k=fa.FWD_BLOCK_K)[0]
+
     o0, lse = fa.flash_fwd_plain(q, k, v, *args)
     dlt = fa.delta(do, o0)
     bwd = (q, k, v, do, lse, dlt, *args)
     f32 = [x.float() for x in (q, k, v, do)]
     fbwd = (*f32, lse, dlt, *args)
-    want = {"flash_fwd": [o0],
+    want = {"flash_fwd": [fwd(q, k, v, *args)],
             "flash_bwd_dkv": list(fa.flash_bwd_dkv_plain(*bwd)),
             "flash_bwd_dq": [fa.flash_bwd_dq_plain(*bwd)]}
-    got = {"flash_fwd": permuted(lambda *a: fa.flash_fwd_plain(*a)[0],
-                                 (q, k, v), *args),
+    got = {"flash_fwd": permuted(fwd, (q, k, v), *args),
            "flash_bwd_dkv": permuted(fa.flash_bwd_dkv_plain, bwd[:4],
                                      *bwd[4:]),
            "flash_bwd_dq": permuted(fa.flash_bwd_dq_plain, bwd[:4],
                                     *bwd[4:])}
-    ctl = {"flash_fwd": [fa.flash_fwd_plain(*f32[:3], *args)[0]],
+    ctl = {"flash_fwd": [fwd(*f32[:3], *args)],
            "flash_bwd_dkv": list(fa.flash_bwd_dkv_plain(*fbwd)),
            "flash_bwd_dq": [fa.flash_bwd_dq_plain(*fbwd)]}
-    dq, dq0 = got["flash_bwd_dq"][0], want["flash_bwd_dq"][0]
-    assert not torch.equal(dq, dq0)
-    assert math.isinf(chip_smoke.row_share(dq, dq0, floor=0.0))
-    chip_smoke.check_bf16("permuted D", {k: (got[k], want[k]) for k in got},
-                          ctl)
-    with pytest.raises(RuntimeError, match="differs from its plain version"):
-        chip_smoke.check_bf16(
-            "control", {k: ([c.to(torch.bfloat16) for c in ctl[k]],
-                            want[k]) for k in ctl}, ctl)
+    return got, want, ctl
