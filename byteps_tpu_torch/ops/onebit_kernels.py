@@ -27,14 +27,22 @@ memory bytes, for a chunk of n floats):
 - ``onebit_unpack_sum``: ``pallas_kernels.py:142`` onebit_unpack_sum
   (``_unpack_sum_kernel``); reads R*n/8 bytes, writes 4n.
 
-The source (``csrc/onebit.cu``) says how the design meets those bounds:
-one thread per word, coalesced across words, the unpadded chunk read and
-written directly, and a fixed-order L1 reduction with no float atomics.
+The source (``csrc/onebit.cu``) says what holds them back at the main
+path's chunk sizes and what the design does about it.  pack and unpack
+take tiles of ``4 * vw`` words by 32 rows, one block of 256 threads each,
+16 bytes per access; :func:`launch_geometry` picks ``vw`` from the
+chunk's words, and an input that is not 16-byte aligned takes the
+kernels' scalar-access instance (:func:`_aligned`).  pack is one launch:
+its last block adds the blocks' L1 partials in index order, which it
+knows are all there by the tag each carries, kept in a workspace per
+device and stream (:func:`_workspace`).  No atomics: the scale has the
+same bits from run to run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -44,6 +52,18 @@ from . import build as _build
 
 LANES = 128
 SOURCE = "onebit.cu"
+
+# pack and unpack take tiles of 4 * vw words by 32 rows, one block each.
+# pack: the widest tile that still gives PACK_MIN_BLOCKS blocks (about
+# half the SMs of an H100), else the narrowest; unpack: UNPACK_VW.  Both
+# were the fastest at the ResNet-50 slice's chunk sizes on an H100
+# (python -m byteps_tpu_torch.tools.onebit_widths).
+VECTOR_WIDTHS = (32, 16, 8)
+PACK_MIN_BLOCKS = 64
+UNPACK_VW = 16
+# int32 slots of a pack workspace before its partials (the last pack's
+# tag, then padding to 128 bytes); each partial takes two (8 bytes)
+WS_HEAD = 32
 
 # kernel launches per wrapper since the last reset_launches()
 launches: Dict[str, int] = {"onebit_pack": 0, "onebit_unpack": 0,
@@ -105,6 +125,47 @@ def onebit_unpack_sum_plain(words: torch.Tensor, scales: torch.Tensor,
 
 # --- CUDA wrappers ----------------------------------------------------------
 
+def launch_geometry(L: int, kernel: str) -> Tuple[int, int]:
+    """(vw, blocks) of ``kernel`` ("onebit_pack" or "onebit_unpack") for
+    ``L`` words: tiles of ``4 * vw`` words, one block each,
+    ``blocks * 4 * vw == L`` (L is a multiple of LANES, so of every tile
+    width)."""
+    if kernel == "onebit_unpack":
+        vw = UNPACK_VW
+    else:
+        vw = next((w for w in VECTOR_WIDTHS
+                   if L // (4 * w) >= PACK_MIN_BLOCKS), VECTOR_WIDTHS[-1])
+    return vw, L // (4 * vw)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Whether every tensor starts 16-byte aligned: the kernels' 16-byte
+    instance, else their scalar-access one."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+_workspaces: Dict[Tuple[str, int, int], torch.Tensor] = {}
+_ws_lock = threading.Lock()
+
+
+def _workspace(device: torch.device, stream: int,
+               blocks: int) -> torch.Tensor:
+    """The pack's int32 workspace on ``device`` for ``stream``: the last
+    pack's tag (slot 0) and room for ``blocks`` tagged partials of 8 bytes
+    from slot WS_HEAD on.  Zeroed once when made, on ``stream``; each pack
+    tags its partials one above the last pack's tag, so the packs of one
+    stream share it in stream order, and two streams never share one."""
+    key = (device.type, device.index, stream)
+    with _ws_lock:
+        ws = _workspaces.get(key)
+        if ws is None or ws.numel() < WS_HEAD + 2 * blocks:
+            have = 0 if ws is None else ws.numel() - WS_HEAD
+            ws = torch.zeros(WS_HEAD + max(2 * blocks, 2 * have, 2048),
+                             dtype=torch.int32, device=device)
+            _workspaces[key] = ws
+        return ws
+
+
 _c_fns = None
 
 
@@ -114,12 +175,10 @@ def _lib():
     if _c_fns is None:
         lib = _build.load(SOURCE)
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.bps_onebit_threads.argtypes = []
-        lib.bps_onebit_threads.restype = i
         lib.bps_onebit_error_string.argtypes = [i]
         lib.bps_onebit_error_string.restype = ctypes.c_char_p
-        lib.bps_onebit_pack.argtypes = [p, ll, i, p, p, p, p]
-        lib.bps_onebit_unpack.argtypes = [p, p, i, ll, p, p]
+        lib.bps_onebit_pack.argtypes = [p, ll, i, i, i, p, p, p, p]
+        lib.bps_onebit_unpack.argtypes = [p, p, i, i, i, ll, p, p]
         lib.bps_onebit_unpack_sum.argtypes = [p, p, i, i, ll, p, p]
         for fn in (lib.bps_onebit_pack, lib.bps_onebit_unpack,
                    lib.bps_onebit_unpack_sum):
@@ -155,15 +214,15 @@ def onebit_pack(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(x, torch.float32, "onebit_pack input")
     numel = x.numel()
     L = padded_lanes(numel)
-    lib = _lib()
-    nblocks = -(-L // lib.bps_onebit_threads())
+    vw, blocks = launch_geometry(L, "onebit_pack")
     with torch.cuda.device(x.device):
+        stream = _stream(x)
         words = torch.empty(L, dtype=torch.int32, device=x.device)
-        partials = torch.empty(nblocks, dtype=torch.float32, device=x.device)
         sums = torch.empty(2, dtype=torch.float32, device=x.device)
-        rc = lib.bps_onebit_pack(x.data_ptr(), numel, L, words.data_ptr(),
-                                 partials.data_ptr(), sums.data_ptr(),
-                                 _stream(x))
+        ws = _workspace(x.device, stream, blocks)   # held over the launch
+        rc = _lib().bps_onebit_pack(x.data_ptr(), numel, L, vw,
+                                    int(_aligned(x)), words.data_ptr(),
+                                    ws.data_ptr(), sums.data_ptr(), stream)
     _raise_on(rc, "onebit_pack")
     launches["onebit_pack"] += 1
     return words, sums
@@ -180,10 +239,12 @@ def onebit_unpack(words: torch.Tensor, scale: torch.Tensor,
     if words.dim() != 1 or L != padded_lanes(numel) or scale.numel() != 1:
         raise ValueError(f"onebit_unpack: {L} words / {scale.numel()} "
                          f"scale(s) do not describe {numel} elements")
+    vw, _ = launch_geometry(L, "onebit_unpack")
     with torch.cuda.device(words.device):
         out = torch.empty(numel, dtype=torch.float32, device=words.device)
         rc = _lib().bps_onebit_unpack(words.data_ptr(), scale.data_ptr(), L,
-                                      numel, out.data_ptr(), _stream(words))
+                                      vw, int(_aligned(words, out)), numel,
+                                      out.data_ptr(), _stream(words))
     _raise_on(rc, "onebit_unpack")
     launches["onebit_unpack"] += 1
     return out

@@ -33,8 +33,7 @@ import torch
 ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
 STEPS = 5
 CLASSES = (  # kernel-name substrings -> class, first match wins
-    ("onebit", ("pack_kernel", "unpack_kernel", "unpack_sum_kernel",
-                "pack_finish_kernel")),
+    ("onebit", ("pack_kernel", "unpack_kernel", "unpack_sum_kernel")),
     ("nccl", ("nccl",)),
     ("batch_norm", ("batchnorm", "batch_norm", "welford")),
     ("conv/gemm", ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90")),

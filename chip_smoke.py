@@ -13,19 +13,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every bf16 instance of the forward and the two backward kernels must
    have some;
 3. onebit kernels: each against its plain PyTorch version on the card, at
-   the main path's chunk shape and at ragged sizes (words and values
-   bit-exact, the scale to rtol 1e-6), then timed with CUDA events against
-   its plain version and its device-memory bound;
+   every chunk size of the ResNet slice (its parameters' sizes cut as the
+   engine cuts them under ``Config()``) and at ragged sizes (words and
+   values bit-exact, the scale to rtol 1e-6).  Then a launch of PyTorch's
+   own (a fill_ of one float) is timed back to back, the cost of a kernel
+   that moves nothing, and pack and unpack are timed with CUDA events at
+   each of those sizes (inputs rotating over ROTATE_BYTES, more than the
+   L2) beside their device-memory bound, and summed over one ResNet step
+   (2 packs and 3 unpacks per chunk, each at its chunk's size); at the
+   largest chunk all three kernels are timed beside their plain versions
+   too;
 4. resnet slice: ResNet-50 at full width (1000 classes, 224x224 NHWC,
    bf16 compute, batch 32, seeded synthetic data) trained through
    ``DistributedOptimizer(SGD(momentum=0.9), compression=onebit+ef)`` ->
    the push_pull engine -> NCCL (a world of one) for 1 warm-up and 3
    timed steps.  The onebit launch counters are zeroed just before and
    read just after; each must show the launches the compressed chunks
-   need.  The loss must be finite, and for one compressed and one
-   uncompressed parameter the gradient the optimizer received must equal
-   the plain path's result (the same codec run on the CPU) on the same
-   input;
+   need, and the compressed chunks must be the ones phase 3 timed.  The
+   loss must be finite, and for one compressed and one uncompressed
+   parameter the gradient the optimizer received must equal the plain
+   path's result (the same codec run on the CPU) on the same input.  One
+   more step runs under torch.profiler: it prints the device's busy share
+   and the onebit kernels' device time, and each onebit wrapper call must
+   have been one device kernel;
 5. flash kernels: the forward, dK/dV and dQ kernels against their plain
    versions on the card (same inputs, the plain lse and delta for both
    backward kernels), f32 and bf16, at the two slice shapes and at ragged
@@ -96,12 +106,15 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 BATCH, IMAGE, CLASSES = 32, 224, 1000
 TIMED_STEPS = 3
+ROTATE_BYTES = 64 << 20          # inputs per timed size: more than the L2
 
 KERNELS = {   # wrapper name -> the Pallas kernel it replaces (def line)
     "onebit_pack": "byteps_tpu/ops/pallas_kernels.py:77",
     "onebit_unpack": "byteps_tpu/ops/pallas_kernels.py:113",
     "onebit_unpack_sum": "byteps_tpu/ops/pallas_kernels.py:142",
 }
+# the device kernels of csrc/onebit.cu, by name
+ONEBIT_KERNEL_RE = re.compile(r"\b(pack|unpack|unpack_sum)_kernel\b")
 # the backward's two kernels are two pallas_call sites of _bwd_impl (:255)
 FLASH_KERNELS = {
     "flash_fwd": "byteps_tpu/ops/flash_attention.py:115",
@@ -249,23 +262,29 @@ def sass_mma_counts(build, source):
 
 
 def _kernel_name(ptxas_line):
-    """'fwd_kernel<bf16, 128>' from ptxas's mangled entry name."""
-    m = re.search(r"\d+([a-z_]+_kernel)(?:I(13__nv_bfloat16|f)Li(\d+)E)?",
-                  ptxas_line)
+    """'fwd_kernel<bf16, 128>' or 'pack_kernel<8, true>' from ptxas's
+    mangled entry name."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I(13__nv_bfloat16|f)Li(\d+)E"
+                  r"|ILi(\d+)ELb([01])E)?", ptxas_line)
     if m is None:
         return ptxas_line.strip()
-    if m.group(2) is None:
-        return m.group(1)
-    dt = "bf16" if "bfloat16" in m.group(2) else "f32"
-    return f"{m.group(1)}<{dt}, {m.group(3)}>"
+    if m.group(2) is not None:
+        dt = "bf16" if "bfloat16" in m.group(2) else "f32"
+        return f"{m.group(1)}<{dt}, {m.group(3)}>"
+    if m.group(4) is not None:
+        vec = "true" if m.group(5) == "1" else "false"
+        return f"{m.group(1)}<{m.group(4)}, {vec}>"
+    return m.group(1)
 
 
 def device_ms(torch, fn, args_list, reps=100):
     """Device time of one call: a sleep kernel holds the stream while the
     host enqueues ``reps`` calls, so the events time the kernels back to
     back and not the host's launch overhead.  Inputs rotate over
-    ``args_list`` (more bytes than the 50 MB L2), and the last outputs are
-    kept alive so each call writes fresh memory."""
+    ``args_list`` (more bytes than the 50 MB L2), the rotation going on
+    from one loop to the next so that no timed call finds its inputs in
+    L2 from a recent call, and the last outputs are kept alive so each
+    call writes fresh memory."""
     keep = collections.deque(maxlen=len(args_list))
     for a in args_list:                       # warm-up
         keep.append(fn(*a))
@@ -279,26 +298,42 @@ def device_ms(torch, fn, args_list, reps=100):
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(max(host_s, 1e-3) * 4e9))   # ~2x the enqueue
     start.record()
-    for i in range(reps):
+    for i in range(reps, 2 * reps):
         keep.append(fn(*args_list[i % len(args_list)]))
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def kernel_phase(torch, ok, chunk_numel):
+def resnet_chunks(torch, resnet, config, chunk_bounds):
+    """The numel of every compressed chunk of the ResNet-50 slice, in
+    declaration order: its parameters' sizes (the model built on the meta
+    device) cut as the engine cuts them under ``config``."""
+    with torch.device("meta"):
+        model = resnet.resnet50(num_classes=CLASSES)
+    return [ln for p in model.parameters()
+            if p.numel() * 4 >= config.min_compress_bytes
+            for _, ln in chunk_bounds(p.numel(), 4, config.partition_bytes)]
+
+
+def kernel_phase(torch, ok, chunk_numel, chunks):
+    """The onebit kernels against their plain versions at every chunk size
+    of ``chunks`` (the ResNet slice's) and at ragged sizes, then pack and
+    unpack timed at each of those sizes and summed over one ResNet step;
+    returns the JSON rows' numbers (at ``chunk_numel``)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(1)
     err = {k: 0.0 for k in KERNELS}
 
-    def sample(numel):
-        x = torch.randn(numel, generator=gen)
-        x[::97] = -0.0
-        x[5] = 0.0
-        return x.to(dev)
+    def specials(x):
+        x[..., ::97] = -0.0
+        x[..., 5] = 0.0
+        return x
 
-    for numel in (chunk_numel, chunk_numel - 12345, 4097, 100):
-        x = sample(numel)
+    sizes = sorted(set(chunks) | {chunk_numel})
+    ragged = [chunk_numel - 12345, 4097, 100]
+    for numel in sizes + ragged:
+        x = specials(torch.randn(numel, generator=gen)).to(dev)
         w, s = ok.onebit_pack(x)
         w0, s0 = ok.onebit_pack_plain(x)
         check(torch.equal(w, w0), f"pack words differ at numel={numel}")
@@ -316,41 +351,75 @@ def kernel_phase(torch, ok, chunk_numel):
             check(torch.equal(out, ref),
                   f"unpack_sum differs at numel={numel} R={R}")
     torch.cuda.synchronize()
-    log(f"kernels: bit-exact against the plain versions at numel "
-        f"{chunk_numel}, {chunk_numel - 12345}, 4097, 100 (R=1, 8)")
+    log(f"kernels: bit-exact against the plain versions at the "
+        f"{len(set(chunks))} chunk sizes of the ResNet slice {sizes} and at "
+        f"numel {', '.join(map(str, ragged))} (unpack_sum at R=1, 8)")
 
-    # timing at the main path's chunk shape (R = 1: a world of one)
-    n = chunk_numel
-    L = ok.padded_lanes(n)
-    xs = [sample(n) for _ in range(16)]                # 65.5 MB
-    packed = [ok.onebit_pack(x) for x in xs]
-    wss = [(w[None], s[1:]) for w, s in packed]
-    timing = {
-        "onebit_pack": (
-            lambda x: ok.onebit_pack(x), lambda x: ok.onebit_pack_plain(x),
-            [(x,) for x in xs], 4 * n + 4 * L + 8),
-        "onebit_unpack": (
-            lambda w, s: ok.onebit_unpack(w, s, n),
-            lambda w, s: ok.onebit_unpack_plain(w, s[0], n),
-            [(w, s[1:]) for w, s in packed], 4 * L + 4 + 4 * n),
-        "onebit_unpack_sum": (
-            lambda w, s: ok.onebit_unpack_sum(w, s, n),
-            lambda w, s: ok.onebit_unpack_sum_plain(w, s, n),
-            wss, 4 * L + 4 + 4 * n),
-    }
-    rows = {}
-    for name, (kern, plain, args, nbytes) in timing.items():
-        ms = device_ms(torch, kern, args)
-        plain_ms = device_ms(torch, plain, args, reps=20)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "max_abs_err": err[name]}
-        log(f"  {name}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.2f} us) at numel {n}")
+    # the cost of a launch, back to back: PyTorch's fill_ of one float
+    one = torch.empty(1, device=dev)
+    launch_ms = device_ms(torch, lambda: one.fill_(1.0), [()], reps=200)
+    log(f"kernels: a launch back to back (PyTorch's fill_ of one float) "
+        f"takes {launch_ms * 1e3:.2f} us")
+
+    # timing at each chunk size of the slice (R = 1: a world of one); the
+    # inputs of each size rotate over ROTATE_BYTES, more than the L2
+    dgen = torch.Generator(device=dev).manual_seed(4)
+    per_size = {}
+    for n in sizes:
+        L = ok.padded_lanes(n)
+        count = -(-ROTATE_BYTES // (4 * n))
+        xs = list(specials(torch.randn(count, n, generator=dgen, device=dev)))
+        packed = [ok.onebit_pack(x) for x in xs]
+        timing = {
+            "onebit_pack": (
+                lambda x: ok.onebit_pack(x), lambda x: ok.onebit_pack_plain(x),
+                [(x,) for x in xs], 4 * n + 4 * L + 8),
+            "onebit_unpack": (
+                lambda w, s: ok.onebit_unpack(w, s, n),
+                lambda w, s: ok.onebit_unpack_plain(w, s[0], n),
+                [(w, s[1:]) for w, s in packed], 4 * L + 4 + 4 * n),
+        }
+        if n == chunk_numel:
+            timing["onebit_unpack_sum"] = (
+                lambda w, s: ok.onebit_unpack_sum(w, s, n),
+                lambda w, s: ok.onebit_unpack_sum_plain(w, s, n),
+                [(w[None], s[1:]) for w, s in packed], 4 * L + 4 + 4 * n)
+        row = {}
+        for name, (kern, plain, args, nbytes) in timing.items():
+            row[name] = {"ms": device_ms(torch, kern, args),
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            if n == chunk_numel:
+                row[name]["plain_ms"] = device_ms(torch, plain, args, reps=20)
+                row[name]["max_abs_err"] = err[name]
+        per_size[n] = row
+        log(f"  numel {n} ({chunks.count(n)} chunks, {L} words, {count} "
+            f"inputs): " + ", ".join(
+                f"{k} {r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f}"
+                f" us, {r['bound_ms'] / r['ms']:.1%})"
+                for k, r in row.items()))
+        del xs, packed, timing
+    rows = per_size[chunk_numel]
+    for name, r in rows.items():
+        log(f"  {name}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} "
+            f"us) at numel {chunk_numel}")
+
+    # one ResNet step: 2 packs and 3 unpacks per compressed chunk
+    step = {}
+    for name, calls in (("onebit_pack", 2), ("onebit_unpack", 3)):
+        step[name] = {k: sum(calls * per_size[n][name][k] for n in chunks)
+                      for k in ("ms", "bound_ms")}
+    ms, bound = (sum(r[k] for r in step.values()) for k in ("ms", "bound_ms"))
+    log(f"kernels: per ResNet step ({len(chunks)} chunks, 2 packs and 3 "
+        f"unpacks each, each at its chunk's size): " + ", ".join(
+            f"{k} {r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f} us)"
+            for k, r in step.items())
+        + f"; together {ms * 1e3:.2f} us (bound {bound * 1e3:.2f} us, "
+          f"{bound / ms:.1%})")
     return rows
 
 
-def slice_phase(torch, bps, ok, api, registry, resnet):
+def slice_phase(torch, bps, ok, api, registry, resnet, chunks):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     bps.init()                                     # NCCL, world of one
@@ -404,15 +473,19 @@ def slice_phase(torch, bps, ok, api, registry, resnet):
 
     ctxs = [eng.registry.get(n) for n in eng.registry.names_in_declaration_order()]
     comp = [c for c in ctxs if c.compressor]
-    chunks = sum(len(c.chunk_bounds) for c in comp)
+    n_chunks = sum(len(c.chunk_bounds) for c in comp)
     steps = 1 + TIMED_STEPS
-    want = {"onebit_pack": 2 * chunks * steps,
-            "onebit_unpack": 3 * chunks * steps,
-            "onebit_unpack_sum": chunks * steps}
-    log(f"slice: {len(ctxs)} tensors, {len(comp)} compressed in {chunks} "
+    want = {"onebit_pack": 2 * n_chunks * steps,
+            "onebit_unpack": 3 * n_chunks * steps,
+            "onebit_unpack_sum": n_chunks * steps}
+    log(f"slice: {len(ctxs)} tensors, {len(comp)} compressed in {n_chunks} "
         f"chunks, {len(ctxs) - len(comp)} all-reduced; launches {launches} "
         f"over {steps} steps")
     check(launches == want, f"launches {launches}, expected {want}")
+    got_chunks = [ln for c in comp for _, ln in c.chunk_bounds]
+    check(sorted(got_chunks) == sorted(chunks),
+          "the engine's compressed chunks are not the ones the kernel phase "
+          "timed")
 
     # uncompressed parameter: the all-reduce over one rank is the identity
     bias_got = model.fc.bias.grad.cpu()
@@ -434,6 +507,23 @@ def slice_phase(torch, bps, ok, api, registry, resnet):
     torch.testing.assert_close(got, torch.cat(ref), rtol=1e-5, atol=0)
     log(f"slice: fc.weight ({len(ctx.chunk_bounds)} compressed chunks) and "
         f"fc.bias gradients equal the plain path's")
+
+    # one more step under torch.profiler: the device's busy share, and the
+    # onebit kernels' device time and device kernels per wrapper call
+    before = dict(ok.launches)
+    busy_ms, wall_ms, events = profiled_step(torch, step)
+    calls = {k: ok.launches[k] - before[k] for k in KERNELS}
+    dev_ms = onebit_device_ms(events)
+    log(f"slice: a profiled step took {wall_ms:.2f} ms, the device was busy "
+        f"{busy_ms:.2f} ms of it ({busy_ms / wall_ms:.1%}); onebit device "
+        f"time " + ", ".join(
+            f"{k} {ms:.4f} ms ({n} device kernels for {calls[k]} calls)"
+            for k, (n, ms) in dev_ms.items())
+        + f", together {sum(ms for _, ms in dev_ms.values()):.4f} ms")
+    check(calls["onebit_pack"] == 2 * n_chunks and all(
+              dev_ms[k][0] == calls[k] for k in KERNELS),
+          f"the profiled step shows onebit calls {calls} and device kernels "
+          f"{dev_ms}: each call must be one device kernel")
     bps.shutdown()
     return launches, step_ms
 
@@ -654,7 +744,7 @@ def lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg, batch, seq,
                                          f"step {i}")
     launches = dict(fa.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    busy_ms, wall_ms = profiled_step(torch, step)
+    busy_ms, wall_ms, _ = profiled_step(torch, step)
     timed = step_ms[1:]
     mean_ms = sum(timed) / len(timed)
     log(f"{name}: {n_params} parameters, {cfg.num_layers} layers, batch "
@@ -727,9 +817,10 @@ def lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg, batch, seq,
 
 
 def profiled_step(torch, step):
-    """(device-busy ms, host ms) of one ``step`` under torch.profiler: the
-    union of the intervals of the kernels and copies on the card (user
-    annotations left out), and the host clock around the step."""
+    """(device-busy ms, host ms, device events) of one ``step`` under
+    torch.profiler: the union of the intervals of the kernels and copies
+    on the card (user annotations left out), the host clock around the
+    step, and those kernels and copies as (name, ms)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -737,15 +828,30 @@ def profiled_step(torch, step):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False))
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, -math.inf
     for lo, hi in spans:
         busy_us += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    return busy_us / 1e3, wall_ms
+    return busy_us / 1e3, wall_ms, [
+        (e.name, (e.time_range.end - e.time_range.start) / 1e3)
+        for e in events]
+
+
+def onebit_device_ms(events):
+    """The device events of the onebit kernels, by wrapper: {wrapper:
+    (number of device kernels, their summed ms)}."""
+    out = {k: [0, 0.0] for k in KERNELS}
+    for name, ms in events:
+        m = ONEBIT_KERNEL_RE.search(name)
+        if m:
+            r = out[f"onebit_{m.group(1)}"]
+            r[0] += 1
+            r[1] += ms
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def _cpu(tree):
@@ -761,6 +867,7 @@ def main():
         return 1
     import byteps_tpu_torch as bps
     from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.common.partitioner import chunk_bounds
     from byteps_tpu_torch.compression import registry
     from byteps_tpu_torch.core import api
     from byteps_tpu_torch.models import gpt, llama, resnet
@@ -772,9 +879,11 @@ def main():
     t_start = time.perf_counter()
     device_phase(torch)
     build_phase(build, [ok.SOURCE, fa.SOURCE], mma_source=fa.SOURCE)
-    chunk_numel = Config().partition_bytes // 4        # f32 gradients
-    rows = kernel_phase(torch, ok, chunk_numel)
-    launches, _ = slice_phase(torch, bps, ok, api, registry, resnet)
+    config = Config()
+    chunk_numel = config.partition_bytes // 4          # f32 gradients
+    chunks = resnet_chunks(torch, resnet, config, chunk_bounds)
+    rows = kernel_phase(torch, ok, chunk_numel, chunks)
+    launches, _ = slice_phase(torch, bps, ok, api, registry, resnet, chunks)
     torch.cuda.empty_cache()
     flash_rows, shape_ms = flash_kernel_phase(torch, fa)
     flash_launches = {k: 0 for k in FLASH_KERNELS}

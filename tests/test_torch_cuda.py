@@ -56,6 +56,151 @@ def test_kernels_match_plain(card, numel):
     torch.cuda.synchronize()
 
 
+# ragged sizes: one word, under a word, a word past a tile of 4096 floats,
+# a tail row of 3 elements (32 * 128 + 3: L = 256, numel % 4 = 3), and a
+# partition cut short (not a multiple of 4)
+RAGGED = [1, 31, 4097, 32 * 128 + 3, 1024000 - 12345]
+
+
+def _resnet_chunk_sizes():
+    """The distinct chunk sizes of chip_smoke's ResNet-50 slice."""
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.common.partitioner import chunk_bounds
+    from byteps_tpu_torch.models import resnet
+    from chip_smoke import resnet_chunks
+    return sorted(set(resnet_chunks(torch, resnet, Config(), chunk_bounds)))
+
+
+def _specials(numel, seed, device):
+    """randn with -0.0, 0.0 and NaN (packs as 1, 1 and 0) spread over it;
+    the scale is then NaN, as the plain version's."""
+    x = np.random.RandomState(seed).randn(numel).astype(np.float32)
+    x[::7] = -0.0
+    x[1::11] = 0.0
+    x[2::13] = np.nan
+    x[-1] = -0.0
+    return torch.from_numpy(x).to(device)
+
+
+def _pack_unpack_bit_exact(x, numel):
+    w, s = ok.onebit_pack(x)
+    w0, s0 = ok.onebit_pack_plain(x)
+    assert torch.equal(w, w0), numel
+    torch.testing.assert_close(s, s0, rtol=1e-6, atol=0, equal_nan=True)
+    scale = torch.tensor([0.375], device=x.device)
+    assert torch.equal(ok.onebit_unpack(w, scale, numel),
+                       ok.onebit_unpack_plain(w, scale[0], numel)), numel
+
+
+@pytest.mark.parametrize("numel", RAGGED)
+def test_pack_unpack_bit_exact_at_ragged_sizes(card, numel):
+    _pack_unpack_bit_exact(_specials(numel, numel % 1000, card), numel)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("vw", [None, *ok.VECTOR_WIDTHS])
+def test_pack_unpack_bit_exact_at_resnet_chunk_sizes(card, monkeypatch, vw):
+    """Every chunk size of the ResNet-50 slice (13 sizes, 16,384 to
+    1,024,000 floats), with launch_geometry's tile width (None) and with
+    each tile width forced."""
+    sizes = _resnet_chunk_sizes()
+    assert len(sizes) == 13
+    if vw is not None:
+        monkeypatch.setattr(ok, "launch_geometry",
+                            lambda L, kernel: (vw, L // (4 * vw)))
+    for numel in sizes:
+        _pack_unpack_bit_exact(_specials(numel, 9, card), numel)
+    torch.cuda.synchronize()
+
+
+def _device_kernels(calls):
+    """Run ``calls`` under one torch.profiler session; the names of the
+    device kernels they ran, in order."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
+@pytest.mark.parametrize("numel", [4097, 311296])
+def test_misaligned_views_take_the_scalar_instance(card, numel):
+    """An input one element into its storage is not 16-byte aligned: pack
+    and unpack run their scalar-access instance (``<vw, false>``), one
+    device kernel per call, and stay bit-exact; aligned inputs run
+    ``<vw, true>``."""
+    x = _specials(numel, 3, card)
+    x[2::13] = 1.5                                   # a finite scale
+    xv = torch.empty(numel + 1, device=card)[1:].copy_(x)
+    w0, s0 = ok.onebit_pack_plain(x)
+    wv = torch.empty(w0.numel() + 1, dtype=torch.int32,
+                     device=card)[1:].copy_(w0)
+    assert xv.data_ptr() % 16 != 0 and wv.data_ptr() % 16 != 0
+    scale = s0[1:]
+    want = ok.onebit_unpack_plain(w0, scale[0], numel)
+    L = ok.padded_lanes(numel)
+    pvw, _ = ok.launch_geometry(L, "onebit_pack")
+    uvw, _ = ok.launch_geometry(L, "onebit_unpack")
+    ok.onebit_pack(x)              # the stream's workspace, made outside
+    torch.cuda.synchronize()
+    got = {}
+    names = _device_kernels([
+        lambda: got.update(pack=ok.onebit_pack(xv)),
+        lambda: got.update(aligned=ok.onebit_pack(x)),
+        lambda: got.update(unpack=ok.onebit_unpack(wv, scale, numel)),
+        lambda: got.update(unpack_aligned=ok.onebit_unpack(w0, scale,
+                                                           numel))])
+    assert len(names) == 4, names
+    for name, kernel in zip(names, (f"pack_kernel<{pvw}, false>",
+                                    f"pack_kernel<{pvw}, true>",
+                                    f"unpack_kernel<{uvw}, false>",
+                                    f"unpack_kernel<{uvw}, true>")):
+        assert kernel in name, names
+    for key in ("pack", "aligned"):
+        assert torch.equal(got[key][0], w0)
+        torch.testing.assert_close(got[key][1], s0, rtol=1e-6, atol=0)
+    assert torch.equal(got["unpack"], want)
+    assert torch.equal(got["unpack_aligned"], want)
+
+
+def test_pack_scale_is_repeatable(card):
+    """The L1 sum is added in an order fixed by the chunk's size: two packs
+    of one input give the same scale bits."""
+    x = _x(1024000, 8, card)
+    x[3] = 0.25
+    w1, s1 = ok.onebit_pack(x)
+    w2, s2 = ok.onebit_pack(x)
+    assert torch.equal(w1, w2) and torch.equal(s1, s2)
+
+
+def test_packs_on_two_streams_at_once(card):
+    """Packs issued on two streams run at the same time; each stream has
+    its own ticket and partials, so each result is bit-exact."""
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    xs = [_x(1024000, 20 + i, card) for i in range(2)]
+    for x in xs:
+        x[3] = -2.0
+    want = [ok.onebit_pack_plain(x) for x in xs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(1000000)           # line both streams up
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(ok.onebit_pack(xs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for w, s in got[i]:
+            assert torch.equal(w, want[i][0])
+            torch.testing.assert_close(s, want[i][1], rtol=1e-6, atol=0)
+            assert torch.equal(s, got[i][0][1])
+
+
 def test_wrappers_count_and_reject(card):
     ok.reset_launches()
     w, s = ok.onebit_pack(torch.ones(1000, device=card))

@@ -18,7 +18,8 @@ from byteps_tpu_torch.compression import registry as port_registry
 from byteps_tpu_torch.ops import build as port_build
 from byteps_tpu_torch.ops import onebit_kernels as ok
 
-NUMELS = [100, 4096, 50000]
+# ragged sizes, and the three smallest chunk sizes of the ResNet-50 slice
+NUMELS = [100, 4096, 50000, 16384, 24576, 36864]
 
 
 def _x(numel, seed, specials=False):
@@ -175,6 +176,65 @@ def test_registry_names_what_is_registered():
         port_registry.create({"compressor": "onebit",
                               "momentum": "nesterov"}, 100)
     assert port_registry.create(None, 100).name == "identity"
+
+
+@pytest.mark.parametrize("kernel", ["onebit_pack", "onebit_unpack"])
+@pytest.mark.parametrize("numel", [1, 31, 100, 4097, 16384, 24576, 36864,
+                                   131072, 311296, 589824, 1024000,
+                                   1024000 - 12345, 32 * 128 + 3])
+def test_launch_geometry_covers_every_word_once(numel, kernel):
+    """pack and unpack launch ``blocks`` tiles of ``4 * vw`` words; block
+    b's thread t takes words 4 (b vw + t % vw) .. +3 and rows
+    (t // vw) * r .. +r-1 (r = 32 vw / 256), as csrc/onebit.cu does."""
+    L = ok.padded_lanes(numel)
+    vw, blocks = ok.launch_geometry(L, kernel)
+    assert vw in ok.VECTOR_WIDTHS and blocks * 4 * vw == L
+    if kernel == "onebit_unpack":
+        assert vw == ok.UNPACK_VW
+    else:   # the widest tile that gives PACK_MIN_BLOCKS, else the narrowest
+        wider = [w for w in ok.VECTOR_WIDTHS if w > vw]
+        assert all(L // (4 * w) < ok.PACK_MIN_BLOCKS for w in wider)
+        assert blocks >= ok.PACK_MIN_BLOCKS or vw == min(ok.VECTOR_WIDTHS)
+    t = np.arange(256)
+    rpt = 32 * vw // 256
+    cells = np.zeros((32, L), np.int64)
+    for b in range(blocks):
+        j = (b * vw + t % vw) * 4
+        for c in range(4):
+            for k in range(rpt):
+                np.add.at(cells, ((t // vw) * rpt + k, j + c), 1)
+    assert (cells == 1).all()
+
+
+def test_aligned_picks_the_16_byte_instance():
+    store = torch.zeros(4100, dtype=torch.float32)
+    assert ok._aligned(store) == (store.data_ptr() % 16 == 0)
+    base = store[(-store.data_ptr() // 4) % 4:][:4096]   # 16-byte aligned
+    assert ok._aligned(base)
+    assert not ok._aligned(base[1:])                     # 4 bytes in
+    assert ok._aligned(base[4:], base[8:])
+    assert not ok._aligned(base[4:], base[2:])
+
+
+def test_workspace_is_kept_per_device_and_stream():
+    """One zeroed workspace per (device, stream), reused while it is large
+    enough and replaced by a larger zeroed one when it is not."""
+    cpu = torch.device("cpu")
+    ok._workspaces.clear()
+    try:
+        a = ok._workspace(cpu, 11, 250)
+        assert a.dtype == torch.int32 and a.numel() >= ok.WS_HEAD + 2 * 250
+        assert not a.any()
+        assert ok._workspace(cpu, 11, 1000) is a         # room for 1000
+        assert ok._workspace(cpu, 12, 250) is not a      # another stream
+        a[0] = 7                                         # a tag in use
+        big = ok._workspace(cpu, 11, 5000)
+        assert big is not a and big.numel() >= ok.WS_HEAD + 2 * 5000
+        assert not big.any()
+        assert ok._workspace(cpu, 11, 10) is big
+        assert len(ok._workspaces) == 2
+    finally:
+        ok._workspaces.clear()
 
 
 def test_build_without_nvcc_raises(monkeypatch):
