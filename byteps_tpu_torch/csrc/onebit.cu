@@ -39,7 +39,10 @@
 //   while this one runs, and each block waits (griddepcontrol.wait) for
 //   the kernel before it to finish before it touches memory, so the stream
 //   order is kept.  A pack followed by the unpack of its own words (error
-//   feedback) pays the gap between kernels once instead of twice.
+//   feedback) pays the gap between kernels once instead of twice.  Every
+//   input is read with ordinary loads (__ldcs, __ldca), never through the
+//   read-only path (__ldg): ptxas moves such a load above the wait, and
+//   then it can read what the kernel before has not written yet.
 // - pack's sum across blocks, without atomics or fences.  Each thread ORs
 //   its rows' sign bits into 4 words and sums their |x|; the warp's rows are
 //   combined by shuffles (OR for the words, a fixed xor tree for the sum),
@@ -59,11 +62,27 @@
 // - unpack reads its 4 words as one 16-byte load and the scale once per
 //   warp, and writes its rows as 16-byte streaming stores of +-scale.
 //
-// unpack_sum_kernel is the first design: one thread per word j, looping
-// over the 32 rows, so a warp touches 32 consecutive floats (128 bytes)
-// of row i at each step; it adds ranks in the order r = 0..R-1, as the
-// reference's fori_loop does, and since sign * scale is exact its result
-// is bit-identical to the reference.
+// unpack_sum, the merge of R ranks' words (the server half of the
+// compressed push_pull: out[i * L + j] = sum over r of sign_r * scale_r),
+// takes the tiles of unpack, so a 16,384-float chunk reaches 8 SMs and not
+// 2, and its stores are 16 bytes wide:
+// - each thread keeps its rows' 4 sums in float4 registers, set to +0.0
+//   as the reference's jnp.zeros, and adds the ranks in the order
+//   r = 0..R-1, as its fori_loop.  sign * scale is exact (+-scale), and
+//   each sum is one IEEE addition per rank in that order, so the result
+//   has the reference's bits for any R.  (Starting from rank 0's product
+//   instead would give -0.0 where every product is -0.0, a zero scale at
+//   R = 1, and the reference +0.0 + -0.0 = +0.0; there is no product to
+//   contract into an FMA.)
+// - the ranks go in groups of kMergeUnroll (4): a group's 16-byte word
+//   vectors and scales are all loaded before the first is added.  Up to
+//   4 ranks that is the whole merge; past 4, the next group's loads go
+//   out before this group is added, so two groups are in flight.  Ranks
+//   at or past R are left out by a predicate that is the same for the
+//   whole grid.  The registers do not grow with R, and the order of
+//   addition does not change.  Each scale is one load for the whole warp.
+// - one launch with programmatic stream serialization, as pack and
+//   unpack, and no atomics: each output element is written by one thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,12 +94,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWsHead = 32;   // u32 slots of a pack workspace before its
                               // partials (WS_HEAD in onebit_kernels.py)
+constexpr int kMergeUnroll = 4;   // ranks in one group of unpack_sum's loads
 
 // Programmatic dependent launch (Hopper): let the next kernel on the
 // stream, if launched with programmatic serialization, start its launch
 // now, then wait until the kernel before this one has finished and its
 // memory is visible.  Every block does this before it touches memory, so
-// the kernel sees the stream in order, as without the attribute.
+// the kernel sees the stream in order, as without the attribute.  The
+// loads after it must be ordinary ones: ptxas hoists a read-only load
+// (__ldg, ld.global.nc) above griddepcontrol.wait.
 __device__ __forceinline__ void enter_stream_order() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -122,10 +144,11 @@ __device__ __forceinline__ void store4(float* __restrict__ out, long long e,
   if (e + 3 < numel) __stcs(out + e + 3, v.w);
 }
 
+// w[0 .. 3], with ordinary loads (ld.global.ca; see enter_stream_order).
 template <bool kVec>
 __device__ __forceinline__ uint4 load_words(const uint32_t* __restrict__ w) {
-  if (kVec) return __ldg(reinterpret_cast<const uint4*>(w));
-  return make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
+  if (kVec) return __ldca(reinterpret_cast<const uint4*>(w));
+  return make_uint4(__ldca(w), __ldca(w + 1), __ldca(w + 2), __ldca(w + 3));
 }
 
 __device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
@@ -268,7 +291,7 @@ unpack_kernel(const uint32_t* __restrict__ words,
   const int row0 = (threadIdx.x / VW) * kRpt;
   const int j = (blockIdx.x * VW + threadIdx.x % VW) * 4;
   enter_stream_order();
-  const float s = __ldg(scale);              // one request per warp
+  const float s = __ldca(scale);             // one request per warp
   const uint4 w = load_words<kVec>(words + j);
 #pragma unroll
   for (int k = 0; k < kRpt; ++k) {
@@ -281,29 +304,85 @@ unpack_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// acc[k] += +-s by the bits of w at row row0 + k, one rank of the merge.
+template <int kRpt>
+__device__ __forceinline__ void add_rank(float4 (&acc)[kRpt], uint4 w,
+                                         float s, int row0) {
+#pragma unroll
+  for (int k = 0; k < kRpt; ++k) {
+    const int i = row0 + k;
+    acc[k].x += ((w.x >> i) & 1u) ? s : -s;
+    acc[k].y += ((w.y >> i) & 1u) ? s : -s;
+    acc[k].z += ((w.z >> i) & 1u) ? s : -s;
+    acc[k].w += ((w.w >> i) & 1u) ? s : -s;
+  }
+}
+
+// The group of ranks r .. r + kMergeUnroll - 1, those at or past R left
+// out: its word vectors at j and its scales, then acc += each in order.
+template <bool kVec>
+__device__ __forceinline__ void load_ranks(uint4 (&w)[kMergeUnroll],
+                                           float (&s)[kMergeUnroll],
+                                           const uint32_t* __restrict__ words,
+                                           const float* __restrict__ scales,
+                                           int r, int R, int L, int j) {
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    if (r + u < R) {
+      w[u] = load_words<kVec>(words + (long long)(r + u) * L + j);
+      s[u] = __ldca(scales + r + u);
+    }
+  }
+}
+
+template <int kRpt>
+__device__ __forceinline__ void add_ranks(float4 (&acc)[kRpt],
+                                          const uint4 (&w)[kMergeUnroll],
+                                          const float (&s)[kMergeUnroll],
+                                          int r, int R, int row0) {
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u)
+    if (r + u < R) add_rank(acc, w[u], s[u], row0);
+}
+
+template <int VW, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 unpack_sum_kernel(const uint32_t* __restrict__ words,
                   const float* __restrict__ scales, int R, int L,
                   long long numel, float* __restrict__ out) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= L) return;
-  float acc[32];
+  static_assert(VW == 8 || VW == 16 || VW == 32, "VW is 8, 16 or 32");
+  constexpr int kRpt = 32 * VW / kThreads;   // rows per thread
+  const int row0 = (threadIdx.x / VW) * kRpt;
+  const int j = (blockIdx.x * VW + threadIdx.x % VW) * 4;
+  enter_stream_order();
+  float4 acc[kRpt];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    const uint32_t w = words[(long long)r * L + j];
-    const float s = scales[r];
+  for (int k = 0; k < kRpt; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // the ranks in groups of kMergeUnroll, in order: one group when R is
+  // at most kMergeUnroll, else each group's adds wait on loads issued a
+  // group earlier, the next group's loads going out before them
+  uint4 w[kMergeUnroll], wn[kMergeUnroll];
+  float s[kMergeUnroll], sn[kMergeUnroll];
+  load_ranks<kVec>(w, s, words, scales, 0, R, L, j);
+  if (R <= kMergeUnroll) {
+    add_ranks(acc, w, s, 0, R, row0);
+  } else {
+    for (int r = 0; r < R; r += kMergeUnroll) {
+      load_ranks<kVec>(wn, sn, words, scales, r + kMergeUnroll, R, L, j);
+      add_ranks(acc, w, s, r, R, row0);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += ((w >> i) & 1u) ? s : -s;
+      for (int u = 0; u < kMergeUnroll; ++u) {
+        w[u] = wn[u];
+        s[u] = sn[u];
+      }
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const long long idx = (long long)i * L + j;
-    if (idx < numel) out[idx] = acc[i];
-  }
+  for (int k = 0; k < kRpt; ++k)
+    store4<kVec>(out, (long long)(row0 + k) * L + j, numel, acc[k]);
 }
 
-// The tiles of pack and unpack: L words in blocks of 4 * vw.
+// The tiles of pack, unpack and unpack_sum: L words in blocks of 4 * vw.
 bool tiles_ok(int L, int vw) {
   return (vw == 8 || vw == 16 || vw == 32) && L > 0 && L % (4 * vw) == 0;
 }
@@ -343,6 +422,15 @@ cudaError_t launch_unpack(bool vec, int nb, cudaStream_t st,
                           long long numel, float* out) {
   return launch(vec ? &unpack_kernel<VW, true> : &unpack_kernel<VW, false>,
                 nb, st, words, scale, L, numel, out);
+}
+
+template <int VW>
+cudaError_t launch_unpack_sum(bool vec, int nb, cudaStream_t st,
+                              const uint32_t* words, const float* scales,
+                              int R, int L, long long numel, float* out) {
+  return launch(vec ? &unpack_sum_kernel<VW, true>
+                    : &unpack_sum_kernel<VW, false>,
+                nb, st, words, scales, R, L, numel, out);
 }
 
 }  // namespace
@@ -399,14 +487,27 @@ int bps_onebit_unpack(const void* words, const void* scale, int L, int vw,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// words: R x L u32; scales: R f32 (device); out: numel f32.
+// words: R x L u32; scales: R f32 (device); out: numel f32.  vec: words
+// and out are 16-byte aligned.  One launch of L / (4 * vw) blocks.
 int bps_onebit_unpack_sum(const void* words, const void* scales, int R,
-                          int L, long long numel, void* out, void* stream) {
-  unpack_sum_kernel<<<(L + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const float*>(scales),
-      R, L, numel, static_cast<float*>(out));
-  return cudaGetLastError();
+                          int L, int vw, int vec, long long numel, void* out,
+                          void* stream) {
+  if (R < 0 || !tiles_ok(L, vw) ||
+      (vec && !(aligned16(words) && aligned16(out))))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nb = L / (4 * vw);
+  auto wu = static_cast<const uint32_t*>(words);
+  auto sf = static_cast<const float*>(scales);
+  auto of = static_cast<float*>(out);
+  cudaError_t err;
+  if (vw == 8)
+    err = launch_unpack_sum<8>(vec, nb, st, wu, sf, R, L, numel, of);
+  else if (vw == 16)
+    err = launch_unpack_sum<16>(vec, nb, st, wu, sf, R, L, numel, of);
+  else
+    err = launch_unpack_sum<32>(vec, nb, st, wu, sf, R, L, numel, of);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // extern "C"

@@ -28,15 +28,16 @@ memory bytes, for a chunk of n floats):
   (``_unpack_sum_kernel``); reads R*n/8 bytes, writes 4n.
 
 The source (``csrc/onebit.cu``) says what holds them back at the main
-path's chunk sizes and what the design does about it.  pack and unpack
-take tiles of ``4 * vw`` words by 32 rows, one block of 256 threads each,
-16 bytes per access; :func:`launch_geometry` picks ``vw`` from the
-chunk's words, and an input that is not 16-byte aligned takes the
-kernels' scalar-access instance (:func:`_aligned`).  pack is one launch:
-its last block adds the blocks' L1 partials in index order, which it
-knows are all there by the tag each carries, kept in a workspace per
-device and stream (:func:`_workspace`).  No atomics: the scale has the
-same bits from run to run.
+path's chunk sizes and what the design does about it.  pack, unpack and
+unpack_sum take tiles of ``4 * vw`` words by 32 rows, one block of 256
+threads each, 16 bytes per access; :func:`launch_geometry` picks ``vw``
+from the chunk's words, and an input that is not 16-byte aligned takes
+the kernels' scalar-access instance (:func:`_aligned`).  Each is one
+launch.  pack's last block adds the blocks' L1 partials in index order,
+which it knows are all there by the tag each carries, kept in a
+workspace per device and stream (:func:`_workspace`); unpack_sum adds
+the ranks in the order r = 0..R-1 from +0.0, as the reference does.  No
+atomics: the scale and the merge have the same bits from run to run.
 """
 
 from __future__ import annotations
@@ -53,11 +54,11 @@ from . import build as _build
 LANES = 128
 SOURCE = "onebit.cu"
 
-# pack and unpack take tiles of 4 * vw words by 32 rows, one block each.
-# pack: the widest tile that still gives PACK_MIN_BLOCKS blocks (about
-# half the SMs of an H100), else the narrowest; unpack: UNPACK_VW.  Both
-# were the fastest at the ResNet-50 slice's chunk sizes on an H100
-# (python -m byteps_tpu_torch.tools.onebit_widths).
+# pack, unpack and unpack_sum take tiles of 4 * vw words by 32 rows, one
+# block each.  pack: the widest tile that still gives PACK_MIN_BLOCKS
+# blocks (about half the SMs of an H100), else the narrowest; unpack and
+# unpack_sum: UNPACK_VW.  Each was the fastest over the ResNet-50 slice's
+# chunk sizes on an H100 (python -m byteps_tpu_torch.tools.onebit_widths).
 VECTOR_WIDTHS = (32, 16, 8)
 PACK_MIN_BLOCKS = 64
 UNPACK_VW = 16
@@ -126,11 +127,11 @@ def onebit_unpack_sum_plain(words: torch.Tensor, scales: torch.Tensor,
 # --- CUDA wrappers ----------------------------------------------------------
 
 def launch_geometry(L: int, kernel: str) -> Tuple[int, int]:
-    """(vw, blocks) of ``kernel`` ("onebit_pack" or "onebit_unpack") for
-    ``L`` words: tiles of ``4 * vw`` words, one block each,
-    ``blocks * 4 * vw == L`` (L is a multiple of LANES, so of every tile
-    width)."""
-    if kernel == "onebit_unpack":
+    """(vw, blocks) of ``kernel`` ("onebit_pack", "onebit_unpack" or
+    "onebit_unpack_sum") for ``L`` words: tiles of ``4 * vw`` words, one
+    block each, ``blocks * 4 * vw == L`` (L is a multiple of LANES, so of
+    every tile width)."""
+    if kernel in ("onebit_unpack", "onebit_unpack_sum"):
         vw = UNPACK_VW
     else:
         vw = next((w for w in VECTOR_WIDTHS
@@ -179,7 +180,7 @@ def _lib():
         lib.bps_onebit_error_string.restype = ctypes.c_char_p
         lib.bps_onebit_pack.argtypes = [p, ll, i, i, i, p, p, p, p]
         lib.bps_onebit_unpack.argtypes = [p, p, i, i, i, ll, p, p]
-        lib.bps_onebit_unpack_sum.argtypes = [p, p, i, i, ll, p, p]
+        lib.bps_onebit_unpack_sum.argtypes = [p, p, i, i, i, i, ll, p, p]
         for fn in (lib.bps_onebit_pack, lib.bps_onebit_unpack,
                    lib.bps_onebit_unpack_sum):
             fn.restype = i
@@ -263,10 +264,12 @@ def onebit_unpack_sum(words: torch.Tensor, scales: torch.Tensor,
                          f"{scales.numel()} scales do not describe "
                          f"{numel} elements")
     R, L = words.shape
+    vw, _ = launch_geometry(L, "onebit_unpack_sum")
     with torch.cuda.device(words.device):
         out = torch.empty(numel, dtype=torch.float32, device=words.device)
         rc = _lib().bps_onebit_unpack_sum(words.data_ptr(), scales.data_ptr(),
-                                          R, L, numel, out.data_ptr(),
+                                          R, L, vw, int(_aligned(words, out)),
+                                          numel, out.data_ptr(),
                                           _stream(words))
     _raise_on(rc, "onebit_unpack_sum")
     launches["onebit_unpack_sum"] += 1

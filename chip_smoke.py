@@ -8,21 +8,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels from byteps_tpu_torch/csrc (onebit.cu and
    flash_attention.cu), one nvcc per source, all started together, with
-   ptxas's register, shared-memory and spill lines, and each flash
-   kernel's count of tensor-core instructions in ``cuobjdump -sass``:
-   every bf16 instance of the forward and the two backward kernels must
-   have some;
+   ptxas's register, shared-memory and spill lines (any spill fails the
+   run), and each flash kernel's count of tensor-core instructions in
+   ``cuobjdump -sass``: every bf16 instance of the forward and the two
+   backward kernels must have some;
 3. onebit kernels: each against its plain PyTorch version on the card, at
    every chunk size of the ResNet slice (its parameters' sizes cut as the
    engine cuts them under ``Config()``) and at ragged sizes (words and
-   values bit-exact, the scale to rtol 1e-6).  Then a launch of PyTorch's
-   own (a fill_ of one float) is timed back to back, the cost of a kernel
-   that moves nothing, and pack and unpack are timed with CUDA events at
-   each of those sizes (inputs rotating over ROTATE_BYTES, more than the
-   L2) beside their device-memory bound, and summed over one ResNet step
-   (2 packs and 3 unpacks per chunk, each at its chunk's size); at the
-   largest chunk all three kernels are timed beside their plain versions
-   too;
+   values bit-exact, the scale to rtol 1e-6).  The merge (unpack_sum) is
+   held in its bits on the pack's own words (R = 1, as on the path) and
+   on ``merge_inputs`` at R = 1, 4 and 8: independent random words per
+   rank, rank 0's scale 0.0 and the others of mixed magnitude, on which
+   a merge in another rank order or one that starts from rank 0's
+   product instead of +0.0 differs in bits (both controls are run, and
+   must differ).  Then a launch of PyTorch's own (a fill_ of one float)
+   is timed back to back, the cost of a kernel that moves nothing, and
+   pack, unpack and unpack_sum (R = 1, and R = 4 and 8 on random words)
+   are timed with CUDA events at each of those sizes (inputs rotating
+   over ROTATE_BYTES, more than the L2) beside their device-memory bound,
+   and summed over one ResNet step (2 packs, 3 unpacks and 1 unpack_sum
+   per chunk, each at its chunk's size); at the largest chunk all three
+   kernels are timed beside their plain versions too;
 4. resnet slice: ResNet-50 at full width (1000 classes, 224x224 NHWC,
    bf16 compute, batch 32, seeded synthetic data) trained through
    ``DistributedOptimizer(SGD(momentum=0.9), compression=onebit+ef)`` ->
@@ -107,6 +113,10 @@ BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
 BATCH, IMAGE, CLASSES = 32, 224, 1000
 TIMED_STEPS = 3
 ROTATE_BYTES = 64 << 20          # inputs per timed size: more than the L2
+# the merge's check inputs: rank r's scale is MERGE_SCALES[r % 8], rank 0's
+# 0.0, the others of mixed magnitude (see merge_inputs)
+MERGE_SCALES = (0.0, 0.1, 1.0, 0.7, 3e-8, 7.25, 1 / 3, 2.2e-3)
+MERGE_RANKS = (1, 4, 8)          # unpack_sum checked and timed at these R
 
 KERNELS = {   # wrapper name -> the Pallas kernel it replaces (def line)
     "onebit_pack": "byteps_tpu/ops/pallas_kernels.py:77",
@@ -158,6 +168,43 @@ def check(ok, msg):
     """A failed check fails the run (unlike assert, never compiled out)."""
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def same_bits(a, b):
+    """Whether two f32 tensors have the same shape and bits (torch.equal
+    takes -0.0 for +0.0)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def merge_inputs(R, L, seed):
+    """(words, scales) of an R-rank merge, numpy: (R, L) int32 words (the
+    uint32 bit pattern), independent and random for each rank, and (R,)
+    f32 scales MERGE_SCALES[r % 8].  On these a merge that adds the ranks
+    in another order differs in bits from the reference at R >= 4 (at
+    R <= 3 only two products are not +-0.0, and their sum commutes), and
+    one that starts from rank 0's product instead of +0.0 differs at R =
+    1 (-0.0 where the reference gives +0.0 + -0.0 = +0.0; where a non-zero
+    product follows, a zero start leaves no trace)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    words = rs.randint(0, 2**32, size=(R, L), dtype=np.uint64)
+    scales = [MERGE_SCALES[r % len(MERGE_SCALES)] for r in range(R)]
+    return (words.astype(np.uint32).view(np.int32),
+            np.asarray(scales, np.float32))
+
+
+def merge_controls(ok, words, scales, numel):
+    """Two wrong merges in plain torch, which ``merge_inputs`` must tell
+    from ``onebit_unpack_sum_plain`` by their bits: the ranks added in
+    reverse order, and a sum that starts from rank 0's product."""
+    first = ok.onebit_unpack_plain(words[0], scales[0], numel)
+    for r in range(1, words.shape[0]):
+        first = first + ok.onebit_unpack_plain(words[r], scales[r], numel)
+    return {"reversed order": ok.onebit_unpack_sum_plain(
+                words.flip(0), scales.flip(0), numel),
+            "rank 0's product as the start": first}
 
 
 def row_share(got, want, floor=ROW_FLOOR):
@@ -221,13 +268,17 @@ def device_phase(torch):
         f"count {torch.cuda.device_count()}")
 
 
-def build_phase(build, sources, mma_source=None):
-    """Build ``sources``; print ptxas's lines and, for ``mma_source``, each
-    kernel's count of tensor-core instructions, which every kernel of
-    MMA_KERNELS must have."""
+def build_phase(build, sources, mma_source=None, pdl_source=None):
+    """Build ``sources``; print ptxas's lines, which must show no spill;
+    for ``pdl_source``, whose kernels launch with programmatic stream
+    serialization, check in SASS that none loads before its wait for the
+    kernel before it; and, for ``mma_source``, print each kernel's count
+    of tensor-core instructions, which every kernel of MMA_KERNELS must
+    have."""
     t0 = time.perf_counter()
     build.build(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s for {', '.join(sources)}")
+    spills = []
     for src in sources:
         entry = ""
         for line in build.build_logs.get(src, "").splitlines():
@@ -235,6 +286,19 @@ def build_phase(build, sources, mma_source=None):
                 entry = _kernel_name(line)
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {src} {entry}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m and (int(m.group(1)) or int(m.group(2))):
+                    spills.append(f"{src} {entry}")
+    check(not spills, f"register spills in {spills}")
+    if pdl_source is not None:
+        early = sass_loads_before_wait(build, pdl_source)
+        log(f"  sass {pdl_source}: {len(early)} kernels wait for the kernel "
+            f"before them; loads issued before that wait: "
+            f"{sum(map(len, early.values()))}")
+        check(early and not any(early.values()),
+              f"loads before griddepcontrol.wait: "
+              f"{ {k: v for k, v in early.items() if v} }")
     if mma_source is None:
         return
     counts = sass_mma_counts(build, mma_source)
@@ -244,21 +308,42 @@ def build_phase(build, sources, mma_source=None):
     check(not missing, f"no tensor-core instruction in {missing}")
 
 
-def sass_mma_counts(build, source):
-    """Tensor-core instructions (HMMA, HGMMA) in each kernel of the built
-    library of ``source``, read from ``cuobjdump -sass``."""
+def sass_kernels(build, source):
+    """The instructions of each kernel of the built library of
+    ``source``, read from ``cuobjdump -sass``: {kernel name: [line]}."""
     tool = (shutil.which("cuobjdump")
             or os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"))
     sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
                           check=True, capture_output=True, text=True).stdout
-    counts, name = {}, None
+    kernels, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = _kernel_name(line.split("Function :", 1)[1])
-            counts[name] = 0
-        elif name is not None and re.search(r"\bHG?MMA\b", line):
-            counts[name] += 1
-    return counts
+            kernels[name] = []
+        elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            kernels[name].append(line)
+    return kernels
+
+
+def sass_mma_counts(build, source):
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of ``source``."""
+    return {k: sum(bool(re.search(r"\bHG?MMA\b", ln)) for ln in lines)
+            for k, lines in sass_kernels(build, source).items()}
+
+
+def sass_loads_before_wait(build, source):
+    """Each kernel of ``source`` that waits for the kernel before it
+    (griddepcontrol.wait, SASS ACQBULK) -> the global loads it issues
+    before that wait.  Such a load may read what the kernel before has not
+    written yet, so every list must be empty."""
+    out = {}
+    for k, lines in sass_kernels(build, source).items():
+        wait = next((i for i, ln in enumerate(lines) if "ACQBULK" in ln),
+                    None)
+        if wait is not None:
+            out[k] = [ln.split(";")[0].split("*/", 1)[1].strip()
+                      for ln in lines[:wait] if re.search(r"\bLDG?\.", ln)]
+    return out
 
 
 def _kernel_name(ptxas_line):
@@ -318,9 +403,9 @@ def resnet_chunks(torch, resnet, config, chunk_bounds):
 
 def kernel_phase(torch, ok, chunk_numel, chunks):
     """The onebit kernels against their plain versions at every chunk size
-    of ``chunks`` (the ResNet slice's) and at ragged sizes, then pack and
-    unpack timed at each of those sizes and summed over one ResNet step;
-    returns the JSON rows' numbers (at ``chunk_numel``)."""
+    of ``chunks`` (the ResNet slice's) and at ragged sizes, then timed at
+    each of those sizes and summed over one ResNet step; returns the JSON
+    rows' numbers (at ``chunk_numel``, unpack_sum at R = 1)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(1)
     err = {k: 0.0 for k in KERNELS}
@@ -329,6 +414,9 @@ def kernel_phase(torch, ok, chunk_numel, chunks):
         x[..., ::97] = -0.0
         x[..., 5] = 0.0
         return x
+
+    def merge_on_card(R, L, seed):
+        return [torch.from_numpy(a).to(dev) for a in merge_inputs(R, L, seed)]
 
     sizes = sorted(set(chunks) | {chunk_numel})
     ragged = [chunk_numel - 12345, 4097, 100]
@@ -343,17 +431,30 @@ def kernel_phase(torch, ok, chunk_numel, chunks):
         out = ok.onebit_unpack(w, s[1:], numel)
         ref = ok.onebit_unpack_plain(w, s[1], numel)
         check(torch.equal(out, ref), f"unpack differs at numel={numel}")
-        for R in (1, 8):
-            ws = torch.stack([torch.roll(w, r) for r in range(R)])
-            ss = (torch.rand(R, generator=gen) + 0.5).to(dev)
-            out = ok.onebit_unpack_sum(ws, ss, numel)
-            ref = ok.onebit_unpack_sum_plain(ws, ss, numel)
-            check(torch.equal(out, ref),
-                  f"unpack_sum differs at numel={numel} R={R}")
+        # the merge: of the pack's own words and scale, as at one rank on
+        # the path, then of the step-1 inputs at each of MERGE_RANKS
+        merges = [("the pack's words", w[None], s[1:])] + [
+            (f"R={R}", *merge_on_card(R, ok.padded_lanes(numel), numel + R))
+            for R in MERGE_RANKS]
+        for what, ws, ss in merges:
+            check(same_bits(ok.onebit_unpack_sum(ws, ss, numel),
+                            ok.onebit_unpack_sum_plain(ws, ss, numel)),
+                  f"unpack_sum differs in bits at numel={numel}, {what}")
     torch.cuda.synchronize()
     log(f"kernels: bit-exact against the plain versions at the "
         f"{len(set(chunks))} chunk sizes of the ResNet slice {sizes} and at "
-        f"numel {', '.join(map(str, ragged))} (unpack_sum at R=1, 8)")
+        f"numel {', '.join(map(str, ragged))} (unpack_sum on the pack's "
+        f"words and on merge_inputs at R={MERGE_RANKS}, scales "
+        f"{MERGE_SCALES})")
+    # the check sees a merge in another order or from rank 0's product
+    for R, ctl in ((8, "reversed order"), (1, "rank 0's product as the start")):
+        ws, ss = merge_on_card(R, ok.padded_lanes(chunk_numel), 7)
+        ref = ok.onebit_unpack_sum_plain(ws, ss, chunk_numel)
+        bad = merge_controls(ok, ws, ss, chunk_numel)[ctl]
+        differ = int((bad.view(torch.int32) != ref.view(torch.int32)).sum())
+        check(differ > 0, f"merge_inputs at R={R} do not show {ctl}")
+        log(f"kernels: control at R={R}, {ctl}: {differ} of {chunk_numel} "
+            f"elements differ in bits from the plain merge")
 
     # the cost of a launch, back to back: PyTorch's fill_ of one float
     one = torch.empty(1, device=dev)
@@ -361,8 +462,11 @@ def kernel_phase(torch, ok, chunk_numel, chunks):
     log(f"kernels: a launch back to back (PyTorch's fill_ of one float) "
         f"takes {launch_ms * 1e3:.2f} us")
 
-    # timing at each chunk size of the slice (R = 1: a world of one); the
-    # inputs of each size rotate over ROTATE_BYTES, more than the L2
+    # timing at each chunk size of the slice: pack, unpack and unpack_sum
+    # at R = 1 (a world of one), on the pack's own words, and unpack_sum at
+    # the other MERGE_RANKS on independent random words (the merges of a
+    # 4- and an 8-rank world); the inputs of each size rotate over
+    # ROTATE_BYTES, more than the L2
     dgen = torch.Generator(device=dev).manual_seed(4)
     per_size = {}
     for n in sizes:
@@ -370,6 +474,13 @@ def kernel_phase(torch, ok, chunk_numel, chunks):
         count = -(-ROTATE_BYTES // (4 * n))
         xs = list(specials(torch.randn(count, n, generator=dgen, device=dev)))
         packed = [ok.onebit_pack(x) for x in xs]
+
+        def merge(w, s):
+            return ok.onebit_unpack_sum(w, s, n)
+
+        def merge_plain(w, s):
+            return ok.onebit_unpack_sum_plain(w, s, n)
+
         timing = {
             "onebit_pack": (
                 lambda x: ok.onebit_pack(x), lambda x: ok.onebit_pack_plain(x),
@@ -378,17 +489,23 @@ def kernel_phase(torch, ok, chunk_numel, chunks):
                 lambda w, s: ok.onebit_unpack(w, s, n),
                 lambda w, s: ok.onebit_unpack_plain(w, s[0], n),
                 [(w, s[1:]) for w, s in packed], 4 * L + 4 + 4 * n),
+            "onebit_unpack_sum": (
+                merge, merge_plain, [(w[None], s[1:]) for w, s in packed],
+                4 * L + 4 + 4 * n),
         }
-        if n == chunk_numel:
-            timing["onebit_unpack_sum"] = (
-                lambda w, s: ok.onebit_unpack_sum(w, s, n),
-                lambda w, s: ok.onebit_unpack_sum_plain(w, s, n),
-                [(w[None], s[1:]) for w, s in packed], 4 * L + 4 + 4 * n)
+        for R in MERGE_RANKS[1:]:
+            ss = torch.tensor([MERGE_SCALES[r % len(MERGE_SCALES)]
+                               for r in range(R)], device=dev)
+            ws = torch.randint(-2**31, 2**31 - 1, (count, R, L),
+                               generator=dgen, device=dev, dtype=torch.int32)
+            timing[f"onebit_unpack_sum R={R}"] = (
+                merge, merge_plain, [(w, ss) for w in ws],
+                4 * R * L + 4 * R + 4 * n)
         row = {}
         for name, (kern, plain, args, nbytes) in timing.items():
             row[name] = {"ms": device_ms(torch, kern, args),
                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-            if n == chunk_numel:
+            if n == chunk_numel and name in KERNELS:
                 row[name]["plain_ms"] = device_ms(torch, plain, args, reps=20)
                 row[name]["max_abs_err"] = err[name]
         per_size[n] = row
@@ -399,23 +516,32 @@ def kernel_phase(torch, ok, chunk_numel, chunks):
                 for k, r in row.items()))
         del xs, packed, timing
     rows = per_size[chunk_numel]
-    for name, r in rows.items():
+    for name in KERNELS:
+        r = rows[name]
         log(f"  {name}: {r['ms'] * 1e3:.2f} us (plain "
             f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} "
             f"us) at numel {chunk_numel}")
 
-    # one ResNet step: 2 packs and 3 unpacks per compressed chunk
+    # one ResNet step: 2 packs, 3 unpacks and 1 unpack_sum per compressed
+    # chunk, each at its chunk's size; the merge also at R = 4 and 8
     step = {}
-    for name, calls in (("onebit_pack", 2), ("onebit_unpack", 3)):
+    for name, calls in (("onebit_pack", 2), ("onebit_unpack", 3),
+                        ("onebit_unpack_sum", 1)):
         step[name] = {k: sum(calls * per_size[n][name][k] for n in chunks)
                       for k in ("ms", "bound_ms")}
     ms, bound = (sum(r[k] for r in step.values()) for k in ("ms", "bound_ms"))
-    log(f"kernels: per ResNet step ({len(chunks)} chunks, 2 packs and 3 "
-        f"unpacks each, each at its chunk's size): " + ", ".join(
+    log(f"kernels: per ResNet step ({len(chunks)} chunks, 2 packs, 3 "
+        f"unpacks and 1 unpack_sum each, each at its chunk's size, R=1): "
+        + ", ".join(
             f"{k} {r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f} us)"
             for k, r in step.items())
         + f"; together {ms * 1e3:.2f} us (bound {bound * 1e3:.2f} us, "
           f"{bound / ms:.1%})")
+    log("kernels: unpack_sum per ResNet step at " + ", ".join(
+        "R={} {:.2f} us (bound {:.2f} us)".format(R, *(
+            sum(per_size[n][f"onebit_unpack_sum R={R}"][k] for n in chunks)
+            * 1e3 for k in ("ms", "bound_ms")))
+        for R in MERGE_RANKS[1:]))
     return rows
 
 
@@ -878,7 +1004,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     t_start = time.perf_counter()
     device_phase(torch)
-    build_phase(build, [ok.SOURCE, fa.SOURCE], mma_source=fa.SOURCE)
+    build_phase(build, [ok.SOURCE, fa.SOURCE], mma_source=fa.SOURCE,
+                pdl_source=ok.SOURCE)
     config = Config()
     chunk_numel = config.partition_bytes // 4          # f32 gradients
     chunks = resnet_chunks(torch, resnet, config, chunk_bounds)

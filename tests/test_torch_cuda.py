@@ -7,7 +7,9 @@ the port is installed:
 
 Each CUDA kernel is held against its plain version on the same inputs:
 the onebit kernels bit-exact in words and values, their scale (an L1 sum
-taken in another order) to rtol 1e-6; the flash kernels to the
+taken in another order) to rtol 1e-6, the merge (unpack_sum) in its bits
+on ``chip_smoke.merge_inputs``, which a merge in another order or from
+rank 0's product cannot pass; the flash kernels to the
 tolerances stated in ``test_flash_kernels_match_plain``, which are
 ``chip_smoke.py``'s (its ``row_share`` and ``FLASH_BF16_TOL``).
 """
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 from byteps_tpu_torch.ops import onebit_kernels as ok
-from chip_smoke import FLASH_BF16_TOL, row_share
+from chip_smoke import (FLASH_BF16_TOL, merge_inputs, row_share,
+                        same_bits)
 
 pytestmark = pytest.mark.cuda
 
@@ -201,6 +204,125 @@ def test_packs_on_two_streams_at_once(card):
             assert torch.equal(s, got[i][0][1])
 
 
+MERGE_RANKS = [1, 2, 3, 4, 5, 8, 16]
+
+
+def _merge(numel, R, seed, device):
+    L = ok.padded_lanes(numel)
+    return [torch.from_numpy(a).to(device)
+            for a in merge_inputs(R, L, seed)]
+
+
+def _unpack_sum_bit_exact(numel, R, device):
+    ws, ss = _merge(numel, R, numel + R, device)
+    assert same_bits(ok.onebit_unpack_sum(ws, ss, numel),
+                     ok.onebit_unpack_sum_plain(ws, ss, numel)), (numel, R)
+
+
+@pytest.mark.parametrize("vw", [None, *ok.VECTOR_WIDTHS])
+def test_unpack_sum_bit_exact_at_resnet_chunk_sizes(card, monkeypatch, vw):
+    """The merge at every chunk size of the ResNet-50 slice and R = 1, 2,
+    3, 4, 5, 8 and 16 (R = 3 and 5 leave a rank group part full), on
+    merge_inputs, with launch_geometry's tile width (None) and each tile
+    width forced: the same bits as the plain merge."""
+    sizes = _resnet_chunk_sizes()
+    assert len(sizes) == 13
+    if vw is not None:
+        monkeypatch.setattr(ok, "launch_geometry",
+                            lambda L, kernel: (vw, L // (4 * vw)))
+    for numel in sizes:
+        for R in MERGE_RANKS:
+            _unpack_sum_bit_exact(numel, R, card)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("numel", RAGGED)
+def test_unpack_sum_bit_exact_at_ragged_sizes(card, numel):
+    """Tail rows that straddle numel, at every R of MERGE_RANKS."""
+    for R in MERGE_RANKS:
+        _unpack_sum_bit_exact(numel, R, card)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("numel", [4097, 311296])
+def test_unpack_sum_misaligned_words_take_the_scalar_instance(card, numel):
+    """Words one element into their storage are not 16-byte aligned: the
+    merge runs its scalar-access instance (``<vw, false>``), one device
+    kernel per call, with the same bits; aligned words run ``<vw,
+    true>``."""
+    ws, ss = _merge(numel, 5, 3, card)
+    wv = torch.empty(ws.numel() + 1, dtype=torch.int32,
+                     device=card)[1:].view(ws.shape).copy_(ws)
+    assert wv.is_contiguous() and wv.data_ptr() % 16 != 0
+    want = ok.onebit_unpack_sum_plain(ws, ss, numel)
+    vw, _ = ok.launch_geometry(ok.padded_lanes(numel), "onebit_unpack_sum")
+    torch.cuda.synchronize()
+    got = {}
+    names = _device_kernels([
+        lambda: got.update(misaligned=ok.onebit_unpack_sum(wv, ss, numel)),
+        lambda: got.update(aligned=ok.onebit_unpack_sum(ws, ss, numel))])
+    assert len(names) == 2, names
+    for name, kernel in zip(names, (f"unpack_sum_kernel<{vw}, false>",
+                                    f"unpack_sum_kernel<{vw}, true>")):
+        assert kernel in name, names
+    assert same_bits(got["misaligned"], want)
+    assert same_bits(got["aligned"], want)
+
+
+def test_unpack_sum_is_repeatable(card):
+    """Each output element is one thread's sum in rank order: two runs of
+    one merge give the same bits."""
+    ws, ss = _merge(1024000, 8, 30, card)
+    assert same_bits(ok.onebit_unpack_sum(ws, ss, 1024000),
+                     ok.onebit_unpack_sum(ws, ss, 1024000))
+
+
+def test_merges_on_two_streams_at_once(card):
+    """Merges issued on two streams run at the same time; each result has
+    the plain merge's bits."""
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    inputs = [_merge(1024000, 4 * (i + 1), 40 + i, card) for i in range(2)]
+    want = [ok.onebit_unpack_sum_plain(ws, ss, 1024000) for ws, ss in inputs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(1000000)           # line both streams up
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(ok.onebit_unpack_sum(*inputs[i], 1024000))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(same_bits(out, want[i]) for out in got[i])
+
+
+@pytest.mark.parametrize("numel", [16384, 262144, 1024000])
+def test_back_to_back_kernels_keep_stream_order(card, numel):
+    """Queued behind a sleep, pack -> unpack -> unpack_sum of the pack's
+    own words and scale run back to back, each launch overlapping the end
+    of the one before (programmatic stream serialization).  Each must
+    still read what the kernel before it wrote: every unpack and merge
+    equals the plain version's on the words and scale the pack left."""
+    g = torch.Generator().manual_seed(numel)
+    xs = [torch.randn(numel, generator=g).to(card) for _ in range(48)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)       # the whole chain queued behind it
+    got = []
+    for x in xs:
+        w, s = ok.onebit_pack(x)
+        got.append((w, s, ok.onebit_unpack(w, s[1:], numel),
+                    ok.onebit_unpack_sum(w[None], s[1:], numel)))
+    torch.cuda.synchronize()
+    for x, (w, s, out, merged) in zip(xs, got):
+        w0, s0 = ok.onebit_pack_plain(x)
+        assert torch.equal(w, w0)
+        torch.testing.assert_close(s, s0, rtol=1e-6, atol=0)
+        assert same_bits(out, ok.onebit_unpack_plain(w, s[1], numel))
+        assert same_bits(merged,
+                         ok.onebit_unpack_sum_plain(w[None], s[1:], numel))
+
+
 def test_wrappers_count_and_reject(card):
     ok.reset_launches()
     w, s = ok.onebit_pack(torch.ones(1000, device=card))
@@ -212,6 +334,19 @@ def test_wrappers_count_and_reject(card):
         ok.onebit_pack(torch.ones(1000, device=card, dtype=torch.float16))
     with pytest.raises(ValueError):
         ok.onebit_unpack(w, s[1:], 5000)
+    ws = torch.stack([w, w])
+    for words, scales, numel, error in (
+            (ws, s[1:], 1000, ValueError),             # 2 ranks, 1 scale
+            (ws, torch.ones(2, device=card), 5000, ValueError),  # not its L
+            (w, s[1:], 1000, ValueError),              # not (R, L)
+            (ws.float(), torch.ones(2, device=card), 1000, TypeError),
+            (ws, torch.ones(2, device=card, dtype=torch.float64), 1000,
+             TypeError),
+            (torch.stack([w, w], 1).t(), torch.ones(2, device=card), 1000,
+             ValueError)):                             # not contiguous
+        with pytest.raises(error):
+            ok.onebit_unpack_sum(words, scales, numel)
+    assert ok.launches["onebit_unpack_sum"] == 1
 
 
 def test_engine_push_pull_on_card(card):

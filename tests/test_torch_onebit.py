@@ -5,6 +5,8 @@ CPU tensors) are held against the Pallas kernels run in interpret mode,
 as tests/test_pallas_kernels.py runs them.  Words and decompressed values
 must be bit-exact (sign * scale is exact and the merge adds ranks in the
 same order); the scale, an L1 sum taken in another order, to rtol 1e-6.
+The merge is also held on ``chip_smoke.merge_inputs`` (a zero scale and
+mixed magnitudes), on which two wrong merges must differ in bits.
 """
 
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from byteps_tpu.ops import pallas_kernels as pk
 from byteps_tpu_torch.compression import registry as port_registry
 from byteps_tpu_torch.ops import build as port_build
 from byteps_tpu_torch.ops import onebit_kernels as ok
+from chip_smoke import merge_controls, merge_inputs
 
 # ragged sizes, and the three smallest chunk sizes of the ResNet-50 slice
 NUMELS = [100, 4096, 50000, 16384, 24576, 36864]
@@ -80,22 +83,57 @@ def test_unpack_matches_pallas(numel):
     np.testing.assert_array_equal(_bits(got), _bits(ref))
 
 
-@pytest.mark.parametrize("R", [2, 8])
+def _pallas_unpack_sum(words, scales, numel):
+    return np.asarray(pk.onebit_unpack_sum(
+        jnp.asarray(words.view(np.uint32)), jnp.asarray(scales),
+        interpret=True)).reshape(-1)[:numel]
+
+
+def _plain_unpack_sum(words, scales, numel):
+    return ok.onebit_unpack_sum_plain(torch.from_numpy(words),
+                                      torch.from_numpy(scales), numel)
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 5, 8])
 @pytest.mark.parametrize("numel", NUMELS)
 def test_unpack_sum_matches_pallas(numel, R):
+    """Two merges of R ranks: the packs of R random chunks with their own
+    scales, and ``merge_inputs`` (independent random words, rank 0's scale
+    0.0, the others of mixed magnitude)."""
     words, scales = [], []
     for r in range(R):
         w, a = _pallas_pack(_x(numel, seed=10 + r))
         words.append(w)
         scales.append(a / numel)
-    words = np.stack(words)
-    scales = np.asarray(scales, np.float32)
-    ref = np.asarray(pk.onebit_unpack_sum(jnp.asarray(words),
-                                          jnp.asarray(scales),
-                                          interpret=True)).reshape(-1)[:numel]
-    got = ok.onebit_unpack_sum_plain(torch.from_numpy(words.view(np.int32)),
-                                     torch.from_numpy(scales), numel)
-    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    packed = (np.stack(words).view(np.int32), np.asarray(scales, np.float32))
+    for words, scales in (packed,
+                          merge_inputs(R, ok.padded_lanes(numel), numel + R)):
+        ref = _pallas_unpack_sum(words, scales, numel)
+        got = _plain_unpack_sum(words, scales, numel)
+        if R == 1 and scales[0] == 0.0:
+            # +0.0 + (+-0.0) is +0.0 everywhere, as the port adds; XLA
+            # folds the interpret run's zeros + product to the product
+            # (-0.0 where a bit is 0), so that run is held to the values
+            assert not _bits(got).any()
+            np.testing.assert_array_equal(got.numpy(), ref)
+            continue
+        np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("R,control", [
+    (1, "rank 0's product as the start"), (4, "reversed order"),
+    (5, "reversed order"), (8, "reversed order")])
+@pytest.mark.parametrize("numel", NUMELS)
+def test_unpack_sum_controls_differ_in_bits(numel, R, control):
+    """On ``merge_inputs`` a merge that adds the ranks in reverse order, or
+    starts from rank 0's product instead of +0.0, differs in bits from the
+    plain merge (and so from a kernel that is right), so the card checks,
+    which use the same inputs, can see either fault."""
+    words, scales = merge_inputs(R, ok.padded_lanes(numel), numel + R)
+    ref = _bits(_plain_unpack_sum(words, scales, numel))
+    bad = merge_controls(ok, torch.from_numpy(words),
+                         torch.from_numpy(scales), numel)[control]
+    assert (_bits(bad) != ref).any()
 
 
 def test_cpu_wrappers_take_the_plain_version():
@@ -178,18 +216,19 @@ def test_registry_names_what_is_registered():
     assert port_registry.create(None, 100).name == "identity"
 
 
-@pytest.mark.parametrize("kernel", ["onebit_pack", "onebit_unpack"])
+@pytest.mark.parametrize("kernel", ["onebit_pack", "onebit_unpack",
+                                    "onebit_unpack_sum"])
 @pytest.mark.parametrize("numel", [1, 31, 100, 4097, 16384, 24576, 36864,
                                    131072, 311296, 589824, 1024000,
                                    1024000 - 12345, 32 * 128 + 3])
 def test_launch_geometry_covers_every_word_once(numel, kernel):
-    """pack and unpack launch ``blocks`` tiles of ``4 * vw`` words; block
-    b's thread t takes words 4 (b vw + t % vw) .. +3 and rows
+    """pack, unpack and unpack_sum launch ``blocks`` tiles of ``4 * vw``
+    words; block b's thread t takes words 4 (b vw + t % vw) .. +3 and rows
     (t // vw) * r .. +r-1 (r = 32 vw / 256), as csrc/onebit.cu does."""
     L = ok.padded_lanes(numel)
     vw, blocks = ok.launch_geometry(L, kernel)
     assert vw in ok.VECTOR_WIDTHS and blocks * 4 * vw == L
-    if kernel == "onebit_unpack":
+    if kernel in ("onebit_unpack", "onebit_unpack_sum"):
         assert vw == ok.UNPACK_VW
     else:   # the widest tile that gives PACK_MIN_BLOCKS, else the narrowest
         wider = [w for w in ok.VECTOR_WIDTHS if w > vw]
