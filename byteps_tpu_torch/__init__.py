@@ -5,11 +5,14 @@ imports torch and never jax, nor anything of ``byteps_tpu``.  Entry
 points run on the card unless the caller passes ``device="cpu"``.
 
 The data-parallel gradient path is ported: ``DistributedOptimizer`` ->
-``push_pull_async`` -> the engine (registry keys, partitioning, priority
-and credit scheduling, dispatch and sync threads) -> an all-reduce over
-``torch.distributed``, or for compressed tensors the onebit compressed
-push_pull whose pack, unpack and merge are CUDA kernels
-(``csrc/onebit.cu``).  ``models.resnet`` carries the ResNet family.
+``push_pull_async`` -> the engine (registry keys, partitioning at the
+auto-tuned planner's chunk size, priority and credit scheduling in the
+native queue, chunk-group dispatch and per-unit retirement threads) ->
+an all-reduce over ``torch.distributed``, or for compressed tensors the
+onebit compressed push_pull whose pack, unpack and merge are CUDA
+kernels (``csrc/onebit.cu``).  ``models`` carries the ResNet family, GPT
+and Llama, whose attention is the flash kernels of
+``csrc/flash_attention.cu``.
 """
 
 from .torch import *  # noqa: F401,F403 — the adapter is the public surface

@@ -8,7 +8,9 @@ Each rank contributes its own tensor and receives the reduction:
   all-reduce of the shard across nodes, then an all-gather inside the
   node (the reference's NCCL RS -> push/pull -> NCCL AG flow), with the
   flat tensor zero-padded to a multiple of ``local_size``;
-- :func:`broadcast`: every rank receives rank ``root``'s tensor.
+- :func:`broadcast`: every rank receives rank ``root``'s tensor;
+- :func:`push_pull_arrays_batched`: k equal-length chunks, one buffer,
+  one reduction, k results (the engine's chunk groups).
 
 Two numeric rules carry over from the JAX package.  ``_acc``: f16 and
 bf16 summands are cast to f32 before the collective, because NCCL's own
@@ -22,7 +24,7 @@ and never writes the caller's tensor.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -31,6 +33,10 @@ import torch.nn.functional as F
 from .mesh import CommContext
 
 _HALF = (torch.float16, torch.bfloat16)
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype in _HALF else dtype
 
 
 def _acc(x: torch.Tensor) -> torch.Tensor:
@@ -53,21 +59,19 @@ def _epilogue(r: torch.Tensor, x_dtype, comm: CommContext, average: bool,
     return r.to(x_dtype)
 
 
-def all_reduce(comm: CommContext, x: torch.Tensor, op: str = "sum",
-               keep_acc: bool = False,
-               scale: Optional[float] = None) -> torch.Tensor:
-    """Sum (or average) ``x`` over all ranks."""
-    buf = _acc(x)
+def _all_reduce_acc(comm: CommContext, buf: torch.Tensor, x_dtype,
+                    average: bool, keep_acc: bool,
+                    scale: Optional[float]) -> torch.Tensor:
+    """All-reduce the accumulation buffer ``buf`` (owned: reduced in
+    place), then the epilogue."""
     dist.all_reduce(buf)
-    return _epilogue(buf, x.dtype, comm, op == "average", keep_acc, scale)
+    return _epilogue(buf, x_dtype, comm, average, keep_acc, scale)
 
 
-def hierarchical_all_reduce(comm: CommContext, x: torch.Tensor,
-                            op: str = "sum", keep_acc: bool = False,
-                            scale: Optional[float] = None) -> torch.Tensor:
-    """Two-level reduction: RS inside the node, all-reduce of the shard
-    across nodes, AG inside the node."""
-    flat = _acc(x).reshape(-1)
+def _hierarchical_acc(comm: CommContext, flat: torch.Tensor, x_dtype,
+                      average: bool, keep_acc: bool,
+                      scale: Optional[float]) -> torch.Tensor:
+    """The two-level reduction of the flat accumulation buffer ``flat``."""
     n, L = flat.numel(), comm.local_size
     pad = (-n) % L
     if pad:
@@ -79,13 +83,31 @@ def hierarchical_all_reduce(comm: CommContext, x: torch.Tensor,
         shard = flat
     if comm.num_nodes > 1:
         dist.all_reduce(shard, group=comm.inter_group)
-    shard = _epilogue(shard, x.dtype, comm, op == "average", keep_acc, scale)
+    shard = _epilogue(shard, x_dtype, comm, average, keep_acc, scale)
     if L > 1:
         out = shard.new_empty(shard.numel() * L)
         dist.all_gather_into_tensor(out, shard, group=comm.intra_group)
     else:
         out = shard
-    return out[:n].reshape(x.shape)
+    return out[:n]
+
+
+def all_reduce(comm: CommContext, x: torch.Tensor, op: str = "sum",
+               keep_acc: bool = False,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Sum (or average) ``x`` over all ranks."""
+    return _all_reduce_acc(comm, _acc(x), x.dtype, op == "average",
+                           keep_acc, scale)
+
+
+def hierarchical_all_reduce(comm: CommContext, x: torch.Tensor,
+                            op: str = "sum", keep_acc: bool = False,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Two-level reduction: RS inside the node, all-reduce of the shard
+    across nodes, AG inside the node."""
+    return _hierarchical_acc(comm, _acc(x).reshape(-1), x.dtype,
+                             op == "average", keep_acc,
+                             scale).reshape(x.shape)
 
 
 def broadcast(comm: CommContext, x: torch.Tensor,
@@ -98,13 +120,52 @@ def broadcast(comm: CommContext, x: torch.Tensor,
     return out
 
 
+def _reduce_acc(comm: CommContext, buf: torch.Tensor, x_dtype,
+                average: bool, keep_acc: bool, scale: Optional[float],
+                hierarchical: Optional[bool]) -> torch.Tensor:
+    """The push_pull strategy on an owned flat accumulation buffer: the
+    hierarchical form once the world spans more than one node."""
+    if hierarchical is None:
+        hierarchical = comm.num_nodes > 1
+    fn = _hierarchical_acc if hierarchical else _all_reduce_acc
+    return fn(comm, buf, x_dtype, average, keep_acc, scale)
+
+
 def push_pull_array(comm: CommContext, x: torch.Tensor, op: str = "sum",
                     hierarchical: Optional[bool] = None,
                     keep_acc: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """The collective behind push_pull: the strategy follows the topology
     (hierarchical once the world spans more than one node)."""
-    if hierarchical is None:
-        hierarchical = comm.num_nodes > 1
-    fn = hierarchical_all_reduce if hierarchical else all_reduce
-    return fn(comm, x, op, keep_acc=keep_acc, scale=scale)
+    return _reduce_acc(comm, _acc(x).reshape(-1), x.dtype, op == "average",
+                       keep_acc, scale, hierarchical).reshape(x.shape)
+
+
+def push_pull_arrays_batched(comm: CommContext, xs: Sequence[torch.Tensor],
+                             scale: Optional[float] = None
+                             ) -> List[torch.Tensor]:
+    """Reduce ``k`` equal-length chunks with ONE collective; returns the
+    k results, flat views of one buffer.
+
+    The chunks are cast-copied into one accumulation-dtype buffer (one
+    copy each, in place of a clone each), which gets the reduction and
+    the epilogue a single dispatch of each chunk would get (the same
+    strategy; ``scale=None`` keeps the accumulation dtype, as the
+    engine's ``keep_acc`` sum).  Every step is elementwise, so each
+    chunk's result has the bits its own dispatch would give at one rank;
+    at more than one rank the engine forms no group (a collective's
+    summation order may depend on where an element lies in the buffer,
+    JAX ``collectives.py:713-718``)."""
+    if not xs:
+        raise ValueError("push_pull_arrays_batched of no chunks")
+    x0 = xs[0]
+    n = x0.numel()
+    if any(x.numel() != n or x.dtype != x0.dtype for x in xs):
+        raise ValueError("push_pull_arrays_batched needs chunks of one "
+                         "length and dtype")
+    buf = torch.empty(len(xs) * n, dtype=_acc_dtype(x0.dtype),
+                      device=x0.device)
+    for i, x in enumerate(xs):
+        buf[i * n:(i + 1) * n].copy_(x.reshape(-1))
+    out = _reduce_acc(comm, buf, x0.dtype, False, True, scale, None)
+    return list(out.split(n))

@@ -12,11 +12,22 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
   - BYTEPS_SCHEDULING_CREDIT             -> scheduling_credit (0 = unlimited)
   - BYTEPS_ENABLE_PRIORITY               -> enable_priority
   - BYTEPS_GROUP_SIZE / BYTEPS_NCCL_GROUP_SIZE -> group_size
+  - BYTEPS_AUTOTUNE                      -> autotune
+  - BYTEPS_NATIVE                        -> use_native
   - BYTEPS_MIN_COMPRESS_BYTES            -> min_compress_bytes
+
+``partition_pinned`` / ``credit_pinned`` are set when the environment
+variable is present (whatever its value) or the field is given a value
+other than its default; the planner never moves a pinned knob
+(JAX ``config.py:761-771``, ``1002-1005``).
 
 Unlike the JAX package there is no process-wide cached config: ``init``
 builds one with :meth:`Config.from_env` (or takes the caller's) and the
 engine owns it.
+
+Not ported: the knobs of the planes the port does not have yet (the
+compressor ladder, sharded update, membership and the sync deadline,
+telemetry, tracing, the server).
 """
 
 from __future__ import annotations
@@ -62,17 +73,36 @@ class Config:
     partition_bytes: int = PARTITION_BYTES_DEFAULT
     scheduling_credit: int = 0       # bytes in flight; 0 = unlimited
     enable_priority: bool = True
-    # Chunks per device program in the JAX engine.  Carried for the env
-    # contract; the port issues one collective per chunk (chunk-group
-    # batching is not ported yet).
+    # Chunks popped per dispatch iteration (reference
+    # BYTEPS_NCCL_GROUP_SIZE): up to this many eligible chunks are popped
+    # and neighbours merged into one collective (engine._plan_batch); 0
+    # reads as 1; < 0 is drain mode, every iteration pops the whole
+    # eligible window.  At more than one rank the engine uses 1.
     group_size: int = 4
+    # Auto-tuned chunk size and credit window per size bucket
+    # (scheduler.ChunkPlanner); inert at more than one rank.
+    autotune: bool = True
 
     # --- compression ---
     min_compress_bytes: int = 65536  # smaller tensors skip compression
 
+    # --- native core ---
+    # The C++ priority/credit queue (native/core.cc).  With True a failed
+    # build or load raises; False selects the Python heap.
+    use_native: bool = True
+
+    # None: resolved in __post_init__ (pinned when not the default)
+    partition_pinned: Optional[bool] = None
+    credit_pinned: Optional[bool] = None
+
     def __post_init__(self):
         if self.partition_bytes <= 0:
             raise ValueError("partition_bytes must be positive")
+        if self.partition_pinned is None:
+            self.partition_pinned = (self.partition_bytes
+                                     != PARTITION_BYTES_DEFAULT)
+        if self.credit_pinned is None:
+            self.credit_pinned = self.scheduling_credit != 0
         r = self.partition_bytes % ALIGN_BYTES
         if r and self.partition_bytes < 2**31 - ALIGN_BYTES:
             self.partition_bytes += ALIGN_BYTES - r
@@ -115,5 +145,12 @@ class Config:
             enable_priority=_env_bool("BYTEPS_ENABLE_PRIORITY", True),
             group_size=_env_int("BYTEPS_GROUP_SIZE",
                                 _env_int("BYTEPS_NCCL_GROUP_SIZE", 4)),
+            autotune=_env_bool("BYTEPS_AUTOTUNE", True),
             min_compress_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES", 65536),
+            use_native=_env_bool("BYTEPS_NATIVE", True),
+            # the variable's presence is the pin, whatever its value
+            partition_pinned=("BYTEPS_PARTITION_BYTES" in os.environ
+                              or None),
+            credit_pinned=("BYTEPS_SCHEDULING_CREDIT" in os.environ
+                           or None),
         )

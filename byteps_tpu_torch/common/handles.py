@@ -35,23 +35,33 @@ class Handle:
     # engine side ----------------------------------------------------------
     def set_result(self, result: Any, status: Status = None,
                    ready=None) -> None:
+        """Resolve the handle.  The done callbacks run first, so a waiter
+        wakes to the engine's bookkeeping (the planner's sample, the
+        tensor's in-flight count) already done."""
         with self._lock:
             self._result = result
             self._ready = ready
             self._status = status or Status.ok()
-            callbacks = list(self._on_done)
-        self._done.set()
-        for cb in callbacks:
-            cb(self)
+            callbacks, self._on_done = self._on_done, []
+        try:
+            for cb in callbacks:
+                cb(self)
+        finally:
+            self._done.set()
 
     def add_done_callback(self, cb: Callable[["Handle"], None]) -> None:
         with self._lock:
-            if not self._done.is_set():
+            if self._status is None:
                 self._on_done.append(cb)
                 return
         cb(self)
 
     # user side ------------------------------------------------------------
+    @property
+    def status(self) -> Optional[Status]:
+        """The outcome once resolved, else None."""
+        return self._status
+
     def poll(self) -> bool:
         """True once the result is assembled (its device work may still be
         queued; :meth:`wait` orders the caller's stream after it)."""

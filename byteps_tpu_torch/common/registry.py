@@ -71,6 +71,30 @@ class TensorRegistry:
                        num_elems, len(bounds))
         return ctx
 
+    @staticmethod
+    def repartition_locked(ctx: TensorContext, partition_bytes: int) -> bool:
+        """Re-carve an initialized tensor's chunk bounds and keys under a
+        new partition bound (the planner's chunk size).  The caller holds
+        ``ctx.lock`` and has checked ``ctx.inflight == 0``: bounds never
+        move under an outstanding push.  A compressed tensor is never
+        re-carved, since its per-chunk compressor state is tied to its
+        chunk geometry.  Returns True when the bounds changed."""
+        if (not ctx.initialized or ctx.compressor is not None
+                or ctx.compression_kwargs
+                or partition_bytes == ctx.partition_bytes):
+            return False
+        bounds = chunk_bounds(ctx.num_elems, ctx.dtype.itemsize,
+                              partition_bytes)
+        ctx.partition_bytes = partition_bytes
+        if bounds == ctx.chunk_bounds:
+            return False
+        ctx.chunk_bounds = bounds
+        ctx.key_list = [make_key(ctx.declared_key, i)
+                        for i in range(len(bounds))]
+        _log.debug("repartitioned tensor %s: %d chunk(s) at %d B", ctx.name,
+                   len(bounds), partition_bytes)
+        return True
+
     def get(self, name: str) -> Optional[TensorContext]:
         with self._lock:
             return self._by_name.get(name)

@@ -1,10 +1,16 @@
-"""Priority + credit chunk scheduler; port of ``ChunkScheduler`` in
+"""Priority + credit chunk scheduler and the auto-tuned chunk/credit
+planner; port of ``ChunkScheduler`` and ``ChunkPlanner`` in
 ``byteps_tpu/common/scheduler.py``.
 
 Tasks pop by priority descending, then key ascending, and a byte budget
 of in-flight work (the credit window, BYTEPS_SCHEDULING_CREDIT) bounds how
-far the dispatcher runs ahead of retirement.  The auto-tuning
-``ChunkPlanner`` and the native C++ scheduler are not ported yet.
+far the dispatcher runs ahead of retirement.  ``native/`` holds the same
+queue in C++ (the engine's default); this is the Python heap both are
+held to.
+
+Not ported: the planner's compressor ladder (``COMPRESS_LADDER``,
+``plan_compression``, ``observe_compression``), which races codecs the
+port does not have yet.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import heapq
 import threading
 from typing import List, Optional
 
+from .config import ALIGN_BYTES
 from .types import ChunkTask
 
 
@@ -26,6 +33,7 @@ class ChunkScheduler:
         self._heap: List[tuple] = []
         self._seq = 0
         self._cv = threading.Condition(threading.RLock())
+        self._interrupts = 0    # one-shot wakeups (pause handshake)
         self._shutdown = False  # latched wake (engine teardown)
 
     def add_task(self, task: ChunkTask) -> None:
@@ -47,17 +55,28 @@ class ChunkScheduler:
     def get_task(self, block: bool = False,
                  timeout: Optional[float] = None) -> Optional[ChunkTask]:
         """Pop the highest-priority task if the credit window allows it.
-        A blocking call returns None when woken by :meth:`wake`."""
+        A blocking call waits without polling, and returns None when woken
+        by :meth:`interrupt` (once) or :meth:`wake` (for good)."""
         with self._cv:
             if block:
                 self._cv.wait_for(
-                    lambda: self._eligible_locked() or self._shutdown,
+                    lambda: (self._eligible_locked() or self._shutdown
+                             or self._interrupts > 0),
                     timeout=timeout)
+                if self._interrupts > 0:
+                    self._interrupts -= 1
             if not self._eligible_locked():
                 return None
             _, _, task = heapq.heappop(self._heap)
             self._in_flight += task.nbytes
             return task
+
+    def interrupt(self) -> None:
+        """One-shot wakeup: the next (or currently blocked) blocking
+        get_task returns promptly even with nothing eligible."""
+        with self._cv:
+            self._interrupts += 1
+            self._cv.notify_all()
 
     def wake(self) -> None:
         """Latched wakeup: every blocked and future get_task returns."""
@@ -65,11 +84,28 @@ class ChunkScheduler:
             self._shutdown = True
             self._cv.notify_all()
 
+    def set_credit_bytes(self, credit_bytes: int) -> None:
+        """Retarget the credit window (the planner's value); a wider
+        window may make queued tasks eligible, so waiters are notified."""
+        with self._cv:
+            self._credit_limit = int(credit_bytes)
+            self._cv.notify_all()
+
+    @property
+    def credit_bytes(self) -> int:
+        with self._cv:
+            return self._credit_limit
+
     def report_finish(self, nbytes: int) -> None:
-        """Return credits of retired work."""
+        """Return credits of retired work (one call per dispatch unit)."""
         with self._cv:
             self._in_flight = max(0, self._in_flight - nbytes)
             self._cv.notify()
+
+    @property
+    def pending(self) -> int:
+        with self._cv:
+            return len(self._heap)
 
     @property
     def bytes_in_flight(self) -> int:
@@ -82,3 +118,133 @@ class ChunkScheduler:
             tasks = [t for _, _, t in sorted(self._heap)]
             self._heap.clear()
             return tasks
+
+
+# Samples per (size bucket, candidate) before the planner locks a bucket;
+# scoring a candidate by the least of its samples rejects one-off
+# outliers (a pause of the host, the first CUDA touch of a size growing
+# the caching allocator) without a long exploration.
+_PLAN_SAMPLES = 2
+# candidate chunk sizes stay on the partitioner's alignment
+_PLAN_ALIGN = ALIGN_BYTES
+
+
+class ChunkPlanner:
+    """Online (chunk size, credit window) tuner for the push_pull path.
+
+    Per tensor-size bucket (``nbytes.bit_length()``) it races a candidate
+    ladder -- the configured bound, the whole tensor, its half and its
+    quarter -- scoring each by the least wall seconds of a completed
+    push_pull, round-robin (fewest samples first, ladder order on ties),
+    then locks the winner and sets the credit window to 4x the largest
+    locked chunk.  Tensors at or under the configured bound are one chunk
+    either way and never tuned.
+
+    A pinned knob (``Config.partition_pinned`` / ``credit_pinned``) is
+    never moved, and at more than one rank (``num_procs > 1``) the
+    planner is inert: the ranks of a process group must issue the same
+    collectives with the same sizes, and per-rank timings would carve
+    different chunks.
+
+    A sample charged to a candidate that is no longer on the ladder (a
+    push carved under an earlier plan) is dropped.  The JAX planner also
+    drops a sample during which a program compiled; eager PyTorch
+    compiles nothing, and the nearest pollution here, the allocator's
+    first growth to a size, is left to the min-of-samples scoring.
+    """
+
+    def __init__(self, cfg, num_procs: int = 1):
+        self._base = cfg.partition_bytes
+        self._tune_partition = (cfg.autotune and not cfg.partition_pinned
+                                and num_procs == 1)
+        self._tune_credit = (cfg.autotune and not cfg.credit_pinned
+                             and num_procs == 1)
+        self._buckets = {}          # bucket -> {"cands", "samples", "locked"}
+        self._lock = threading.Lock()
+        self._credit = 0            # 0 = leave the scheduler's window
+
+    @property
+    def active(self) -> bool:
+        return self._tune_partition
+
+    def _candidates(self, nbytes: int) -> List[int]:
+        def align(b):
+            b = max(_PLAN_ALIGN, int(b))
+            r = b % _PLAN_ALIGN
+            return b + (_PLAN_ALIGN - r) if r else b
+
+        out = []
+        for c in (self._base, align(nbytes), align(nbytes // 2),
+                  align(nbytes // 4)):
+            if c >= _PLAN_ALIGN and c not in out:
+                out.append(c)
+        return out
+
+    def plan_partition(self, nbytes: int) -> int:
+        """The partition bound to carve a tensor of ``nbytes`` with now."""
+        if not self._tune_partition or nbytes <= self._base:
+            return self._base
+        bucket = nbytes.bit_length()
+        with self._lock:
+            st = self._buckets.get(bucket)
+            if st is None:
+                st = {"cands": self._candidates(nbytes), "samples": {},
+                      "locked": None}
+                self._buckets[bucket] = st
+            if st["locked"] is not None:
+                return st["locked"]
+            return min(st["cands"],
+                       key=lambda c: len(st["samples"].get(c, ())))
+
+    def observe(self, nbytes: int, partition_bytes: int,
+                seconds: float) -> None:
+        """Record one completed push_pull of a tensor of ``nbytes`` carved
+        at ``partition_bytes``; locks the bucket once every candidate has
+        its samples."""
+        if not self._tune_partition or nbytes <= self._base or seconds <= 0:
+            return
+        with self._lock:
+            st = self._buckets.get(nbytes.bit_length())
+            if st is None or st["locked"] is not None:
+                return
+            if partition_bytes not in st["cands"]:
+                return      # carved under an earlier plan
+            st["samples"].setdefault(partition_bytes, []).append(seconds)
+            if any(len(st["samples"].get(c, ())) < _PLAN_SAMPLES
+                   for c in st["cands"]):
+                return
+            st["locked"] = min(st["cands"],
+                               key=lambda c: min(st["samples"][c]))
+            if self._tune_credit:
+                self._credit = 4 * max(s["locked"]
+                                       for s in self._buckets.values()
+                                       if s["locked"] is not None)
+
+    def credit_bytes(self) -> int:
+        """The credit window to install (0 = leave the configured one)."""
+        with self._lock:
+            return self._credit
+
+    def locked(self, nbytes: int) -> bool:
+        """Whether a tensor of ``nbytes`` has nothing left to explore."""
+        if not self._tune_partition or nbytes <= self._base:
+            return True
+        with self._lock:
+            st = self._buckets.get(nbytes.bit_length())
+            return st is not None and st["locked"] is not None
+
+    def snapshot(self) -> dict:
+        """Locked partition (or exploration so far) per bucket, and the
+        credit window."""
+        with self._lock:
+            buckets = {
+                str(b): {"locked_partition_bytes": st["locked"],
+                         "explored": {str(k): round(min(v), 6)
+                                      for k, v in st["samples"].items()
+                                      if v}}
+                for b, st in self._buckets.items()}
+            return {"tuning_partition": self._tune_partition,
+                    "tuning_credit": self._tune_credit,
+                    "base_partition_bytes": self._base,
+                    "credit_bytes": self._credit,
+                    "buckets": buckets}

@@ -77,6 +77,10 @@ class ChunkTask:
     scale: Optional[float] = None
     pending: Any = None           # the _PendingTensor this chunk belongs to
     ready: Any = None             # CUDA event recorded at enqueue, or None
+    # perf_counter() seconds at enqueue (one stamp per push, which also
+    # opens the planner's sample) and at dispatch
+    t_enqueue: float = 0.0
+    t_dispatch: float = 0.0
 
     # priority descending, then key ascending
     def sort_tuple(self):
@@ -103,4 +107,7 @@ class TensorContext:
         default_factory=dict)
     compressor: Any = None        # list of _CompressionSlot, one per chunk
     partition_bytes: int = 0
+    # pushes enqueued and not yet resolved; the planner re-carves chunk
+    # bounds only at 0 (under ``lock``)
+    inflight: int = 0
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)

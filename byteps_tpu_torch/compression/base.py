@@ -42,6 +42,10 @@ class Compressor:
     def decompress(self, payload: Payload) -> torch.Tensor:
         return payload["values"]
 
+    def payload_nbytes(self) -> int:
+        """Bytes one compressed chunk puts on the wire."""
+        return self.numel * self.dtype.itemsize
+
     def decompress_sum(self, gathered: Payload) -> torch.Tensor:
         """f32 sum over ranks of each gathered payload's decompression.
         Subclasses with a fused merge kernel override this."""

@@ -43,6 +43,9 @@ class ErrorFeedback(Compressor):
         # the inner codec's fused merge runs under the decorator too
         return self.inner.decompress_sum(gathered)
 
+    def payload_nbytes(self):
+        return self.inner.payload_nbytes()
+
     def wire_encode(self, payload):
         return self.inner.wire_encode(payload)
 

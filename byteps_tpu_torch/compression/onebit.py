@@ -48,6 +48,9 @@ class OnebitCompressor(Compressor):
         return ok.onebit_unpack_sum(gathered["words"], gathered["scale"],
                                     self.numel)
 
+    def payload_nbytes(self) -> int:
+        return self._lanes * 4 + 4      # words and the scale
+
     def wire_encode(self, payload: Payload) -> bytes:
         words = payload["words"].detach().cpu().numpy().view(np.uint32)
         header = (np.uint32(len(words)).astype("<u4").tobytes()

@@ -6,12 +6,21 @@ process's global rank and ``size()`` the number of processes.
 ``init()`` runs on the card (``device="cuda"``) and raises where CUDA is
 absent; the CPU (gloo) is used only when the caller asks for it with
 ``device="cpu"``.
+
+``engine()`` reaches the running engine, as ``api._engine`` does in the
+JAX package: ``engine().pause_dispatch()`` / ``resume_dispatch()``,
+``engine().stats`` and ``engine().planner.snapshot()``.
+
+Not ported: the export of sharded-update state across ``suspend`` /
+``resume`` (sharded update is not ported yet), and the metrics, health
+and membership entry points of the planes not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,11 +33,19 @@ _engine: Optional[PushPullEngine] = None
 _lock = threading.Lock()
 # names declared before init, declared again in order at init
 _declared_order: List[str] = []
+# what suspend() leaves for resume(): the engine's config, device and
+# declaration order
+_suspended: Optional[Tuple[Config, torch.device, List[str]]] = None
 
 
 def init(config: Optional[Config] = None, device="cuda") -> None:
     """Join the process group (from ``config`` or the BYTEPS_*/DMLC_*
     environment) and start the engine on ``device``."""
+    _start(config, device, _declared_order)
+
+
+def _start(config: Optional[Config], device, names: List[str]) -> None:
+    """Start the engine with ``names`` declared first, in order."""
     global _engine
     with _lock:
         if _engine is not None:
@@ -40,7 +57,7 @@ def init(config: Optional[Config] = None, device="cuda") -> None:
         except BaseException:
             comm.close()
             raise
-        for name in _declared_order:
+        for name in names:
             engine.registry.declare(name)
         _engine = engine
 
@@ -60,6 +77,53 @@ def shutdown(wait: bool = True) -> None:
         finally:
             _engine.comm.close()
             _engine = None
+
+
+def suspend(wait: bool = True) -> None:
+    """Drain (``wait``) and stop the engine, keeping the declared order so
+    that :func:`resume` assigns the same keys (reference byteps_suspend,
+    operations.cc:96-105; JAX ``api.suspend``).  ``wait=False`` skips the
+    drain of outstanding handles."""
+    global _suspended
+    eng = _require()
+    _suspended = (eng.cfg, eng.device,
+                  eng.registry.names_in_declaration_order())
+    shutdown(wait=wait)
+
+
+def resume(config: Optional[Config] = None,
+           num_workers: Optional[int] = None,
+           global_rank: Optional[int] = None) -> None:
+    """Start the engine again after :func:`suspend`, on the same device,
+    with the tensors declared again in their original order (reference
+    byteps_resume, operations.cc:107-119; JAX ``api.resume``).
+
+    ``num_workers`` / ``global_rank`` update the DMLC environment as the
+    reference's ``BytePSBasics.resume`` does, and the config is then read
+    from the environment; with neither and no ``config`` the suspended
+    engine's config is used again."""
+    global _suspended
+    if initialized():
+        raise RuntimeError("resume() while the engine is running: call "
+                           "suspend() first")
+    if _suspended is None:
+        raise RuntimeError("resume() without a suspend()")
+    cfg, dev, names = _suspended
+    if num_workers is not None:
+        os.environ["DMLC_NUM_WORKER"] = str(num_workers)
+    if global_rank is not None:
+        os.environ["DMLC_WORKER_ID"] = str(global_rank)
+    if config is None:
+        config = (Config.from_env() if num_workers is not None
+                  or global_rank is not None else cfg)
+    _start(config, dev, names)
+    _suspended = None
+
+
+def get_pushpull_speed() -> Tuple[float, float]:
+    """(timestamp, MB/s) of push_pull wire traffic, pushed plus pulled
+    (reference byteps_get_pushpull_speed)."""
+    return _require().speed.speed()
 
 
 def _require() -> PushPullEngine:

@@ -1,31 +1,49 @@
-"""The push_pull engine: partition -> schedule -> chunk collective ->
-retire -> assemble; port of ``PushPullEngine`` in
+"""The push_pull engine: plan -> partition -> schedule -> dispatch units
+-> retire -> assemble; port of ``PushPullEngine`` in
 ``byteps_tpu/core/engine.py``.
 
 Two threads, as in the JAX package:
 
 - the **dispatcher** pops chunk tasks from the priority scheduler (credit
-  window permitting) and issues each chunk's collective, compressed or
-  not, on the engine's own CUDA stream.  That stream first waits on an
-  event the caller recorded at enqueue, so a gradient produced on
-  autograd's stream is complete before the engine reads it;
-- the **syncer** waits on the CUDA event recorded after each chunk,
-  returns the chunk's scheduling credits, and assembles the tensor when
-  its last chunk lands.  Assembly divides by R (an average) before any
-  downcast, then hands the result to the handle together with an event
-  the caller's stream waits on.
+  window permitting): one blocking pop, then up to ``group_size - 1``
+  more that are already eligible (the whole eligible window when
+  ``group_size < 0``, bounded by the queue depth at the start of the
+  drain).  :func:`_plan_batch` merges neighbours into the fewest dispatch
+  units, and each unit is one collective on the engine's own CUDA
+  stream.  That stream first waits on the event each caller recorded at
+  enqueue, so a gradient produced on autograd's stream (or any other) is
+  complete before the engine reads it;
+- the **syncer** drains what has been dispatched and retires each unit
+  in dispatch order: one wait on the unit's CUDA event, one return of
+  the unit's credits, then each task's callback with its own result.  A
+  tensor's handle resolves when its last chunk lands; assembly divides
+  by R (an average) before any downcast, then hands the result to the
+  handle with an event the caller's stream waits on.
 
 On the CPU (gloo) the collectives are synchronous and no events exist.
 
-Dispatch order is the priority mechanism on one rank.  Collectives of a
-process group must be issued in the same order on every rank, and the
-moment a task becomes eligible differs between ranks, so with more than
-one rank the engine dispatches in enqueue order (hook order, which is
-the same on every rank) instead of by priority.
+The auto-tuned :class:`~..common.scheduler.ChunkPlanner` picks each
+uncompressed tensor's chunk size per size bucket; a tensor is re-carved
+only between its pushes (``TensorContext.inflight == 0``), and each
+completed push is a timing sample.  It is inert at more than one rank.
 
-Not ported: AOT program warming, chunk-group batching, the auto-tuned
-planner and compressor ladder, sharded update, membership epochs,
-tracing and telemetry.
+Dispatch order is the priority mechanism on one rank.  The ranks of a
+process group must issue the same collectives, of the same sizes, in the
+same order, and the moment a task becomes eligible differs between
+ranks, so with more than one rank the engine dispatches in enqueue order
+(hook order, which is the same on every rank), one chunk per collective
+(a width of 1, as the JAX engine has for more than one process,
+``byteps_tpu/core/engine.py:139-141``), and the planner does not tune.
+
+Not ported:
+- AOT warming: eager PyTorch compiles no program per shape, and the
+  CUDA kernels are built once per process at their first launch, so
+  there is nothing to warm;
+- the compressor ladder, and sharded update;
+- membership epochs with the stale-epoch guard, and the
+  ``_deadline_loop`` watchdog: they need ``fault/membership.py`` and
+  ``utils/failure_detector.py``;
+- tracing and the telemetry beyond ``SpeedMonitor``.
 """
 
 from __future__ import annotations
@@ -35,17 +53,18 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..comm.collectives import push_pull_array
+from ..comm.collectives import push_pull_array, push_pull_arrays_batched
 from ..comm.compressed import fused_compressed_push_pull
 from ..comm.mesh import CommContext
 from ..common.config import Config
 from ..common.handles import Handle, HandleManager
 from ..common.registry import TensorRegistry
-from ..common.scheduler import ChunkScheduler
+from ..common.scheduler import ChunkPlanner, ChunkScheduler
+from ..common.telemetry import SpeedMonitor
 from ..common.types import ChunkTask, Status, StatusCode, TensorContext
 from ..compression import registry as compression_registry
 
@@ -53,6 +72,92 @@ _log = logging.getLogger("byteps_tpu_torch")
 
 _SHUTDOWN = object()  # sync-queue sentinel
 _DRAIN_BUDGET_S = 60.0  # shutdown waits this long, in all, for handles
+
+
+def _plan_batch(batch: List[ChunkTask]):
+    """Group a popped, priority-ordered task batch into dispatch units:
+
+    - ``("run", tasks)``: contiguous equal-length chunks of ONE
+      uncompressed multi-chunk tensor.  JAX's run is a slab of the
+      buffer-mode staging of a stacked ``[R, n]`` array, which the port
+      does not have; here a run is the slice of the caller's flat tensor
+      that its chunks cover, reduced as one collective whose one
+      cast-copy reads it (no per-chunk copy-in);
+    - ``("group", tasks)``: consecutive uncompressed chunks of distinct
+      single-chunk tensors with equal length, dtype and scale: one buffer,
+      one collective (``push_pull_arrays_batched``).  JAX compares the
+      chunks' stacked shapes; the port's chunks are flat, so it compares
+      lengths;
+    - ``("single", [task])``: everything else (compressed chunks, odd
+      sizes).
+
+    Only adjacent tasks merge, so dispatch order, the priority mechanism,
+    is kept across units.  The JAX engine then splits drain-mode units
+    into power-of-two widths (``_pow2_split``) to bound XLA's compile
+    cache; eager PyTorch has no such cache, so the port keeps each unit
+    whole: its units are JAX's before that split."""
+    units = []
+    i = 0
+    while i < len(batch):
+        t = batch[i]
+        if t.pending is not None and t.pending.multi_chunk:
+            run = [t]
+            j = i + 1
+            while (j < len(batch)
+                   and batch[j].pending is t.pending
+                   and batch[j].num_elems == t.num_elems
+                   and batch[j].offset_elems
+                   == run[-1].offset_elems + run[-1].num_elems):
+                run.append(batch[j])
+                j += 1
+            units.append(("run", run))
+            i = j
+            continue
+        if t.compression is None:
+            group = [t]
+            j = i + 1
+            while (j < len(batch)
+                   and batch[j].compression is None
+                   and not (batch[j].pending is not None
+                            and batch[j].pending.multi_chunk)
+                   and batch[j].num_elems == t.num_elems
+                   and batch[j].data.dtype == t.data.dtype
+                   and batch[j].scale == t.scale):
+                group.append(batch[j])
+                j += 1
+            units.append(("group" if len(group) > 1 else "single", group))
+            i = j
+            continue
+        units.append(("single", [t]))
+        i += 1
+    return units
+
+
+def _chunk(task: ChunkTask) -> torch.Tensor:
+    return task.data[task.offset_elems:task.offset_elems + task.num_elems]
+
+
+def _wire_nbytes(task: ChunkTask) -> int:
+    """Bytes a chunk puts on the wire each way: its compressed payload,
+    or the chunk itself."""
+    if task.compression is not None:
+        return task.compression.worker.payload_nbytes()
+    return task.nbytes
+
+
+def _joined(parts: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    """One flat view of ``parts`` when they lie end to end in one buffer
+    (the chunks of one run), else None.  Only a run's buffer holds chunks
+    of one tensor alone, so the view overlaps no other handle's result."""
+    p0 = parts[0]
+    base, off = p0.untyped_storage().data_ptr(), p0.storage_offset()
+    for p in parts:
+        if (p.untyped_storage().data_ptr() != base
+                or p.storage_offset() != off or p.stride() != (1,)):
+            return None
+        off += p.numel()
+    return p0.as_strided((off - p0.storage_offset(),), (1,),
+                         p0.storage_offset())
 
 
 class _CompressionSlot:
@@ -74,25 +179,43 @@ class _PendingTensor:
     """Collects the finished chunks of one push_pull."""
 
     def __init__(self, handle: Handle, ctx: TensorContext, out_shape,
-                 denom: int):
+                 denom: int, total: int):
         self.handle = handle
         self.ctx = ctx
         self.out_shape = out_shape
         self.denom = denom        # divisor applied at assembly (1 = none)
+        self.total = total
+        # an uncompressed tensor of several chunks: its chunks form runs
+        self.multi_chunk = total > 1 and ctx.compressor is None
         self.parts: Dict[int, Any] = {}
-        self.total = len(ctx.chunk_bounds)
+        self.resolved = False     # the handle has been (or is being) set
         self.lock = threading.Lock()
 
     def complete_part(self, part_idx: int, data) -> bool:
+        """Keep a chunk's result; True for the chunk that completes the
+        tensor."""
         with self.lock:
+            if self.resolved:
+                return False
             self.parts[part_idx] = data
-            return len(self.parts) == self.total
+            self.resolved = len(self.parts) == self.total
+            return self.resolved
+
+    def fail(self) -> bool:
+        """True for the first failed chunk: only it resolves the handle."""
+        with self.lock:
+            first, self.resolved = not self.resolved, True
+            self.parts.clear()
+            return first
 
     def assemble(self) -> torch.Tensor:
+        parts = [self.parts.pop(i) for i in range(self.total)]
         if self.total == 1:
-            flat = self.parts[0]
+            flat = parts[0]
         else:
-            flat = torch.cat([self.parts[i] for i in range(self.total)])
+            flat = _joined(parts)
+            if flat is None:
+                flat = torch.cat(parts)
         out = flat.reshape(self.out_shape)
         if self.denom != 1:
             # f16/bf16 sums arrive in f32: divide before the downcast
@@ -114,12 +237,24 @@ class PushPullEngine:
         self.device = comm.device
         self.registry = TensorRegistry()
         self.handles = HandleManager()
-        self.scheduler = ChunkScheduler(credit_bytes=cfg.scheduling_credit)
+        self.scheduler = self._make_scheduler(cfg)
+        self.planner = ChunkPlanner(cfg, num_procs=comm.size)
+        self.speed = SpeedMonitor()
+        # chunks popped per dispatch iteration: -1 drains the eligible
+        # window; 1 at more than one rank (see the module docstring)
+        self._group_size = (1 if comm.size > 1
+                            else -1 if cfg.group_size < 0
+                            else max(1, cfg.group_size))
+        # collectives issued vs chunk tasks consumed
+        self.stats = {"dispatches": 0, "chunks": 0}
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
         self._sync_q: "queue.Queue" = queue.Queue()
         self._enq_lock = threading.Lock()
         self._enq_seq = 0
+        self._dispatch_enabled = threading.Event()
+        self._dispatch_enabled.set()
+        self._parked = threading.Event()  # dispatcher pause handshake
         self._running = True
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, name="bps-dispatch", daemon=True)
@@ -127,6 +262,16 @@ class PushPullEngine:
             target=self._sync_loop, name="bps-sync", daemon=True)
         self._dispatcher.start()
         self._syncer.start()
+
+    @staticmethod
+    def _make_scheduler(cfg: Config):
+        """The native C++ queue, or with ``use_native=False`` the Python
+        heap.  A native scheduler that cannot be built or loaded raises:
+        no silent fallback (``native/__init__.py`` says why)."""
+        if cfg.use_native:
+            from ..native import NativeChunkScheduler
+            return NativeChunkScheduler(credit_bytes=cfg.scheduling_credit)
+        return ChunkScheduler(credit_bytes=cfg.scheduling_credit)
 
     # ----------------------------------------------------------- helpers
     def _on_stream(self):
@@ -144,17 +289,34 @@ class PushPullEngine:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
 
+    def _plan_bytes(self, nbytes: int, compression) -> int:
+        """The partition bound to carve with: the planner's for an
+        uncompressed tensor, the configured one for a compressed tensor."""
+        if compression:
+            return self.cfg.partition_bytes
+        return self.planner.plan_partition(nbytes)
+
+    def _apply_planned_credit(self) -> None:
+        """Install the planner's credit window on the scheduler (nothing
+        until a bucket locks, or when the window is pinned)."""
+        credit = self.planner.credit_bytes()
+        if credit and self.scheduler.credit_bytes != credit:
+            self.scheduler.set_credit_bytes(credit)
+
     # --------------------------------------------------------------- API
     def declare_tensor(self, name: str, shape, dtype: torch.dtype, *,
-                       compression: Optional[Dict[str, str]] = None
+                       compression: Optional[Dict[str, str]] = None,
+                       partition_bytes: Optional[int] = None
                        ) -> TensorContext:
-        """Declare a tensor with its geometry: carve its chunks and build
-        its per-chunk compressors and their state now, not at the first
-        push."""
+        """Declare a tensor with its geometry: carve its chunks (at the
+        planner's size when not given) and build its per-chunk
+        compressors and their state now, not at the first push."""
         if compression:
             compression_registry.validate_kwargs(compression)
-        ctx = self.registry.init_tensor(name, shape, dtype,
-                                        self.cfg.partition_bytes,
+        if partition_bytes is None:
+            nbytes = torch.Size(shape).numel() * dtype.itemsize
+            partition_bytes = self._plan_bytes(nbytes, compression)
+        ctx = self.registry.init_tensor(name, shape, dtype, partition_bytes,
                                         compression_kwargs=compression)
         self._ensure_compression(ctx)
         return ctx
@@ -178,14 +340,43 @@ class PushPullEngine:
                              f"the engine runs on {self.device}")
         if op not in ("average", "sum"):
             raise ValueError(f"op must be 'average' or 'sum', got {op!r}")
+        est_nbytes = tensor.numel() * tensor.element_size()
+        plan_bytes = self._plan_bytes(est_nbytes, compression)
         ctx = self.declare_tensor(name, tensor.shape, tensor.dtype,
-                                  compression=compression)
+                                  compression=compression,
+                                  partition_bytes=plan_bytes)
+        # claim the push (inflight) atomically with the repartition
+        # decision: bounds move only while no push holds a claim, and this
+        # push's geometry is read under the same lock
+        with ctx.lock:
+            if (not ctx.compression_kwargs and ctx.inflight == 0
+                    and ctx.partition_bytes != plan_bytes):
+                self.registry.repartition_locked(ctx, plan_bytes)
+            ctx.inflight += 1
+            bounds, keys = list(ctx.chunk_bounds), list(ctx.key_list)
+            part_used = ctx.partition_bytes
+            compressed = bool(ctx.compression_kwargs)
+        try:
+            return self._enqueue(tensor, name, ctx, priority, op, bounds,
+                                 keys, est_nbytes, part_used, compressed)
+        except BaseException:
+            # the done callback never got the claim: release it, or the
+            # tensor could never be re-carved again
+            with ctx.lock:
+                ctx.inflight -= 1
+            raise
+
+    def _enqueue(self, tensor, name, ctx, priority, op, bounds, keys,
+                 est_nbytes, part_used, compressed) -> Handle:
         denom = self.comm.size if op == "average" else 1
         scale = None
         if denom != 1 and ctx.compressor is None and tensor.is_floating_point():
             # fused scale: the collective multiplies by 1/R before the
             # downcast, and assembly is a reshape
             scale, denom = 1.0 / denom, 1
+        # the planner's sample: wall seconds from enqueue to resolution,
+        # until the tensor's size bucket locks
+        track_plan = not compressed and not self.planner.locked(est_nbytes)
         flat = tensor.detach().reshape(-1)
         ready = None
         if flat.is_cuda:
@@ -195,7 +386,9 @@ class PushPullEngine:
             # its memory before that work is done
             flat.record_stream(self.stream)
         handle = self.handles.allocate(name)
-        pending = _PendingTensor(handle, ctx, tuple(tensor.shape), denom)
+        pending = _PendingTensor(handle, ctx, tuple(tensor.shape), denom,
+                                 len(bounds))
+        t_enq = time.perf_counter()
         with self._enq_lock:
             self._enq_seq += 1
             if self.comm.size > 1:
@@ -204,16 +397,27 @@ class PushPullEngine:
                 prio = priority
             else:
                 prio = -ctx.declared_key if self.cfg.enable_priority else 0
-            for i, (off, ln) in enumerate(ctx.chunk_bounds):
+            for i, (off, ln) in enumerate(bounds):
                 task = ChunkTask(
-                    name=name, key=ctx.key_list[i], priority=prio,
+                    name=name, key=keys[i], priority=prio,
                     offset_elems=off, num_elems=ln,
                     nbytes=ln * tensor.element_size(), data=flat,
                     compression=ctx.compressor[i] if ctx.compressor else None,
-                    scale=scale, pending=pending, ready=ready)
+                    scale=scale, pending=pending, ready=ready,
+                    t_enqueue=t_enq)
                 task.callback = self._make_chunk_callback(pending, i)
                 self.scheduler.add_task(task)
-        handle.add_done_callback(lambda h: self.handles.release(h.id))
+
+        def on_done(h: Handle) -> None:
+            with ctx.lock:
+                ctx.inflight -= 1
+            if track_plan and h.status.code == StatusCode.OK:
+                self.planner.observe(est_nbytes, part_used,
+                                     time.perf_counter() - t_enq)
+                self._apply_planned_credit()
+            self.handles.release(h.id)
+
+        handle.add_done_callback(on_done)
         return handle
 
     def push_pull(self, tensor: torch.Tensor, name: str, **kw):
@@ -245,7 +449,8 @@ class PushPullEngine:
     def _make_chunk_callback(self, pending: _PendingTensor, part_idx: int):
         def cb(data, status: Status):
             if status.code != StatusCode.OK:
-                pending.handle.set_result(None, status)
+                if pending.fail():
+                    pending.handle.set_result(None, status)
                 return
             if pending.complete_part(part_idx, data):
                 try:
@@ -258,38 +463,98 @@ class PushPullEngine:
                     pending.handle.set_result(None, Status.error(str(e)))
         return cb
 
+    # ------------------------------------------------------------- pause
+    def pause_dispatch(self, timeout: float = 10.0) -> None:
+        """Hold the dispatcher: tasks enqueue, but nothing pops until
+        :meth:`resume_dispatch`.  For where the merge width must be known
+        (tests, the smoke run), since it is otherwise a race between
+        enqueue and dispatch.  The gate is cleared, a blocked pop is
+        interrupted (the scheduler's one-shot wakeup), and this returns
+        once the dispatcher has parked: a pop already under way finishes
+        its dispatch first, so after the return nothing pops until
+        resume.  No polling on either side."""
+        self._dispatch_enabled.clear()
+        self.scheduler.interrupt()
+        if not self._parked.wait(timeout=timeout) and self._running:
+            _log.warning("pause_dispatch: dispatcher did not park within "
+                         "%.1fs", timeout)
+
+    def resume_dispatch(self) -> None:
+        self._dispatch_enabled.set()
+
     # ------------------------------------------------------------- loops
     def _dispatch_loop(self):
         self._bind_device()
         while self._running:
+            if not self._dispatch_enabled.is_set():
+                self._parked.set()
+                self._dispatch_enabled.wait()
+                self._parked.clear()
+                continue
             task = self.scheduler.get_task(block=True)
-            if task is not None:
-                self._dispatch(task)
+            if task is None:    # interrupted (pause) or woken (shutdown)
+                continue
+            # drain bound: the queue depth at the start of the drain, so
+            # tasks enqueued while popping wait for the next iteration
+            limit = (self.scheduler.pending if self._group_size < 0
+                     else self._group_size - 1)
+            batch = [task]
+            while len(batch) - 1 < limit:
+                t2 = self.scheduler.get_task(block=False)
+                if t2 is None:
+                    break
+                batch.append(t2)
+            for kind, unit in _plan_batch(batch):
+                self._dispatch_unit(kind, unit)
+            # a task holds its tensor (a gradient the caller frees at the
+            # next step): hold none while blocked in the next pop
+            task = t2 = batch = unit = None
 
-    def _dispatch(self, task: ChunkTask):
+    def _dispatch_unit(self, kind: str, unit: List[ChunkTask]) -> None:
+        """Issue one unit's collective on the engine stream and hand the
+        unit to the syncer: a run is a slice of one tensor, a group one
+        buffer of k chunks, a single one chunk (compressed or not)."""
+        now = time.perf_counter()
+        for t in unit:
+            t.t_dispatch = now
+        self.stats["dispatches"] += 1
+        self.stats["chunks"] += len(unit)
+        t0 = unit[0]
         rollback = None
         try:
             with self._on_stream():
-                if task.ready is not None:
-                    self.stream.wait_event(task.ready)
-                x = task.data[task.offset_elems:
-                              task.offset_elems + task.num_elems]
-                slot = task.compression
-                if slot is not None:
+                # a group spans tensors whose producers recorded different
+                # events: wait on each before the first copy-in
+                for ev in {id(t.ready): t.ready for t in unit
+                           if t.ready is not None}.values():
+                    self.stream.wait_event(ev)
+                if kind == "run":
+                    n = t0.num_elems
+                    x = t0.data[t0.offset_elems:
+                                t0.offset_elems + n * len(unit)]
+                    outs = push_pull_array(self.comm, x, op="sum",
+                                           keep_acc=True,
+                                           scale=t0.scale).split(n)
+                elif kind == "group":
+                    outs = push_pull_arrays_batched(
+                        self.comm, [_chunk(t) for t in unit], scale=t0.scale)
+                elif t0.compression is not None:
+                    slot = t0.compression
                     out, wstate, sstate = fused_compressed_push_pull(
-                        self.comm, x, slot.worker, slot.server,
+                        self.comm, _chunk(t0), slot.worker, slot.server,
                         slot.wstate, slot.sstate)
                     rollback = (slot, slot.wstate, slot.sstate)
                     slot.wstate, slot.sstate = wstate, sstate
+                    outs = [out]
                 else:
-                    out = push_pull_array(self.comm, x, op="sum",
-                                          keep_acc=True, scale=task.scale)
+                    outs = [push_pull_array(self.comm, _chunk(t0), op="sum",
+                                            keep_acc=True, scale=t0.scale)]
                 done = self._record()
-            self._sync_q.put((task, out, done, rollback, None))
-        except Exception as e:  # noqa: BLE001 — report on the handle
-            _log.exception("dispatch failed for %s", task.name)
+            self._sync_q.put((unit, outs, done, rollback, None))
+        except Exception as e:  # noqa: BLE001 — report on the handles
+            _log.exception("dispatch failed for %s", t0.name)
             self._restore(rollback)
-            self._sync_q.put((task, None, None, None, e))
+            self._sync_q.put((unit, None, None, None, e))
 
     @staticmethod
     def _restore(rollback) -> None:
@@ -300,24 +565,50 @@ class PushPullEngine:
 
     def _sync_loop(self):
         # exits only on the sentinel, which shutdown enqueues after the
-        # dispatcher has joined
+        # dispatcher has joined; each wakeup takes every unit already
+        # queued and retires them one at a time in dispatch order, so a
+        # unit is never held behind a slower one dispatched after it
         self._bind_device()
-        while True:
-            item = self._sync_q.get()
-            if item is _SHUTDOWN:
-                return
-            task, out, done, rollback, err = item
-            if err is None and done is not None:
+        shutdown = False
+        while not shutdown:
+            items = [self._sync_q.get()]
+            while True:
                 try:
-                    done.synchronize()
-                except Exception as e:  # noqa: BLE001 — device fault
-                    err = e
-                    self._restore(rollback)
-            self.scheduler.report_finish(task.nbytes)
+                    items.append(self._sync_q.get_nowait())
+                except queue.Empty:
+                    break
+            # a retired unit's item holds its tasks' tensors and its
+            # results: let go of each once retired, and of all before
+            # blocking again (a step's worth of gradients and partial
+            # buffers would otherwise outlive it)
+            items.reverse()
+            while items:
+                item = items.pop()
+                if item is _SHUTDOWN:
+                    shutdown = True
+                else:
+                    self._retire(*item)
+                item = None
+
+    def _retire(self, tasks: List[ChunkTask], outs, done, rollback,
+                err) -> None:
+        """Retire one dispatch unit: one wait, one return of credits, then
+        every task's callback (a failed unit fails every task in it)."""
+        if err is None and done is not None:
+            try:
+                done.synchronize()
+            except Exception as e:  # noqa: BLE001 — device fault
+                err = e
+                self._restore(rollback)
+        # credits back before the callbacks: the dispatcher can issue the
+        # next window while this thread assembles
+        self.scheduler.report_finish(sum(t.nbytes for t in tasks))
+        self.speed.record(sum(2 * _wire_nbytes(t) for t in tasks))
+        for i, task in enumerate(tasks):
             if err is not None:
                 task.callback(None, Status.error(str(err)))
             else:
-                task.callback(out, Status.ok())
+                task.callback(outs[i], Status.ok())
 
     # --------------------------------------------------------- lifecycle
     def shutdown(self, wait: bool = True):
@@ -331,6 +622,8 @@ class PushPullEngine:
                 except Exception:  # noqa: BLE001 — draining, not consuming
                     pass
         self._running = False
+        # wake a dispatcher blocked in the pop or parked on the pause gate
+        self._dispatch_enabled.set()
         self.scheduler.wake()
         self._dispatcher.join(timeout=10)
         self._sync_q.put(_SHUTDOWN)

@@ -1,0 +1,166 @@
+"""ctypes bindings for the native scheduler (``core.cc``); port of the
+scheduler part of ``byteps_tpu/native/__init__.py``.
+
+:func:`load` compiles ``core.cc`` with ``g++`` at first use into
+``byteps_tpu_torch/_build/``, under a file name that carries a hash of
+the source and the flags, and loads it.  Nothing runs at import.
+
+Unlike the JAX package, which logs and falls back to the Python heap, a
+failed build or load raises: the engine asks for this scheduler only when
+``Config.use_native`` is set, and a run that silently took the other
+queue would measure something else than it says.  ``BYTEPS_NATIVE=0``
+(``use_native=False``) selects the Python heap explicitly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+SOURCE = Path(__file__).resolve().with_name("core.cc")
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+ABI_VERSION = 1
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"libbps_native_{h.hexdigest()[:16]}.so"
+
+
+def _compile(target: Path) -> None:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("byteps_tpu_torch: g++ not found; the native "
+                           "scheduler is built from native/core.cc at first "
+                           "use (BYTEPS_NATIVE=0 selects the Python one)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {SOURCE.name} (exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, target)     # atomic: concurrent builds agree
+
+
+def load() -> ctypes.CDLL:
+    """The native library, built on first use; raises if it cannot be."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            target = library_path()
+            if not target.exists():
+                _compile(target)
+            lib = ctypes.CDLL(str(target))
+            _declare_signatures(lib)
+            if lib.bps_native_abi_version() != ABI_VERSION:
+                raise RuntimeError(f"{target.name}: native ABI mismatch")
+            _lib = lib
+        return _lib
+
+
+def _declare_signatures(lib: ctypes.CDLL) -> None:
+    i64, u64, p = ctypes.c_int64, ctypes.c_uint64, ctypes.c_void_p
+    lib.bps_sched_create.restype = p
+    lib.bps_sched_create.argtypes = [i64]
+    lib.bps_sched_destroy.restype = None
+    lib.bps_sched_destroy.argtypes = [p]
+    lib.bps_sched_add.restype = None
+    lib.bps_sched_add.argtypes = [p, i64, i64, u64, i64]
+    lib.bps_sched_get.restype = i64
+    lib.bps_sched_get.argtypes = [p, ctypes.c_int, ctypes.c_double,
+                                  ctypes.POINTER(i64)]
+    for name in ("bps_sched_report_finish", "bps_sched_set_credit"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [p, i64]
+    for name in ("bps_sched_wake", "bps_sched_interrupt"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [p]
+    for name in ("bps_sched_get_credit", "bps_sched_pending",
+                 "bps_sched_in_flight"):
+        getattr(lib, name).restype = i64
+        getattr(lib, name).argtypes = [p]
+    lib.bps_sched_drain.restype = i64
+    lib.bps_sched_drain.argtypes = [p, ctypes.POINTER(i64), i64]
+    lib.bps_native_abi_version.restype = ctypes.c_int
+    lib.bps_native_abi_version.argtypes = []
+
+
+class NativeChunkScheduler:
+    """``common.scheduler.ChunkScheduler`` backed by the C++ queue: the
+    same interface and pop order.  Python keeps the task objects; the
+    priority, key, bytes and the credit window live native."""
+
+    def __init__(self, credit_bytes: int = 0):
+        self._lib = load()
+        self._h = self._lib.bps_sched_create(int(credit_bytes))
+        self._tasks = {}
+        self._next_id = 0
+        self._mu = threading.Lock()
+
+    def add_task(self, task) -> None:
+        with self._mu:
+            tid = self._next_id
+            self._next_id += 1
+            self._tasks[tid] = task
+        self._lib.bps_sched_add(self._h, tid, task.priority, task.key,
+                                task.nbytes)
+
+    def get_task(self, block: bool = False,
+                 timeout: Optional[float] = None):
+        tid = self._lib.bps_sched_get(
+            self._h, 1 if block else 0,
+            -1.0 if timeout is None else float(timeout), None)
+        if tid < 0:
+            return None
+        with self._mu:
+            return self._tasks.pop(tid)
+
+    def report_finish(self, nbytes: int) -> None:
+        self._lib.bps_sched_report_finish(self._h, int(nbytes))
+
+    def interrupt(self) -> None:
+        """One-shot wakeup of a blocked get_task (pause handshake)."""
+        self._lib.bps_sched_interrupt(self._h)
+
+    def wake(self) -> None:
+        """Latched wakeup: every blocked and future get_task returns."""
+        self._lib.bps_sched_wake(self._h)
+
+    def set_credit_bytes(self, credit_bytes: int) -> None:
+        self._lib.bps_sched_set_credit(self._h, int(credit_bytes))
+
+    @property
+    def credit_bytes(self) -> int:
+        return int(self._lib.bps_sched_get_credit(self._h))
+
+    @property
+    def pending(self) -> int:
+        return int(self._lib.bps_sched_pending(self._h))
+
+    @property
+    def bytes_in_flight(self) -> int:
+        return int(self._lib.bps_sched_in_flight(self._h))
+
+    def drain(self) -> list:
+        cap = max(1, self.pending)
+        ids = (ctypes.c_int64 * cap)()
+        n = self._lib.bps_sched_drain(self._h, ids, cap)
+        with self._mu:
+            return [self._tasks.pop(ids[i]) for i in range(n)]
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.bps_sched_destroy(h)
+            self._h = None

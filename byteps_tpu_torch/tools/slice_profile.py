@@ -3,14 +3,20 @@
     python -m byteps_tpu_torch.tools.slice_profile --out DIR
 
 ResNet-50 at full width (1000 classes, 224x224 NHWC, bf16 compute,
-batch 32, seeded synthetic data) takes SGD(momentum=0.9) steps in three
-arms, one after another in one process on one card:
+batch 32, seeded synthetic data) takes SGD(momentum=0.9) steps in these
+arms, one after another in one process on one card, each engine arm on
+an engine of its own whose settings its name gives:
 
 - ``plain``: torch.optim.SGD alone, no engine (the model's own time);
-- ``allreduce``: DistributedOptimizer, every gradient all-reduced;
-- ``onebit_ef``: DistributedOptimizer with onebit + error feedback
-  (tensors of at least BYTEPS_MIN_COMPRESS_BYTES compressed), the path
-  chip_smoke.py drives.
+- ``allreduce``: DistributedOptimizer, every gradient all-reduced, on
+  the engine's first design (``UNGROUPED_ENGINE``: one chunk per
+  collective, no planner, the Python scheduler), so its numbers compare
+  with the earliest ones in PERF.md;
+- ``onebit_ef``: the same engine, onebit + error feedback (tensors of at
+  least BYTEPS_MIN_COMPRESS_BYTES compressed);
+- ``allreduce_defaults`` / ``onebit_ef_defaults``: the same two on the
+  engine's defaults (chunk groups, the planner, the native scheduler),
+  the path chip_smoke.py drives.
 
 Each arm reports its mean over STEPS steps after 2 warm-up steps (host
 clock around steps that end in ``torch.cuda.synchronize()``).  Then two
@@ -32,6 +38,15 @@ import torch
 
 ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
 STEPS = 5
+UNGROUPED_ENGINE = {"group_size": 1, "autotune": False, "use_native": False}
+ARMS = {   # name -> (compression, engine Config fields; None: no engine)
+    "plain": (None, None),
+    "allreduce": (None, UNGROUPED_ENGINE),
+    "onebit_ef": (ONEBIT_EF, UNGROUPED_ENGINE),
+    "allreduce_defaults": (None, {}),
+    "onebit_ef_defaults": (ONEBIT_EF, {}),
+}
+PROFILED_ARM = "onebit_ef"
 CLASSES = (  # kernel-name substrings -> class, first match wins
     ("onebit", ("pack_kernel", "unpack_kernel", "unpack_sum_kernel")),
     ("nccl", ("nccl",)),
@@ -66,12 +81,11 @@ def _arm(bps, resnet, dev, arm: str):
     model = resnet.resnet50(generator=gen).to(dev)
     batch = resnet.synthetic_images(gen, 32, 224, 1000, dev)
     opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
-    if arm != "plain":
-        # names per arm: a name keeps the codec of its first push
+    compression, engine = ARMS[arm]
+    if engine is not None:
         opt = bps.DistributedOptimizer(
-            opt, named_parameters=[(f"{arm}.{n}", p)
-                                   for n, p in model.named_parameters()],
-            compression=ONEBIT_EF if arm == "onebit_ef" else None)
+            opt, named_parameters=model.named_parameters(),
+            compression=compression)
 
     def step():
         opt.zero_grad()
@@ -103,7 +117,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("slice_profile: needs an NVIDIA card")
     import byteps_tpu_torch as bps
-    from byteps_tpu_torch.core import api
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.comm.mesh import resolve_device
     from byteps_tpu_torch.models import resnet
 
     torch.backends.cudnn.allow_tf32 = False
@@ -112,27 +127,30 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
     print(card.splitlines()[0], flush=True)
-    bps.init()
-    dev = api.device()
+    dev = resolve_device("cuda")
     summary = {"card": card.splitlines()[0], "step_ms": {}}
-    for arm in ("plain", "allreduce", "onebit_ef"):
-        step, times = _arm(bps, resnet, dev, arm)
-        summary["step_ms"][arm] = sum(times) / len(times)
-        print(f"{arm}: steps {[round(t, 2) for t in times]} ms, mean "
-              f"{summary['step_ms'][arm]:.2f} ms", flush=True)
-
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(args.out, exist_ok=True)
     trace_path = os.path.join(args.out, "slice_profile_trace.json")
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-    window_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(trace_path)
-    bps.shutdown()
+    for arm, (_, engine) in ARMS.items():
+        if engine is not None:
+            bps.init(Config(**engine))
+        step, times = _arm(bps, resnet, dev, arm)
+        summary["step_ms"][arm] = sum(times) / len(times)
+        print(f"{arm} (engine {engine}): steps "
+              f"{[round(t, 2) for t in times]} ms, mean "
+              f"{summary['step_ms'][arm]:.2f} ms", flush=True)
+        if arm == PROFILED_ARM:
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    step()
+                torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+            prof.export_chrome_trace(trace_path)
+        if engine is not None:
+            bps.shutdown()
 
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -149,7 +167,7 @@ def main(argv=None) -> int:
         "device_busy_share": busy / window_us if window_us else 0.0,
         "device_ms_by_class": {k: v / 1e3 for k, v in sorted(
             by_class.items(), key=lambda kv: -kv[1])}})
-    print(f"profiled 2 onebit_ef steps: window {window_us / 1e3:.2f} ms, "
+    print(f"profiled 2 {PROFILED_ARM} steps: window {window_us / 1e3:.2f} ms, "
           f"{len(kernels)} kernels, device busy {busy / 1e3:.2f} ms "
           f"({100 * summary['device_busy_share']:.1f}%)")
     for k, v in summary["device_ms_by_class"].items():

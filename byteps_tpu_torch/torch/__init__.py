@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import itertools
 import threading
+import weakref
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -24,6 +25,7 @@ from ..core import api as _api
 __all__ = [
     "init", "shutdown", "rank", "size", "local_rank", "local_size",
     "declare", "push_pull", "push_pull_async", "poll", "synchronize",
+    "suspend", "resume", "get_pushpull_speed",
     "BytePSPushPull", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state",
 ]
@@ -37,6 +39,9 @@ local_size = _api.local_size
 declare = _api.declare
 poll = _api.poll
 synchronize = _api.synchronize
+suspend = _api.suspend
+resume = _api.resume
+get_pushpull_speed = _api.get_pushpull_speed
 
 _anon_ids = itertools.count(1)
 
@@ -150,9 +155,20 @@ class DistributedOptimizer(torch.optim.Optimizer):
         for n, _ in named:
             _api.declare(f"torch.grad.{n}")
         self._name_of = {p: n for n, p in named}
+        # the hooks reach the optimizer through a weak reference: a hook
+        # list lives in C++, where Python's cycle collector cannot see it,
+        # so a strong one would keep a dropped optimizer, and through it
+        # the model, its gradients and its optimizer state, alive forever
+        # (__del__ removes the hooks)
+        ref = weakref.ref(self)
+
+        def hook(p: torch.nn.Parameter) -> None:
+            opt = ref()
+            if opt is not None:
+                opt._hook(p)
+
         for _, p in named:
-            self._hooks.append(
-                p.register_post_accumulate_grad_hook(self._hook))
+            self._hooks.append(p.register_post_accumulate_grad_hook(hook))
 
     def _hook(self, p: torch.nn.Parameter) -> None:
         with self._lock:

@@ -32,16 +32,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 4. resnet slice: ResNet-50 at full width (1000 classes, 224x224 NHWC,
    bf16 compute, batch 32, seeded synthetic data) trained through
    ``DistributedOptimizer(SGD(momentum=0.9), compression=onebit+ef)`` ->
-   the push_pull engine -> NCCL (a world of one) for 1 warm-up and 3
+   the push_pull engine (its defaults; compressed chunks are never
+   grouped or re-carved) -> NCCL (a world of one) for 1 warm-up and 3
    timed steps.  The onebit launch counters are zeroed just before and
    read just after; each must show the launches the compressed chunks
    need, and the compressed chunks must be the ones phase 3 timed.  The
    loss must be finite, and for one compressed and one uncompressed
    parameter the gradient the optimizer received must equal the plain
    path's result (the same codec run on the CPU) on the same input.  One
-   more step runs under torch.profiler: it prints the device's busy share
-   and the onebit kernels' device time, and each onebit wrapper call must
-   have been one device kernel;
+   more step runs under torch.profiler: it prints the device's busy share,
+   the host ops' CPU time by thread and the onebit kernels' device time,
+   and each onebit wrapper call must have been one device kernel;
 5. flash kernels: the forward, dK/dV and dQ kernels against their plain
    versions on the card (same inputs, the plain lse and delta for both
    backward kernels), f32 and bf16, at the two slice shapes and at ragged
@@ -75,24 +76,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. llama slice and gpt slice: Llama-3-8B at full width with 4 of its 32
    layers (batch 2 x 4096 tokens) and GPT-small (batch 1 x 8192 tokens),
    bf16 compute over f32 parameters, attention through ``flash_attention``,
-   trained through ``DistributedOptimizer(SGD(momentum=0.9))`` -> the
-   engine -> NCCL for 1 warm-up and 3 timed steps.  The flash launch
-   counters are zeroed just before and read just after: each kernel must
-   have run ``num_layers`` times per step.  The loss must be finite at
-   every step, one parameter's received gradient must equal its raw
-   gradient (an all-reduce over one rank is the identity), and a forward
-   with ``flash_attention`` and one with the exact ``full_attention`` on
-   the same weights and batch must agree to 5e-2 of the logits' max-abs
-   (bf16 compute through every layer), while two controls on the same
-   weights (attention output zeroed for the later half of the positions,
-   and everywhere) must not.  Each slice prints its mean
-   step, its peak memory and the flash kernels' share of the step
-   (``num_layers`` x their device ms at its shape, over the mean step),
-   and the device's busy time in one more step under torch.profiler (the
-   union of its kernels' intervals, over that step's host-clock time).
+   SGD(momentum=0.9), in three arms on the same weights and batch from
+   the seed, one process:
+   - ``plain``: SGD alone, no engine;
+   - ``ungrouped``: ``DistributedOptimizer`` -> an engine started with
+     ``UNGROUPED_ENGINE`` (one chunk per collective, no planner, the
+     Python scheduler: the engine before chunk groups) -> NCCL; every
+     collective must carry one chunk;
+   - ``defaults``, the main path: ``bps.init()`` with the engine's
+     defaults (groups of up to 4 chunks, the planner, the native
+     scheduler, which must be the one in use).  Its warm-up runs until
+     every planner bucket has locked a chunk size, at most LM_WARMUP_MAX
+     steps; over the run, dispatches must be fewer than chunks.
+   Each arm then takes LM_TIMED_STEPS timed steps (median, min-max, step
+   minus the plain step, thread CPU seconds from /proc), and one more
+   under torch.profiler: the device's busy time (the union of its kernels'
+   intervals, over that step's host-clock time) and the host ops' self
+   CPU time by thread (main, bps-dispatch, bps-sync, the autograd
+   thread).  The flash launch counters are zeroed at the start of each
+   arm and read after its timed steps: each kernel must have run
+   ``num_layers`` times per step.  The loss must be finite at every step.
+   The main path prints its engine stats per step (dispatches, chunks),
+   the planner's locked chunk per size bucket and its credit window, and
+   its peak memory, which must stay under 80 GB (it is printed beside
+   EARLIER_LLAMA_PEAK_GIB); in one more step every parameter's received gradient
+   must equal its raw gradient bit for bit (an all-reduce over one rank
+   is the identity, whatever the grouping and chunk sizes).  Then a
+   forward with ``flash_attention`` and one with the exact
+   ``full_attention`` on the main path's weights and batch must agree to
+   5e-2 of the logits' max-abs (bf16 compute through every layer), while
+   two controls on the same weights (attention output zeroed for the
+   later half of the positions, and everywhere) must not.  Each slice
+   prints the flash kernels' share of the main path's median step
+   (``num_layers`` x their device ms at its shape).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
+The run prints its total time.  The line before the last is a JSON
+object with one entry per kernel (flash launches: the two main paths');
+the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
 
@@ -103,6 +123,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -158,6 +179,13 @@ MMA_KERNELS = [f"{k}<bf16, {d}>" for k in ("fwd_kernel", "bwd_dkv_kernel",
                for d in (32, 64, 128)]
 LM_LR = 1e-2
 LM_LOGIT_TOL = 5e-2              # share of the exact forward's max-abs
+LM_TIMED_STEPS = 10              # timed steps of each LM arm
+LM_WARMUP_MAX = 8                # the main path's warm-up: until every
+#                                  planner bucket locks, at most this many
+UNGROUPED_ENGINE = {"group_size": 1, "autotune": False, "use_native": False}
+# the Llama slice's peak memory before chunk groups and the planner
+# (PERF.md, section 6)
+EARLIER_LLAMA_PEAK_GIB = 42.54
 
 
 def log(msg):
@@ -637,11 +665,13 @@ def slice_phase(torch, bps, ok, api, registry, resnet, chunks):
     # one more step under torch.profiler: the device's busy share, and the
     # onebit kernels' device time and device kernels per wrapper call
     before = dict(ok.launches)
-    busy_ms, wall_ms, events = profiled_step(torch, step)
+    busy_ms, wall_ms, events, host_ms = profiled_step(torch, step,
+                                                      thread_labels(eng))
     calls = {k: ok.launches[k] - before[k] for k in KERNELS}
     dev_ms = onebit_device_ms(events)
     log(f"slice: a profiled step took {wall_ms:.2f} ms, the device was busy "
-        f"{busy_ms:.2f} ms of it ({busy_ms / wall_ms:.1%}); onebit device "
+        f"{busy_ms:.2f} ms of it ({busy_ms / wall_ms:.1%}); host ops' self "
+        f"CPU ms by thread {_fmt(host_ms)}; onebit device "
         f"time " + ", ".join(
             f"{k} {ms:.4f} ms ({n} device kernels for {calls[k]} calls)"
             for k, (n, ms) in dev_ms.items())
@@ -824,31 +854,87 @@ def sdpa_ms(torch, q3, k3, v3, do3, b, h, causal):
     return f_ms, fb_ms - f_ms
 
 
-def lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg, batch, seq,
-                   watch, kernel_ms):
-    """Train ``cfg`` through the port's main path with flash attention;
-    returns the flash launches of its run.  ``kernel_ms`` (each flash
-    kernel's device ms at this slice's shape) gives the flash share of
-    the step."""
+def lm_slice_phase(torch, bps, api, fa, Config, name, model_fn, cfg, batch,
+                   seq, kernel_ms):
+    """Train ``cfg`` in three arms, each on the same weights and batch
+    from the seed: ``plain`` (SGD alone), ``ungrouped``
+    (``UNGROUPED_ENGINE``) and the engine's defaults, the main path.  Returns the flash launches
+    of the main path's run.  ``kernel_ms`` (each flash kernel's device ms
+    at this slice's shape) gives the flash share of the step."""
+    from byteps_tpu_torch.ops.flash_attention import flash_attention
+
+    arms = {}
+    for arm, engine, config in (("plain", False, None),
+                                ("ungrouped", True,
+                                 Config(**UNGROUPED_ENGINE)),
+                                ("defaults", True, None)):
+        arms[arm] = lm_arm(torch, bps, api, fa, name, model_fn, cfg, batch,
+                           seq, arm, engine, config)
+    main = arms["defaults"]
+    plain_ms = arms["plain"]["median_ms"]
+    for arm, r in arms.items():
+        log(f"{name}: {arm}: median {r['median_ms']:.2f} ms (min "
+            f"{min(r['step_ms']):.2f}, max {max(r['step_ms']):.2f}) over "
+            f"{len(r['step_ms'])} steps after {r['warmup']} warm-up; step - "
+            f"plain step {r['median_ms'] - plain_ms:.2f} ms; profiled step "
+            f"{r['wall_ms']:.2f} ms, device busy {r['busy_ms']:.2f} ms "
+            f"({r['busy_ms'] / r['wall_ms']:.1%}); host ops' self CPU ms by "
+            f"thread {_fmt(r['host_ms'])}; thread CPU s over the timed steps "
+            f"{_fmt(r['cpu_s'], 3)}; peak memory {r['peak_gib']:.2f} GiB")
+    losses = {a: r["losses"][0] for a, r in arms.items()}
+    log(f"{name}: first losses {losses} (same weights and batch in each "
+        f"arm)")
+    flash_ms = cfg.num_layers * sum(kernel_ms.values())
+    log(f"{name}: flash kernels {flash_ms:.2f} ms per step ({cfg.num_layers}"
+        f" x their device ms at this shape), {flash_ms / main['median_ms']:.1%}"
+        f" of the main path's median step")
+    check_logits(torch, name, main["model"], main["ids"], flash_attention)
+    main["model"] = main["ids"] = None
+    torch.cuda.empty_cache()
+    return main["launches"]
+
+
+def lm_arm(torch, bps, api, fa, name, model_fn, cfg, batch, seq, arm,
+           engine, config):
+    """One arm of an LM slice: build the model and batch from the seed,
+    without the engine, or through ``DistributedOptimizer`` and an engine
+    started by ``bps.init(config)`` (``None``: the environment's config,
+    the defaults; that arm is the main path); take warm-up steps (the
+    main path's until every planner bucket has locked, at most
+    LM_WARMUP_MAX), LM_TIMED_STEPS timed steps, then for the main path one
+    step whose every received gradient must equal its raw gradient bit
+    for bit, and one step under torch.profiler."""
     from byteps_tpu_torch.models.gpt import lm_loss
     from byteps_tpu_torch.ops.flash_attention import flash_attention
     from byteps_tpu_torch.parallel.long_context import synthetic_lm_batch
-    from byteps_tpu_torch.parallel.sequence import full_attention
 
-    bps.init()                                     # NCCL, world of one
-    dev = api.device()
+    from byteps_tpu_torch.comm.mesh import resolve_device
+
+    main = engine and config is None
+    if engine:
+        bps.init(config)                           # NCCL, world of one
+        dev = api.device()
+    else:
+        dev = resolve_device("cuda")               # this process's card
     gen = torch.Generator(device=dev).manual_seed(3)
     model = model_fn(cfg, attn_fn=flash_attention, device=dev, generator=gen)
     data = synthetic_lm_batch(gen, cfg, batch, seq)
     ids, labels = data["input_ids"], data["labels"]
-    n_params = sum(p.numel() for p in model.parameters())
-    param = dict(model.named_parameters())[watch]
-    raw = {}
-    param.register_post_accumulate_grad_hook(
-        lambda p: raw.__setitem__(watch, p.grad.clone()))
-    opt = bps.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=LM_LR, momentum=0.9),
-        named_parameters=model.named_parameters())
+    opt = torch.optim.SGD(model.parameters(), lr=LM_LR, momentum=0.9)
+    eng = None
+    if engine:
+        eng = api.engine()
+        opt = bps.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
+        if main:
+            ec = eng.cfg
+            check((ec.group_size, ec.autotune, ec.use_native)
+                  == (4, True, True) and not ec.partition_pinned,
+                  f"{name}: the main path runs with the engine's defaults, "
+                  f"got {ec}")
+            check(type(eng.scheduler).__name__ == "NativeChunkScheduler",
+                  f"{name}: scheduler {type(eng.scheduler).__name__}, "
+                  f"expected the native one")
 
     def step():
         opt.zero_grad()
@@ -857,43 +943,127 @@ def lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg, batch, seq,
         opt.step()
         return loss
 
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    losses, step_ms = [], []
-    for i in range(1 + TIMED_STEPS):               # warm-up, timed steps
+    losses, per_step, peak_gib = [], [], []
+
+    def run_step():
+        before = dict(eng.stats) if eng is not None else None
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         loss = step()
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak_gib.append(torch.cuda.max_memory_allocated() / 2**30)
         losses.append(loss.item())
-        check(math.isfinite(losses[-1]), f"{name}: loss {losses[-1]} at "
-                                         f"step {i}")
-    launches = dict(fa.launches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    busy_ms, wall_ms, _ = profiled_step(torch, step)
-    timed = step_ms[1:]
-    mean_ms = sum(timed) / len(timed)
-    log(f"{name}: {n_params} parameters, {cfg.num_layers} layers, batch "
-        f"{batch} x {seq}; warm-up {step_ms[0]:.1f} ms, steps "
-        f"{[round(t, 2) for t in timed]} ms, mean {mean_ms:.2f} ms; losses "
-        f"{[round(x, 4) for x in losses]}; peak memory {peak_gib:.2f} GiB")
-    want = {k: cfg.num_layers * (1 + TIMED_STEPS) for k in FLASH_KERNELS}
-    flash_ms = cfg.num_layers * sum(kernel_ms.values())
-    log(f"{name}: flash launches {launches} over {1 + TIMED_STEPS} steps; "
-        f"flash kernels {flash_ms:.2f} ms per step ({cfg.num_layers} x "
-        f"their device ms at this shape), {flash_ms / mean_ms:.1%} of the "
-        f"mean step")
-    log(f"{name}: a profiled step took {wall_ms:.2f} ms, the device was "
-        f"busy {busy_ms:.2f} ms of it ({busy_ms / wall_ms:.1%})")
-    check(launches == want, f"{name}: flash launches {launches}, expected "
-                            f"{want}")
-    check(torch.equal(param.grad, raw[watch]),
-          f"{name}: {watch} gradient differs from the raw gradient")
+        check(math.isfinite(losses[-1]), f"{name} {arm}: loss {losses[-1]} "
+                                         f"at step {len(losses)}")
+        if eng is not None:
+            per_step.append(tuple(eng.stats[k] - before[k]
+                                  for k in ("dispatches", "chunks")))
+        return ms
 
-    # flash against exact attention, same weights and batch
-    del opt
-    model.zero_grad(set_to_none=True)
+    fa.reset_launches()
+    warm = [run_step()]
+    while main and not planner_locked(eng):
+        check(len(warm) < LM_WARMUP_MAX,
+              f"{name}: planner buckets not all locked after "
+              f"{len(warm)} warm-up steps: {eng.planner.snapshot()}")
+        warm.append(run_step())
+    threads = thread_labels(eng)
+    cpu0 = thread_cpu_s(threads)
+    step_ms = [run_step() for _ in range(LM_TIMED_STEPS)]
+    cpu_s = {k: v - cpu0.get(k, 0.0)
+             for k, v in thread_cpu_s(threads).items()}
+    launches = dict(fa.launches)
+    steps = len(warm) + LM_TIMED_STEPS
+    want = {k: cfg.num_layers * steps for k in FLASH_KERNELS}
+    check(launches == want, f"{name} {arm}: flash launches {launches}, "
+                            f"expected {want}")
+    if eng is not None:
+        d, c = (sum(x[i] for x in per_step) for i in range(2))
+        log(f"{name}: {arm}: scheduler {type(eng.scheduler).__name__}, "
+            f"engine stats per step (dispatches, chunks) {per_step}, "
+            f"{d} dispatches for {c} chunks in all; peak memory per step "
+            f"{[round(g, 2) for g in peak_gib]} GiB")
+        if main:
+            check(d < c, f"{name}: {d} dispatches for {c} chunks: no chunk "
+                         f"was grouped")
+            snap = eng.planner.snapshot()
+            log(f"{name}: planner locked after {len(warm)} warm-up steps: "
+                + ", ".join(f"bucket {b} -> {v['locked_partition_bytes']} B"
+                            for b, v in sorted(snap["buckets"].items(),
+                                               key=lambda kv: int(kv[0])))
+                + f"; credit window {snap['credit_bytes']} B; least "
+                f"seconds per candidate {[(b, v['explored']) for b, v in snap['buckets'].items()]}")
+            check(max(peak_gib) * 2**30 < 80e9,
+                  f"{name}: peak memory {max(peak_gib):.2f} GiB")
+            log(f"{name}: peak memory {max(peak_gib):.2f} GiB over the arm, "
+                f"{max(peak_gib[len(warm):]):.2f} GiB over the timed steps "
+                f"(before chunk groups and the planner: "
+                f"{EARLIER_LLAMA_PEAK_GIB} GiB for the Llama slice)")
+            check_every_gradient(torch, name, model, step)
+        else:
+            check(d == c, f"{name}: {arm}: {d} dispatches for {c} chunks")
+    busy_ms, wall_ms, _, host_ms = profiled_step(torch, step, threads)
+    out = {"step_ms": step_ms, "median_ms": statistics.median(step_ms),
+           "warmup": len(warm), "losses": losses, "busy_ms": busy_ms,
+           "wall_ms": wall_ms, "host_ms": host_ms, "cpu_s": cpu_s,
+           "peak_gib": max(peak_gib), "launches": launches}
+    if engine:
+        bps.shutdown()
+    del opt, step, run_step
+    if main:
+        model.zero_grad(set_to_none=True)
+        out["model"], out["ids"] = model, ids
+    else:
+        del model
+    del data, labels
     torch.cuda.empty_cache()
+    return out
+
+
+def planner_locked(eng):
+    """Whether every planner bucket (tensors above the base bound) has
+    locked its chunk size; False while there is none yet."""
+    buckets = eng.planner.snapshot()["buckets"]
+    return bool(buckets) and all(b["locked_partition_bytes"] is not None
+                                 for b in buckets.values())
+
+
+def check_every_gradient(torch, name, model, step):
+    """One step in which every parameter's received gradient (what the
+    optimizer steps with) must equal its raw gradient bit for bit: an
+    all-reduce over one rank is the identity, whatever the grouping and
+    the chunk sizes.  The raw gradients are cloned by hooks registered
+    after the DistributedOptimizer's, which only enqueue."""
+    raw, hooks = {}, []
+    params = dict(model.named_parameters())
+    for pname, p in params.items():
+        hooks.append(p.register_post_accumulate_grad_hook(
+            lambda p, pname=pname: raw.__setitem__(pname, p.grad.clone())))
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    differ = [n for n, p in params.items()
+              if not torch.equal(p.grad.view(torch.int32),
+                                 raw[n].view(torch.int32))]
+    check(len(raw) == len(params) and not differ,
+          f"{name}: received gradients differ from the raw ones: "
+          f"{differ[:5]} ({len(differ)} of {len(params)})")
+    log(f"{name}: every one of {len(params)} received gradients equals its "
+        f"raw gradient bit for bit")
+    del raw
+
+
+def check_logits(torch, name, model, ids, flash_attention):
+    """A forward with ``flash_attention`` and one with the exact
+    ``full_attention`` on the same weights and batch must agree to
+    LM_LOGIT_TOL of the logits' max-abs, while two controls (attention
+    zeroed for the later half of the positions, and everywhere) must
+    not."""
+    from byteps_tpu_torch.parallel.sequence import full_attention
 
     def late_rows_zeroed(q, k, v, **kw):   # a control: a fault in late rows
         out = full_attention(q, k, v, **kw)
@@ -936,20 +1106,77 @@ def lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg, batch, seq,
     check(min(shares["late rows zeroed"]["max"],
               shares["attention zeroed"]["max"]) > LM_LOGIT_TOL,
           f"{name}: the logit bound does not see a faulty attention")
-    bps.shutdown()
-    del model, got, exact, raw, param
-    torch.cuda.empty_cache()
-    return launches
 
 
-def profiled_step(torch, step):
-    """(device-busy ms, host ms, device events) of one ``step`` under
-    torch.profiler: the union of the intervals of the kernels and copies
-    on the card (user annotations left out), the host clock around the
-    step, and those kernels and copies as (name, ms)."""
+def thread_labels(eng):
+    """{OS thread id: label} of the threads a step's host time is split
+    over: main, and the engine's dispatcher and syncer; any other thread
+    (PyTorch's autograd thread, which runs the hooks) goes by its name."""
+    import threading
+    out = {threading.main_thread().native_id: "main"}
+    if eng is not None:
+        out[eng._dispatcher.native_id] = "bps-dispatch"
+        out[eng._syncer.native_id] = "bps-sync"
+    return out
+
+
+def _thread_name(tid, labels):
+    if tid in labels:
+        return labels[tid]
+    try:
+        with open(f"/proc/self/task/{tid}/comm") as f:
+            return f.read().strip()
+    except OSError:
+        return f"thread {tid}"
+
+
+def thread_cpu_s(labels):
+    """User + system CPU seconds so far of each thread of this process
+    (``/proc/self/task``), by label; threads of one name are summed."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = collections.defaultdict(float)
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue            # the thread ended meanwhile
+        out[_thread_name(int(tid), labels)] += (
+            int(fields[11]) + int(fields[12])) / tick
+    return dict(out)
+
+
+def _fmt(d, digits=2):
+    return "{" + ", ".join(f"{k} {v:.{digits}f}" for k, v in sorted(
+        d.items(), key=lambda kv: -kv[1]) if v) + "}"
+
+
+def _union_us(spans):
+    """Length of the union of [start, end) intervals."""
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy
+
+
+def profiled_step(torch, step, threads=None):
+    """(device-busy ms, host ms, device events, host ms by thread) of one
+    ``step`` under torch.profiler: the union of the intervals of the
+    kernels and copies on the card (user annotations left out), the host
+    clock around the step, those kernels and copies as (name, ms), and
+    for each thread the union of its host events' intervals, which is
+    their self CPU time summed (events nest), labelled by ``threads``
+    ({OS thread id: label}) or the thread's name."""
+    import tempfile
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        every_thread = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        every_thread = None       # then only the profiling thread is seen
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=every_thread) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -957,14 +1184,27 @@ def profiled_step(torch, step):
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us, end = 0.0, -math.inf
-    for lo, hi in spans:
-        busy_us += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
+    busy_us = _union_us((e.time_range.start, e.time_range.end)
+                        for e in events)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    spans = collections.defaultdict(list)
+    for e in trace:
+        if (e.get("ph") == "X" and isinstance(e.get("tid"), int)
+                and e.get("cat") in ("cpu_op", "cuda_runtime",
+                                     "cuda_driver")):
+            spans[e["tid"]].append((e["ts"], e["ts"] + e.get("dur", 0)))
+    host_ms = collections.defaultdict(float)
+    for tid, sp in spans.items():
+        host_ms[_thread_name(tid, threads or {})] += _union_us(sp) / 1e3
+    if every_thread is None:
+        host_ms["(other threads not recorded)"] = 0.0
     return busy_us / 1e3, wall_ms, [
         (e.name, (e.time_range.end - e.time_range.start) / 1e3)
-        for e in events]
+        for e in events], dict(host_ms)
 
 
 def onebit_device_ms(events):
@@ -1014,14 +1254,13 @@ def main():
     torch.cuda.empty_cache()
     flash_rows, shape_ms = flash_kernel_phase(torch, fa)
     flash_launches = {k: 0 for k in FLASH_KERNELS}
-    for name, model_fn, cfg, batch, seq, watch, shape in (
+    for name, model_fn, cfg, batch, seq, shape in (
             ("llama slice", llama.Llama,
              dataclasses.replace(llama.llama3_8b(), num_layers=4), 2, 4096,
-             "norm_f.scale", "llama"),
-            ("gpt slice", gpt.GPT, gpt.gpt_small(), 1, 8192, "ln_f.scale",
-             "gpt")):
-        run = lm_slice_phase(torch, bps, api, fa, name, model_fn, cfg,
-                             batch, seq, watch, shape_ms[shape])
+             "llama"),
+            ("gpt slice", gpt.GPT, gpt.gpt_small(), 1, 8192, "gpt")):
+        run = lm_slice_phase(torch, bps, api, fa, Config, name, model_fn,
+                             cfg, batch, seq, shape_ms[shape])
         for k in flash_launches:
             flash_launches[k] += run[k]
     kernels = []

@@ -151,6 +151,17 @@ def test_engine_push_pull(results, layout):
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
+def test_engine_dispatches_one_chunk_per_collective(results, layout):
+    """At more than one rank, under the default group size (4) and with
+    autotune on, every collective carries one chunk (the engine's two
+    steps of the three tensors above: 2 x (3 + 3 + 1) chunks) and the
+    planner is inert."""
+    for res in results[layout]:
+        assert res["engine/stats"].tolist() == [14, 14]
+        assert not res["engine/planner_active"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_ranks_receive_identical_results(results, layout):
     r0, *others = results[layout]
     for r in others:

@@ -388,6 +388,81 @@ def test_engine_push_pull_on_card(card):
         bps.shutdown()
 
 
+def _grouped_run(card, group_size, n_tensors=8, numel=1000):
+    """Push ``n_tensors`` one-chunk gradients made on a side stream (queued
+    behind a sleep, so they are still being written when pushed), each
+    with its own ready event, with dispatch paused so that they group;
+    returns (outputs, inputs, engine stats)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.core import api
+
+    bps.init(Config(group_size=group_size, partition_bytes=4096,
+                    partition_pinned=False))
+    try:
+        eng = api.engine()
+        side = torch.cuda.Stream(card)
+        base = torch.from_numpy(np.random.RandomState(5).randn(
+            n_tensors, numel).astype(np.float32)).to(card)
+        torch.cuda.synchronize()
+        eng.pause_dispatch()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(50_000_000)        # the producer is late
+            xs = [base[i] * 3 - 1 for i in range(n_tensors)]
+            hs = [api.push_pull_async(x, f"side/{i}")
+                  for i, x in enumerate(xs)]
+        eng.resume_dispatch()
+        outs = [h.wait(timeout=60) for h in hs]
+        torch.cuda.synchronize()
+        return ([o.cpu() for o in outs], [x.cpu() for x in xs],
+                dict(eng.stats))
+    finally:
+        bps.shutdown()
+
+
+def test_grouped_side_stream_producers_keep_bits(card):
+    """Tensors produced on a side stream, pushed and grouped into one
+    collective: the engine stream waits on each producer's event before
+    the first copy-in, so the results have the bits of group_size=1,
+    which are the inputs' (a world of one)."""
+    outs1, xs1, stats1 = _grouped_run(card, 1)
+    outs, xs, stats = _grouped_run(card, -1)
+    assert stats1 == {"dispatches": 8, "chunks": 8}
+    assert stats == {"dispatches": 1, "chunks": 8}
+    for o, o1, x in zip(outs, outs1, xs):
+        assert torch.equal(o.view(torch.int32), o1.view(torch.int32))
+        assert torch.equal(o.view(torch.int32), x.view(torch.int32))
+
+
+def test_group_results_outlive_the_other_handles(card):
+    """A group's results are views of one buffer: after the other handles
+    and results of the group are dropped and their memory is reused, the
+    kept result still holds its values."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.core import api
+
+    bps.init(Config(group_size=-1))
+    try:
+        eng = api.engine()
+        xs = [torch.full((1 << 16,), float(i + 1), device=card)
+              for i in range(4)]
+        eng.pause_dispatch()
+        hs = [api.push_pull_async(x, f"keep/{i}") for i, x in enumerate(xs)]
+        eng.resume_dispatch()
+        outs = [h.wait(timeout=60) for h in hs]
+        assert eng.stats == {"dispatches": 1, "chunks": 4}
+        keep = outs[2]
+        del outs, hs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        junk = [torch.full((1 << 16,), -7.0, device=card) for _ in range(16)]
+        torch.cuda.synchronize()
+        assert torch.equal(keep, xs[2]) and len(junk) == 16
+    finally:
+        bps.shutdown()
+
+
 # --- flash attention -------------------------------------------------------
 
 FLASH_CASES = [   # (bh, tq, tk, d, causal, kv_len)

@@ -32,7 +32,11 @@ ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
 CONFIG_FIELDS = ("num_hosts", "host_id", "local_rank", "local_size",
                  "coordinator_address", "partition_bytes",
                  "scheduling_credit", "enable_priority", "group_size",
-                 "min_compress_bytes")
+                 "min_compress_bytes", "autotune", "use_native",
+                 "partition_pinned", "credit_pinned")
+# read by both packages; cleared unless a case sets them
+TUNING_ENV = ("BYTEPS_MIN_COMPRESS_BYTES", "BYTEPS_AUTOTUNE", "BYTEPS_NATIVE",
+              "BYTEPS_PARTITION_BYTES", "BYTEPS_SCHEDULING_CREDIT")
 
 
 @pytest.mark.parametrize("env", [
@@ -44,12 +48,16 @@ CONFIG_FIELDS = ("num_hosts", "host_id", "local_rank", "local_size",
      "BYTEPS_LOCAL_SIZE": "4", "BYTEPS_LOCAL_RANK": "3",
      "DMLC_PS_ROOT_URI": "10.0.0.1", "DMLC_PS_ROOT_PORT": "1234",
      "BYTEPS_GROUP_SIZE": "8", "BYTEPS_PARTITION_BYTES": "4096"},
-], ids=["defaults", "knobs", "topology"])
+    # present at their default values: still pinned
+    {"BYTEPS_AUTOTUNE": "0", "BYTEPS_NATIVE": "0", "BYTEPS_GROUP_SIZE": "-1",
+     "BYTEPS_PARTITION_BYTES": "4096000", "BYTEPS_SCHEDULING_CREDIT": "0"},
+], ids=["defaults", "knobs", "topology", "tuning"])
 def test_config_from_env_matches_jax(monkeypatch, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if "BYTEPS_MIN_COMPRESS_BYTES" not in env:
-        monkeypatch.delenv("BYTEPS_MIN_COMPRESS_BYTES", raising=False)
+    for k in TUNING_ENV:
+        if k not in env:
+            monkeypatch.delenv(k, raising=False)
     j, p = jax_config.Config.from_env(), port_config.Config.from_env()
     for f in CONFIG_FIELDS:
         assert getattr(p, f) == getattr(j, f), f
@@ -277,6 +285,24 @@ def test_hooks_enqueue_while_backward_runs(engine1):
     assert len(opt._handles) == 4
     opt.step()
     assert not opt._handles
+
+
+def test_dropped_optimizer_frees_its_model(engine1):
+    """A DistributedOptimizer that is dropped, with its model, frees them:
+    its gradient hooks (held in C++, out of reach of Python's cycle
+    collector) must not keep it alive."""
+    import gc
+    import weakref
+
+    m = torch.nn.Linear(4, 3)
+    opt = port.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1),
+                                    named_parameters=m.named_parameters())
+    m(torch.randn(2, 4)).sum().backward()
+    opt.step()
+    refs = [weakref.ref(m.weight), weakref.ref(opt)]
+    del m, opt
+    gc.collect()
+    assert all(r() is None for r in refs)
 
 
 def test_concurrent_pushers_stress(engine1):

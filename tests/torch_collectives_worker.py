@@ -111,6 +111,12 @@ def main(out_path, device="cpu"):
             res[f"engine/{key}/{step}"] = h.wait().cpu().numpy()
     res["engine/chunks"] = np.array(
         [len(api.engine().registry.get(k).chunk_bounds) for k in "abc"])
+    # the default config groups up to 4 chunks and tunes chunk sizes at one
+    # rank; at more than one every collective carries one chunk, untuned
+    eng = api.engine()
+    res["engine/stats"] = np.array([eng.stats["dispatches"],
+                                    eng.stats["chunks"]])
+    res["engine/planner_active"] = np.array(eng.planner.active)
     api.shutdown()
     np.savez(out_path, **res)
 
