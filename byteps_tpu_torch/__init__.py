@@ -9,10 +9,14 @@ The data-parallel gradient path is ported: ``DistributedOptimizer`` ->
 auto-tuned planner's chunk size, priority and credit scheduling in the
 native queue, chunk-group dispatch and per-unit retirement threads) ->
 an all-reduce over ``torch.distributed``, or for compressed tensors the
-onebit compressed push_pull whose pack, unpack and merge are CUDA
-kernels (``csrc/onebit.cu``).  ``models`` carries the ResNet family, GPT
-and Llama, whose attention is the flash kernels of
-``csrc/flash_attention.cu``.
+compressed push_pull of a codec of ``compression`` (onebit, whose pack,
+unpack and merge are CUDA kernels of ``csrc/onebit.cu``; topk, randomk,
+dithering, PowerSGD; error feedback and Nesterov momentum), chosen per
+tensor or by the planner's compressor ladder.  Besides
+``DistributedOptimizer`` the adapter has ``DistributedDataParallel``,
+``CrossBarrier``, ``HalfPrecisionDistributedOptimizer`` and
+``Compression``.  ``models`` carries the ResNet family, GPT and Llama,
+whose attention is the flash kernels of ``csrc/flash_attention.cu``.
 """
 
 from .torch import *  # noqa: F401,F403 — the adapter is the public surface

@@ -8,6 +8,11 @@ payloads, merges every rank's payload in one pass (the "server";
 onebit's merge is the ``onebit_unpack_sum`` kernel), and a bidirectional
 codec re-compresses the merged sum so the "pull" is quantized too.
 
+Every payload leaf crosses the wire as bytes: NCCL has no 16-bit
+integer type, and dithering's sparse ``idx`` is uint16 (held as int16)
+at chunks of up to 65535 elements.  A codec that is not bidirectional
+(PowerSGD) skips the server pass, as in the JAX package's ``body``.
+
 The JAX package compiles this into one program; here it is a plain
 sequence of steps on the current stream.  Compressor state (the worker's
 and the server's error-feedback residuals) is returned anew and the
@@ -27,11 +32,13 @@ from .mesh import CommContext
 
 
 def _all_gather(comm: CommContext, t: torch.Tensor) -> torch.Tensor:
-    """(*shape) on each rank -> (R, *shape), rows in rank order."""
-    flat = t.reshape(-1).contiguous()
+    """(*shape) on each rank -> (R, *shape), rows in rank order; the
+    leaf travels as its bytes, whatever its dtype (a 0-d leaf comes back
+    as (R,))."""
+    flat = t.reshape(-1).contiguous().view(torch.uint8)
     out = flat.new_empty(comm.size * flat.numel())
     dist.all_gather_into_tensor(out, flat)
-    return out.reshape((comm.size,) + tuple(t.shape))
+    return out.view(t.dtype).reshape((comm.size,) + tuple(t.shape))
 
 
 def fused_compressed_push_pull(comm: CommContext, x: torch.Tensor,

@@ -15,6 +15,8 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
   - BYTEPS_AUTOTUNE                      -> autotune
   - BYTEPS_NATIVE                        -> use_native
   - BYTEPS_MIN_COMPRESS_BYTES            -> min_compress_bytes
+  - BYTEPS_COMPRESS_AUTOTUNE             -> compress_autotune
+  - BYTEPS_COMPRESS_ERROR_CEILING        -> compress_error_ceiling
 
 ``partition_pinned`` / ``credit_pinned`` are set when the environment
 variable is present (whatever its value) or the field is given a value
@@ -25,9 +27,9 @@ Unlike the JAX package there is no process-wide cached config: ``init``
 builds one with :meth:`Config.from_env` (or takes the caller's) and the
 engine owns it.
 
-Not ported: the knobs of the planes the port does not have yet (the
-compressor ladder, sharded update, membership and the sync deadline,
-telemetry, tracing, the server).
+Not ported: the knobs of the planes the port does not have yet (sharded
+update, membership and the sync deadline, telemetry, tracing, the
+server).
 """
 
 from __future__ import annotations
@@ -51,6 +53,16 @@ def _env_int(name: str, default: int) -> int:
         return int(v)
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {v!r}") from None
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {v!r}") from None
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -85,6 +97,14 @@ class Config:
 
     # --- compression ---
     min_compress_bytes: int = 65536  # smaller tensors skip compression
+    # The planner's compressor ladder (scheduler.ChunkPlanner): per size
+    # bucket, race none/onebit/randomk/topk (with error feedback) and lock
+    # the fastest whose golden gradient error is at most
+    # compress_error_ceiling.  Off by default: a tuned codec changes
+    # gradient values.  Tensors pushed with explicit compression kwargs
+    # are pinned and never tuned; inert at more than one rank.
+    compress_autotune: bool = False
+    compress_error_ceiling: float = 0.55
 
     # --- native core ---
     # The C++ priority/credit queue (native/core.cc).  With True a failed
@@ -120,6 +140,10 @@ class Config:
             raise ValueError("scheduling_credit must be >= 0")
         if self.min_compress_bytes < 0:
             raise ValueError("min_compress_bytes must be >= 0")
+        if not 0 < self.compress_error_ceiling <= 1.0:
+            raise ValueError(
+                "compress_error_ceiling must be in (0, 1] — it is a "
+                "relative gradient-error bound")
 
     @property
     def world_size(self) -> int:
@@ -147,6 +171,9 @@ class Config:
                                 _env_int("BYTEPS_NCCL_GROUP_SIZE", 4)),
             autotune=_env_bool("BYTEPS_AUTOTUNE", True),
             min_compress_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES", 65536),
+            compress_autotune=_env_bool("BYTEPS_COMPRESS_AUTOTUNE", False),
+            compress_error_ceiling=_env_float(
+                "BYTEPS_COMPRESS_ERROR_CEILING", 0.55),
             use_native=_env_bool("BYTEPS_NATIVE", True),
             # the variable's presence is the pin, whatever its value
             partition_pinned=("BYTEPS_PARTITION_BYTES" in os.environ

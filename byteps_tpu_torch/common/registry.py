@@ -95,6 +95,38 @@ class TensorRegistry:
                    len(bounds), partition_bytes)
         return True
 
+    @staticmethod
+    def retune_compression_locked(ctx: TensorContext,
+                                  compression_kwargs: Optional[Dict[str,
+                                                                   str]],
+                                  partition_bytes: int) -> bool:
+        """Swap the codec of a tensor between its pushes: the compressor
+        ladder's choice for a planner-owned tensor, or the explicit kwargs
+        that re-pin one.  The caller holds ``ctx.lock`` and has checked
+        ``ctx.inflight == 0``.  Re-carves the bounds at the new codec's
+        partition bound and drops the compressor slots, which the engine
+        builds again with fresh state (switching codecs restarts the
+        error feedback).  Returns True when anything changed."""
+        if not ctx.initialized:
+            return False
+        new_kwargs = dict(compression_kwargs or {})
+        if (new_kwargs == ctx.compression_kwargs
+                and partition_bytes == ctx.partition_bytes):
+            return False
+        ctx.compression_kwargs = new_kwargs
+        ctx.compressor = None
+        bounds = chunk_bounds(ctx.num_elems, ctx.dtype.itemsize,
+                              partition_bytes)
+        ctx.partition_bytes = partition_bytes
+        if bounds != ctx.chunk_bounds:
+            ctx.chunk_bounds = bounds
+            ctx.key_list = [make_key(ctx.declared_key, i)
+                            for i in range(len(bounds))]
+        _log.debug("retuned tensor %s codec -> %s (%d chunk(s) at %d B)",
+                   ctx.name, new_kwargs.get("compressor", "none"),
+                   len(bounds), partition_bytes)
+        return True
+
     def get(self, name: str) -> Optional[TensorContext]:
         with self._lock:
             return self._by_name.get(name)

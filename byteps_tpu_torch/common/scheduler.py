@@ -128,6 +128,18 @@ _PLAN_SAMPLES = 2
 # candidate chunk sizes stay on the partitioner's alignment
 _PLAN_ALIGN = ALIGN_BYTES
 
+# The compressor ladder: per size bucket the planner races these codecs on
+# the wall time of a push, among those whose codec-golden gradient error
+# (compression.registry.golden_error) is at most the configured ceiling.
+# Every lossy rung carries error feedback, which the golden error counts;
+# the sparsifiers keep a quarter (JAX ``scheduler.py:168-182``).
+COMPRESS_LADDER = (
+    ("none", None),
+    ("onebit", {"compressor": "onebit", "ef": "vanilla"}),
+    ("randomk", {"compressor": "randomk", "k": "0.25", "ef": "vanilla"}),
+    ("topk", {"compressor": "topk", "k": "0.25", "ef": "vanilla"}),
+)
+
 
 class ChunkPlanner:
     """Online (chunk size, credit window) tuner for the push_pull path.
@@ -151,6 +163,14 @@ class ChunkPlanner:
     drops a sample during which a program compiled; eager PyTorch
     compiles nothing, and the nearest pollution here, the allocator's
     first growth to a size, is left to the min-of-samples scoring.
+
+    With ``Config.compress_autotune`` a second dimension, the compressor
+    ladder (:data:`COMPRESS_LADDER`), races codecs per size bucket for
+    the tensors the engine gives it (those pushed without explicit
+    kwargs), in the same round-robin, min-of-2 way, once the bucket's
+    chunk size has locked; a rung whose golden error exceeds
+    ``compress_error_ceiling`` is never tried.  Inert at more than one
+    rank too: a per-rank codec choice would diverge the ranks.
     """
 
     def __init__(self, cfg, num_procs: int = 1):
@@ -159,6 +179,10 @@ class ChunkPlanner:
                                 and num_procs == 1)
         self._tune_credit = (cfg.autotune and not cfg.credit_pinned
                              and num_procs == 1)
+        self._tune_compress = cfg.compress_autotune and num_procs == 1
+        self._error_ceiling = cfg.compress_error_ceiling
+        self._min_compress = cfg.min_compress_bytes
+        self._cbuckets = {}         # bucket -> the compressor ladder's state
         self._buckets = {}          # bucket -> {"cands", "samples", "locked"}
         self._lock = threading.Lock()
         self._credit = 0            # 0 = leave the scheduler's window
@@ -233,9 +257,86 @@ class ChunkPlanner:
             st = self._buckets.get(nbytes.bit_length())
             return st is not None and st["locked"] is not None
 
+    # -- the compressor ladder ---------------------------------------------
+    @property
+    def compress_active(self) -> bool:
+        return self._tune_compress
+
+    def _compress_candidates(self) -> List[tuple]:
+        """The ladder's ``(key, kwargs, golden error)`` for one bucket: a
+        rung over the ceiling is left out before any push pays for it.
+        The golden errors run the codecs on the CPU, so callers hold no
+        lock."""
+        from ..compression import registry as codecs
+        out = [("none", None, 0.0)]
+        for key, kw in COMPRESS_LADDER[1:]:
+            try:
+                err = codecs.golden_error(kw)
+            except Exception:  # noqa: BLE001 — a codec whose golden
+                continue       # cannot even run is never chosen
+            if err <= self._error_ceiling:
+                out.append((key, kw, err))
+        return out
+
+    def _compressible(self, nbytes: int) -> bool:
+        return self._tune_compress and nbytes >= max(1, self._min_compress)
+
+    def plan_compression(self, nbytes: int):
+        """The compression kwargs for an unpinned tensor of ``nbytes`` now
+        (None: uncompressed).  The chunk size locks first: racing both at
+        once would charge a chunk candidate's time to a codec.  Fewest
+        samples first, ladder order on ties.  The cutoff is the tensor's
+        size, not its bucket's: a bucket can straddle
+        ``min_compress_bytes``."""
+        if not self._compressible(nbytes) or not self.locked(nbytes):
+            return None
+        bucket = nbytes.bit_length()
+        with self._lock:
+            st = self._cbuckets.get(bucket)
+        if st is None:
+            cands = self._compress_candidates()     # outside the lock
+            with self._lock:
+                st = self._cbuckets.setdefault(
+                    bucket, {"cands": cands, "samples": {}, "locked": None})
+        with self._lock:
+            if st["locked"] is not None:
+                key = st["locked"]
+            else:
+                key = min((k for k, _, _ in st["cands"]),
+                          key=lambda k: len(st["samples"].get(k, ())))
+            return next(kw for k, kw, _ in st["cands"] if k == key)
+
+    def observe_compression(self, nbytes: int, codec: str,
+                            seconds: float) -> None:
+        """Record one completed push of a ladder-owned tensor that ran
+        under ``codec`` (a ladder key); locks the bucket once every rung
+        has its samples."""
+        if not self._compressible(nbytes) or seconds <= 0:
+            return
+        with self._lock:
+            st = self._cbuckets.get(nbytes.bit_length())
+            if st is None or st["locked"] is not None:
+                return
+            if codec not in {k for k, _, _ in st["cands"]}:
+                return      # pushed under an earlier ladder
+            st["samples"].setdefault(codec, []).append(seconds)
+            if any(len(st["samples"].get(k, ())) < _PLAN_SAMPLES
+                   for k, _, _ in st["cands"]):
+                return
+            st["locked"] = min((k for k, _, _ in st["cands"]),
+                               key=lambda k: min(st["samples"][k]))
+
+    def compress_locked(self, nbytes: int) -> bool:
+        """Whether a tensor of ``nbytes`` has no codec left to explore."""
+        if not self._compressible(nbytes):
+            return True
+        with self._lock:
+            st = self._cbuckets.get(nbytes.bit_length())
+            return st is not None and st["locked"] is not None
+
     def snapshot(self) -> dict:
-        """Locked partition (or exploration so far) per bucket, and the
-        credit window."""
+        """Locked partition (or exploration so far) per bucket, the
+        credit window, and the compressor ladder's state per bucket."""
         with self._lock:
             buckets = {
                 str(b): {"locked_partition_bytes": st["locked"],
@@ -243,8 +344,19 @@ class ChunkPlanner:
                                       for k, v in st["samples"].items()
                                       if v}}
                 for b, st in self._buckets.items()}
+            cbuckets = {
+                str(b): {"locked_codec": st["locked"],
+                         "explored": {k: round(min(v), 6)
+                                      for k, v in st["samples"].items()
+                                      if v},
+                         "golden_error": {k: round(e, 4)
+                                          for k, _, e in st["cands"]}}
+                for b, st in self._cbuckets.items()}
             return {"tuning_partition": self._tune_partition,
                     "tuning_credit": self._tune_credit,
                     "base_partition_bytes": self._base,
                     "credit_bytes": self._credit,
-                    "buckets": buckets}
+                    "buckets": buckets,
+                    "compression": {"tuning": self._tune_compress,
+                                    "error_ceiling": self._error_ceiling,
+                                    "buckets": cbuckets}}

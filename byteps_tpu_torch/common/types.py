@@ -106,6 +106,12 @@ class TensorContext:
     compression_kwargs: Dict[str, str] = dataclasses.field(
         default_factory=dict)
     compressor: Any = None        # list of _CompressionSlot, one per chunk
+    # who owns the codec, decided at the first push: None (undecided),
+    # True (the planner's compressor ladder), False (explicit kwargs)
+    compression_tuned: Optional[bool] = None
+    # explicit kwargs that re-pinned a ladder-owned tensor while pushes
+    # were in flight: applied at the next push with ``inflight == 0``
+    compression_pin: Optional[Dict[str, str]] = None
     partition_bytes: int = 0
     # pushes enqueued and not yet resolved; the planner re-carves chunk
     # bounds only at 0 (under ``lock``)

@@ -51,3 +51,9 @@ class ErrorFeedback(Compressor):
 
     def wire_decode(self, data):
         return self.inner.wire_decode(data)
+
+    def wire_nbytes(self, payload) -> int:
+        return self.inner.wire_nbytes(payload)
+
+    def cache_key(self) -> tuple:
+        return ("ef",) + self.inner.cache_key()

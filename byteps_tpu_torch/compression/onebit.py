@@ -58,6 +58,12 @@ class OnebitCompressor(Compressor):
                   .tobytes())
         return header + words.astype("<u4").tobytes()
 
+    def wire_nbytes(self, payload: Payload) -> int:
+        return 8 + 4 * self._lanes
+
+    def cache_key(self) -> tuple:
+        return super().cache_key() + (self.scaling,)
+
     def wire_decode(self, data: bytes) -> Payload:
         if len(data) < 8:
             raise ValueError("onebit wire frame shorter than its header")

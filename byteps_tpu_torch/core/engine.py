@@ -25,7 +25,12 @@ On the CPU (gloo) the collectives are synchronous and no events exist.
 The auto-tuned :class:`~..common.scheduler.ChunkPlanner` picks each
 uncompressed tensor's chunk size per size bucket; a tensor is re-carved
 only between its pushes (``TensorContext.inflight == 0``), and each
-completed push is a timing sample.  It is inert at more than one rank.
+completed push is a timing sample.  Under ``compress_autotune`` its
+compressor ladder then picks the codec of every tensor pushed without
+explicit kwargs: which codec owns a tensor is decided at its first push,
+explicit kwargs re-pin it, a new codec applies between pushes with
+fresh compressor state, and each push's sample is charged to the codec
+it ran under.  The planner is inert at more than one rank.
 
 Dispatch order is the priority mechanism on one rank.  The ranks of a
 process group must issue the same collectives, of the same sizes, in the
@@ -39,7 +44,7 @@ Not ported:
 - AOT warming: eager PyTorch compiles no program per shape, and the
   CUDA kernels are built once per process at their first launch, so
   there is nothing to warm;
-- the compressor ladder, and sharded update;
+- sharded update;
 - membership epochs with the stale-epoch guard, and the
   ``_deadline_loop`` watchdog: they need ``fault/membership.py`` and
   ``utils/failure_detector.py``;
@@ -179,14 +184,14 @@ class _PendingTensor:
     """Collects the finished chunks of one push_pull."""
 
     def __init__(self, handle: Handle, ctx: TensorContext, out_shape,
-                 denom: int, total: int):
+                 denom: int, total: int, compressed: bool):
         self.handle = handle
         self.ctx = ctx
         self.out_shape = out_shape
         self.denom = denom        # divisor applied at assembly (1 = none)
         self.total = total
         # an uncompressed tensor of several chunks: its chunks form runs
-        self.multi_chunk = total > 1 and ctx.compressor is None
+        self.multi_chunk = total > 1 and not compressed
         self.parts: Dict[int, Any] = {}
         self.resolved = False     # the handle has been (or is being) set
         self.lock = threading.Lock()
@@ -345,20 +350,56 @@ class PushPullEngine:
         ctx = self.declare_tensor(name, tensor.shape, tensor.dtype,
                                   compression=compression,
                                   partition_bytes=plan_bytes)
-        # claim the push (inflight) atomically with the repartition
-        # decision: bounds move only while no push holds a claim, and this
-        # push's geometry is read under the same lock
+        # the compressor ladder's plan, taken before ctx.lock: a bucket's
+        # first plan runs the codecs' golden errors
+        want_tuned = None
+        if (compression is None and self.planner.compress_active
+                and ctx.compression_tuned is not False):
+            want_tuned = self.planner.plan_compression(est_nbytes)
+        # claim the push (inflight) atomically with the codec and
+        # repartition decisions: the codec and the bounds move only while
+        # no push holds a claim, and this push's geometry is read after
+        # the claim
         with ctx.lock:
+            if ctx.compression_tuned is None:
+                # decided once: explicit kwargs (this push's or a
+                # declare's) pin the tensor; a bare one belongs to the
+                # ladder when it is on
+                ctx.compression_tuned = (not compression
+                                         and not ctx.compression_kwargs
+                                         and self.planner.compress_active)
+            elif compression and ctx.compression_tuned:
+                # explicit kwargs re-pin a ladder-owned tensor: ownership
+                # moves now, the codec at the next push with nothing in
+                # flight
+                ctx.compression_tuned = False
+                ctx.compression_pin = dict(compression)
+            if ctx.compression_pin is not None and ctx.inflight == 0:
+                self.registry.retune_compression_locked(
+                    ctx, ctx.compression_pin, self.cfg.partition_bytes)
+                ctx.compression_pin = None
+            if ctx.compression_tuned and ctx.inflight == 0:
+                self.registry.retune_compression_locked(
+                    ctx, want_tuned,
+                    self.cfg.partition_bytes if want_tuned else plan_bytes)
             if (not ctx.compression_kwargs and ctx.inflight == 0
                     and ctx.partition_bytes != plan_bytes):
                 self.registry.repartition_locked(ctx, plan_bytes)
             ctx.inflight += 1
-            bounds, keys = list(ctx.chunk_bounds), list(ctx.key_list)
-            part_used = ctx.partition_bytes
-            compressed = bool(ctx.compression_kwargs)
         try:
+            # a retune dropped the slots: build them for the new codec
+            # (fresh state); this push's claim keeps them in place
+            self._ensure_compression(ctx)
+            with ctx.lock:
+                bounds, keys = list(ctx.chunk_bounds), list(ctx.key_list)
+                slots = ctx.compressor
+                part_used = ctx.partition_bytes
+                codec_used = (ctx.compression_kwargs.get("compressor")
+                              or "none") if ctx.compression_kwargs else "none"
+                tuned = bool(ctx.compression_tuned)
             return self._enqueue(tensor, name, ctx, priority, op, bounds,
-                                 keys, est_nbytes, part_used, compressed)
+                                 keys, slots, est_nbytes, part_used,
+                                 codec_used, tuned)
         except BaseException:
             # the done callback never got the claim: release it, or the
             # tensor could never be re-carved again
@@ -366,17 +407,20 @@ class PushPullEngine:
                 ctx.inflight -= 1
             raise
 
-    def _enqueue(self, tensor, name, ctx, priority, op, bounds, keys,
-                 est_nbytes, part_used, compressed) -> Handle:
+    def _enqueue(self, tensor, name, ctx, priority, op, bounds, keys, slots,
+                 est_nbytes, part_used, codec_used, tuned) -> Handle:
         denom = self.comm.size if op == "average" else 1
         scale = None
-        if denom != 1 and ctx.compressor is None and tensor.is_floating_point():
+        if denom != 1 and slots is None and tensor.is_floating_point():
             # fused scale: the collective multiplies by 1/R before the
             # downcast, and assembly is a reshape
             scale, denom = 1.0 / denom, 1
-        # the planner's sample: wall seconds from enqueue to resolution,
-        # until the tensor's size bucket locks
-        track_plan = not compressed and not self.planner.locked(est_nbytes)
+        # the planner's samples: wall seconds from enqueue to resolution,
+        # for the chunk size until the tensor's size bucket locks, then,
+        # for a ladder-owned tensor, for the codec it ran under
+        track_plan = slots is None and not self.planner.locked(est_nbytes)
+        track_comp = (tuned and self.planner.locked(est_nbytes)
+                      and not self.planner.compress_locked(est_nbytes))
         flat = tensor.detach().reshape(-1)
         ready = None
         if flat.is_cuda:
@@ -387,7 +431,7 @@ class PushPullEngine:
             flat.record_stream(self.stream)
         handle = self.handles.allocate(name)
         pending = _PendingTensor(handle, ctx, tuple(tensor.shape), denom,
-                                 len(bounds))
+                                 len(bounds), compressed=slots is not None)
         t_enq = time.perf_counter()
         with self._enq_lock:
             self._enq_seq += 1
@@ -402,7 +446,7 @@ class PushPullEngine:
                     name=name, key=keys[i], priority=prio,
                     offset_elems=off, num_elems=ln,
                     nbytes=ln * tensor.element_size(), data=flat,
-                    compression=ctx.compressor[i] if ctx.compressor else None,
+                    compression=slots[i] if slots else None,
                     scale=scale, pending=pending, ready=ready,
                     t_enqueue=t_enq)
                 task.callback = self._make_chunk_callback(pending, i)
@@ -411,6 +455,9 @@ class PushPullEngine:
         def on_done(h: Handle) -> None:
             with ctx.lock:
                 ctx.inflight -= 1
+            if track_comp and h.status.code == StatusCode.OK:
+                self.planner.observe_compression(
+                    est_nbytes, codec_used, time.perf_counter() - t_enq)
             if track_plan and h.status.code == StatusCode.OK:
                 self.planner.observe(est_nbytes, part_used,
                                      time.perf_counter() - t_enq)

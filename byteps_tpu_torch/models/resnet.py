@@ -4,6 +4,9 @@ The JAX package's conventions hold at the public function: input is
 **NHWC** (the forward permutes it to a channels-last NCHW view),
 convolutions and the residual path run in ``compute_dtype`` (bf16 by
 default) with f32 parameters, BatchNorm and the classifier run in f32.
+A model made f16 with ``.half()`` (and ``compute_dtype=torch.float16``)
+keeps BatchNorm in f32, reading its f16 parameters in f32, and runs the
+classifier in f16.
 
 Numerics follow flax, not torch's defaults:
 
@@ -73,11 +76,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # an f16 model's parameters and statistics are read in f32 here
+        # (``.to`` of an f32 tensor is the tensor itself)
+        scale, bias = self.scale.to(x.dtype), self.bias.to(x.dtype)
         if not self.training:
-            return F.batch_norm(x, self.mean, self.var, self.scale,
-                                self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.scale, self.bias, True, 0.0,
-                         self.eps)
+            return F.batch_norm(x, self.mean.to(x.dtype),
+                                self.var.to(x.dtype), scale, bias, False,
+                                0.0, self.eps)
+        y = F.batch_norm(x, None, None, scale, bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             m = self.momentum
@@ -205,7 +211,8 @@ class ResNet(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         x = x.mean(dim=(2, 3))                               # global pool
-        return self.fc(x.to(torch.float32))
+        # f32 for an f32 model, f16 for one made f16 with .half()
+        return self.fc(x.to(self.fc.weight.dtype))
 
 
 def resnet50(num_classes: int = 1000,

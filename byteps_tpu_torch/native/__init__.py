@@ -1,15 +1,17 @@
-"""ctypes bindings for the native scheduler (``core.cc``); port of the
-scheduler part of ``byteps_tpu/native/__init__.py``.
+"""ctypes bindings for the native core (``core.cc``); port of the
+scheduler and Elias-delta parts of ``byteps_tpu/native/__init__.py``.
 
 :func:`load` compiles ``core.cc`` with ``g++`` at first use into
 ``byteps_tpu_torch/_build/``, under a file name that carries a hash of
 the source and the flags, and loads it.  Nothing runs at import.
 
-Unlike the JAX package, which logs and falls back to the Python heap, a
-failed build or load raises: the engine asks for this scheduler only when
-``Config.use_native`` is set, and a run that silently took the other
-queue would measure something else than it says.  ``BYTEPS_NATIVE=0``
-(``use_native=False``) selects the Python heap explicitly.
+Unlike the JAX package, which logs and falls back to the Python heap
+and the numpy Elias twin, a failed build or load raises: the engine asks
+for this scheduler only when ``Config.use_native`` is set, and a run that
+silently took the other queue, or the other coder, would measure
+something else than it says.  ``BYTEPS_NATIVE=0`` (``use_native=False``)
+selects the Python heap explicitly; the Elias coder has no other
+implementation outside the tests.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
+
+import numpy as np
 
 SOURCE = Path(__file__).resolve().with_name("core.cc")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-ABI_VERSION = 1
+ABI_VERSION = 2
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -92,8 +96,46 @@ def _declare_signatures(lib: ctypes.CDLL) -> None:
         getattr(lib, name).argtypes = [p]
     lib.bps_sched_drain.restype = i64
     lib.bps_sched_drain.argtypes = [p, ctypes.POINTER(i64), i64]
+    lib.bps_elias_encode.restype = i64
+    lib.bps_elias_encode.argtypes = [ctypes.POINTER(ctypes.c_int8), i64,
+                                     ctypes.POINTER(ctypes.c_uint32), i64]
+    lib.bps_elias_decode.restype = i64
+    lib.bps_elias_decode.argtypes = [ctypes.POINTER(ctypes.c_uint32), i64,
+                                     ctypes.POINTER(ctypes.c_int8), i64]
     lib.bps_native_abi_version.restype = ctypes.c_int
     lib.bps_native_abi_version.argtypes = []
+
+
+def elias_encode(codes: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Elias-delta code signed int8 level codes: (uint32 words, nbits)."""
+    lib = load()
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    cap = max(4, codes.size + 64)
+    while True:
+        out = np.zeros(cap, np.uint32)
+        nbits = lib.bps_elias_encode(
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), codes.size,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), cap)
+        if nbits == -2:         # the buffer was too small
+            cap *= 2
+            continue
+        return out[:(int(nbits) + 31) // 32].copy(), int(nbits)
+
+
+def elias_decode(words: np.ndarray, nbits: int, n: int) -> np.ndarray:
+    """Dense int8 codes of ``n`` elements from an Elias-delta bitstream;
+    raises on a malformed one."""
+    lib = load()
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    if 32 * words.size < nbits:
+        raise ValueError("elias-delta stream shorter than its bit count")
+    out = np.zeros(n, np.int8)
+    rc = lib.bps_elias_decode(
+        words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), int(nbits),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), n)
+    if rc != 0:
+        raise ValueError("malformed elias-delta stream")
+    return out
 
 
 class NativeChunkScheduler:

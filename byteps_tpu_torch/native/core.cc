@@ -1,4 +1,4 @@
-// byteps_tpu_torch native scheduler -- C ABI, loaded via ctypes.
+// byteps_tpu_torch native core -- C ABI, loaded via ctypes.
 //
 // The priority/credit chunk queue that feeds the engine's dispatch loop,
 // copied from the scheduler part of byteps_tpu/native/core.cc (the
@@ -7,9 +7,13 @@
 // the task objects.  A blocking pop waits on a condition variable with
 // the interpreter lock released (ctypes drops it around the call).
 //
+// The Elias-delta coder of dithering's host wire frame
+// (compression/elias.py), bps_elias_encode / bps_elias_decode, is
+// copied from the same file.
+//
 // Not copied: the partition arithmetic and key packing (the port's Python
-// versions are the ones it uses) and the host reducers, Elias coding and
-// CRC32C, which belong to planes not ported yet.
+// versions are the ones it uses) and the host reducers and CRC32C, which
+// belong to planes not ported yet.
 
 #include <algorithm>
 #include <chrono>
@@ -178,6 +182,138 @@ int64_t bps_sched_drain(void* p, int64_t* out_ids, int64_t cap) {
   return n;
 }
 
-int bps_native_abi_version() { return 1; }
+int bps_native_abi_version() { return 2; }
+
+}  // extern "C"
+
+// ------------------------------------------------------- elias-delta coder
+// Host-side entropy coding of dithering's codes: per nonzero element, the
+// gap to the previous one (Elias-delta), a sign bit and |level|
+// (Elias-delta), LSB-first within each uint32 word -- the JAX package's
+// frame, bit for bit.  Sequential by nature, so it runs on the host; the
+// device layouts (dense int8, sparse index + code) keep static shapes.
+
+namespace {
+
+struct BitCursor {
+  uint32_t* words;
+  int64_t cap_bits;
+  int64_t pos = 0;
+  bool overflow = false;
+
+  void put(uint32_t bit) {
+    if (pos >= cap_bits) {
+      overflow = true;
+      return;
+    }
+    if (bit)
+      words[pos >> 5] |= (1u << (pos & 31));
+    pos++;
+  }
+};
+
+struct BitReaderC {
+  const uint32_t* words;
+  int64_t nbits;
+  int64_t pos = 0;
+  bool fail = false;
+
+  uint32_t get() {
+    if (pos >= nbits) {
+      fail = true;
+      return 0;
+    }
+    uint32_t b = (words[pos >> 5] >> (pos & 31)) & 1u;
+    pos++;
+    return b;
+  }
+};
+
+inline int bitlen_u64(uint64_t x) {
+  int n = 0;
+  while (x) {
+    ++n;
+    x >>= 1;
+  }
+  return n;
+}
+
+// x >= 1.  N = bitlen(x); L = bitlen(N): L-1 zeros, N's L bits (MSB
+// first), then x's low N-1 bits (MSB first).
+void elias_put(BitCursor& w, uint64_t x) {
+  int n = bitlen_u64(x);
+  int l = bitlen_u64(static_cast<uint64_t>(n));
+  for (int i = 0; i < l - 1; ++i) w.put(0);
+  for (int i = l - 1; i >= 0; --i) w.put((n >> i) & 1);
+  for (int i = n - 2; i >= 0; --i) w.put((x >> i) & 1);
+}
+
+uint64_t elias_get(BitReaderC& r) {
+  int zeros = 0;
+  while (!r.fail && r.get() == 0) {
+    // valid value bit-lengths are <= 64, so L = bitlen(N) <= 7 and at
+    // most 6 leading zeros can occur; more is a forged/corrupt stream
+    if (++zeros > 6) {
+      r.fail = true;
+      return 0;
+    }
+  }
+  if (r.fail) return 0;
+  uint64_t n = 1;
+  for (int i = 0; i < zeros; ++i) n = (n << 1) | r.get();
+  if (r.fail || n > 64) {  // bound BEFORE the value loop: a crafted
+    r.fail = true;         // length must not run 2^63 iterations
+    return 0;
+  }
+  uint64_t x = 1;
+  for (uint64_t i = 1; i < n && !r.fail; ++i) x = (x << 1) | r.get();
+  return r.fail ? 0 : x;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Encode signed int8 level codes.  Returns the bit count, or -2 when
+// cap_words is too small (caller re-allocates).  out must be zeroed by the
+// caller (bits are OR-ed in).
+int64_t bps_elias_encode(const int8_t* codes, int64_t n, uint32_t* out,
+                         int64_t cap_words) {
+  BitCursor w{out, cap_words * 32};
+  int64_t last = -1;
+  for (int64_t i = 0; i < n; ++i) {
+    if (codes[i] == 0) continue;
+    elias_put(w, static_cast<uint64_t>(i - last));
+    w.put(codes[i] < 0 ? 1u : 0u);
+    int mag = codes[i] < 0 ? -static_cast<int>(codes[i])
+                           : static_cast<int>(codes[i]);
+    elias_put(w, static_cast<uint64_t>(mag));
+    last = i;
+  }
+  return w.overflow ? -2 : w.pos;
+}
+
+// Decode into a zeroed int8 buffer of n elements.  Returns 0, or -1 on a
+// malformed/truncated stream (out may be partially filled).
+int64_t bps_elias_decode(const uint32_t* words, int64_t nbits,
+                         int8_t* out, int64_t n) {
+  BitReaderC r{words, nbits};
+  int64_t pos = -1;
+  while (r.pos < nbits) {
+    uint64_t gap = elias_get(r);
+    // bound-check in unsigned space BEFORE any cast: a forged gap
+    // >= 2^63 would wrap negative as int64 and index before the buffer
+    if (r.fail || gap == 0 ||
+        gap > static_cast<uint64_t>(n - 1 - pos))
+      return -1;
+    uint32_t sign = r.get();
+    uint64_t mag = elias_get(r);
+    if (r.fail || mag == 0 || mag > 127) return -1;
+    pos += static_cast<int64_t>(gap);
+    out[pos] = static_cast<int8_t>(sign ? -static_cast<int>(mag)
+                                        : static_cast<int>(mag));
+  }
+  return 0;
+}
 
 }  // extern "C"

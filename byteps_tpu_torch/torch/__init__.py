@@ -5,7 +5,10 @@ The Horovod-style surface of the reference's byteps.torch plugin:
 ``broadcast_parameters`` / ``broadcast_optimizer_state`` and
 ``DistributedOptimizer``, whose per-parameter hooks enqueue each gradient
 the moment autograd has accumulated it, so communication overlaps the
-rest of backward.  Everything stays on the device: there is no host
+rest of backward; ``DistributedDataParallel`` and ``CrossBarrier``
+(``parallel.py``), ``HalfPrecisionDistributedOptimizer``
+(``half_precision.py``) and the ``Compression`` shim
+(``compression.py``).  Everything stays on the device: there is no host
 round trip (the JAX adapter's numpy conversion is gone).
 """
 
@@ -13,7 +16,6 @@ from __future__ import annotations
 
 import itertools
 import threading
-import weakref
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -21,13 +23,17 @@ import torch
 from ..comm.collectives import broadcast
 from ..common.handles import Handle
 from ..core import api as _api
+from .compression import Compression
+from .half_precision import HalfPrecisionDistributedOptimizer
+from .parallel import CrossBarrier, DistributedDataParallel, _remove, _weak
 
 __all__ = [
     "init", "shutdown", "rank", "size", "local_rank", "local_size",
     "declare", "push_pull", "push_pull_async", "poll", "synchronize",
     "suspend", "resume", "get_pushpull_speed",
     "BytePSPushPull", "DistributedOptimizer", "broadcast_parameters",
-    "broadcast_optimizer_state",
+    "broadcast_optimizer_state", "Compression", "DistributedDataParallel",
+    "CrossBarrier", "HalfPrecisionDistributedOptimizer",
 ]
 
 init = _api.init
@@ -160,13 +166,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
         # so a strong one would keep a dropped optimizer, and through it
         # the model, its gradients and its optimizer state, alive forever
         # (__del__ removes the hooks)
-        ref = weakref.ref(self)
-
-        def hook(p: torch.nn.Parameter) -> None:
-            opt = ref()
-            if opt is not None:
-                opt._hook(p)
-
+        hook = _weak(self, "_hook")
         for _, p in named:
             self._hooks.append(p.register_post_accumulate_grad_hook(hook))
 
@@ -202,5 +202,4 @@ class DistributedOptimizer(torch.optim.Optimizer):
         return self._inner.load_state_dict(sd)
 
     def __del__(self):
-        for h in getattr(self, "_hooks", []):
-            h.remove()
+        _remove(self.__dict__.get("_hooks", ()))

@@ -43,7 +43,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    more step runs under torch.profiler: it prints the device's busy share,
    the host ops' CPU time by thread and the onebit kernels' device time,
    and each onebit wrapper call must have been one device kernel;
-5. flash kernels: the forward, dK/dV and dQ kernels against their plain
+5. codec slice: ResNet-50 as in phase 4 (full width, seeded weights and
+   batch, NCCL at a world of one, the engine's defaults), through each
+   arm of CODEC_ARMS in turn, each on a fresh engine: DistributedOptimizer
+   with topk (k 0.01 + EF), randomk (k 0.01 + EF), dithering (16 linear
+   levels, max norm, dense), dithering_sparse (16 natural levels, l2
+   norm, sparse ratio 0.05 + EF), powersgd (rank 4 + EF) and nesterov
+   (onebit + EF + Nesterov momentum over SGD without momentum);
+   DistributedDataParallel and CrossBarrier with onebit + EF;
+   HalfPrecisionDistributedOptimizer (fp16 parameters and compute, fp32
+   masters, loss scale 1024, uncompressed); and autotune,
+   DistributedOptimizer under ``Config(compress_autotune=True)`` with no
+   compression given, which first runs until the compressor ladder has
+   locked a codec in every size bucket (at most AUTOTUNE_MAX_STEPS steps)
+   and prints the codec locked per bucket.  Each arm: 1 warm-up and 3
+   timed steps, the loss finite at every step; the onebit launch
+   counters zeroed at its start, and the onebit arms must show 2 packs,
+   3 unpacks and 1 merge per compressed chunk and step (autotune: some of
+   each, since every bucket explores onebit; the others none).  Then one
+   checked step: for fc.weight (compressed, except in half) and fc.bias
+   (an all-reduce), the gradient the inner optimizer received (a step
+   pre-hook; half: the fp32 master's, times the loss scale) must equal
+   the port's codec chain run on the CPU on the same raw gradient from
+   the states before that step: bit for bit for topk, randomk, dithering
+   with the max norm, every uncompressed gradient and half; to rtol 1e-5
+   for the onebit arms (the scale's L1 sum is taken in another order on
+   the card), whose Nesterov momentum must be bit-exact; for dithering
+   with the l2 norm (a sum of squares in another order, which can move a
+   code where it sits on a rounding threshold), at most L2_CODE_SHARE of
+   the elements more than L2_TOL of the max-abs apart; for PowerSGD
+   (cuBLAS and cuSOLVER against the CPU's BLAS and LAPACK) at most
+   PSGD_CARD_TOL of the max-abs, and a control with rank 1 in place of
+   4 must break that bound.  One more step under torch.profiler gives the
+   busy share.  Each arm prints its median step (min-max), the busy
+   share, and the bytes its compressed chunks put on the wire per step
+   (the sum of their payload_nbytes) beside their raw bytes;
+6. flash kernels: the forward, dK/dV and dQ kernels against their plain
    versions on the card (same inputs, the plain lse and delta for both
    backward kernels), f32 and bf16, at the two slice shapes and at ragged
    ones (T=100 with D=48, decode Tq=64 < Tk=256, non-causal, and a ring
@@ -73,7 +108,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    forward for the forward kernel; its forward+backward minus its
    forward, for both backward kernels together), and beside its bound at
    the GPT slice shape;
-6. llama slice and gpt slice: Llama-3-8B at full width with 4 of its 32
+7. llama slice and gpt slice: Llama-3-8B at full width with 4 of its 32
    layers (batch 2 x 4096 tokens) and GPT-small (batch 1 x 8192 tokens),
    bf16 compute over f32 parameters, attention through ``flash_attention``,
    SGD(momentum=0.9), in three arms on the same weights and batch from
@@ -186,6 +221,40 @@ UNGROUPED_ENGINE = {"group_size": 1, "autotune": False, "use_native": False}
 # the Llama slice's peak memory before chunk groups and the planner
 # (PERF.md, section 6)
 EARLIER_LLAMA_PEAK_GIB = 42.54
+# the codec slice: (arm, wrapper, SGD momentum, compression kwargs)
+CODEC_ARMS = (
+    ("topk", "optimizer", 0.9,
+     {"compressor": "topk", "k": "0.01", "ef": "vanilla"}),
+    ("randomk", "optimizer", 0.9,
+     {"compressor": "randomk", "k": "0.01", "ef": "vanilla"}),
+    ("dithering", "optimizer", 0.9,
+     {"compressor": "dithering", "k": "16", "partition": "linear",
+      "normalize": "max"}),
+    ("dithering_sparse", "optimizer", 0.9,
+     {"compressor": "dithering", "k": "16", "partition": "natural",
+      "normalize": "l2", "sparse_ratio": "0.05", "ef": "vanilla"}),
+    ("powersgd", "optimizer", 0.9,
+     {"compressor": "powersgd", "rank": "4", "ef": "vanilla"}),
+    # the decorator replaces the optimizer's momentum
+    ("nesterov", "optimizer", 0.0,
+     {"compressor": "onebit", "ef": "vanilla", "momentum": "nesterov"}),
+    ("ddp", "ddp", 0.9, ONEBIT_EF),
+    ("cross_barrier", "cross_barrier", 0.9, ONEBIT_EF),
+    ("half", "half", 0.9, None),
+    ("autotune", "optimizer", 0.9, None),     # the ladder owns every tensor
+)
+AUTOTUNE_MAX_STEPS = 40          # the autotune arm's cap on steps to lock
+HALF_LOSS_SCALE = 1024.0
+# received gradients of the l2 dithering arm: an element agrees within
+# L2_TOL of the max-abs; at most L2_CODE_SHARE of them may not (see
+# check_received)
+L2_TOL = 1e-5
+L2_CODE_SHARE = 1e-3
+# PowerSGD on the card against the CPU: max |diff| over max-abs.  cuBLAS
+# and cuSOLVER sum in another order than the CPU's BLAS and LAPACK (read:
+# 7.07e-07 on fc.weight, H100 80GB HBM3 at 700 W); products in TF32, a
+# 10-bit mantissa, would be ~1e-3 off, and rank 1 in place of 4 ~0.8
+PSGD_CARD_TOL = 1e-5
 
 
 def log(msg):
@@ -647,18 +716,11 @@ def slice_phase(torch, bps, ok, api, registry, resnet, chunks):
           "fc.bias gradient differs from the plain path's")
     # compressed parameter: the same codec chain, plain versions on the CPU
     ctx = eng.registry.get("torch.grad.fc.weight")
-    g = raw["fc.weight"].cpu().reshape(-1)
-    ref = []
-    for (off, ln), (ws, ss) in zip(ctx.chunk_bounds, snap):
-        wc = registry.create(ONEBIT_EF, ln)
-        sc = registry.create(ONEBIT_EF, ln, for_server=True)
-        p, _ = wc.compress(g[off:off + ln], ws)
-        y = wc.decompress_sum({k: v[None] for k, v in p.items()})
-        p2, _ = sc.compress(y, ss)
-        ref.append(sc.decompress(p2))
-    got = model.fc.weight.grad.cpu().reshape(-1)
+    want, _ = codec_reference(torch, registry, ONEBIT_EF, ctx,
+                              raw["fc.weight"], snap)
     # rtol: the scale's L1 sum is taken in another order on the card
-    torch.testing.assert_close(got, torch.cat(ref), rtol=1e-5, atol=0)
+    torch.testing.assert_close(model.fc.weight.grad.cpu(), want, rtol=1e-5,
+                               atol=0)
     log(f"slice: fc.weight ({len(ctx.chunk_bounds)} compressed chunks) and "
         f"fc.bias gradients equal the plain path's")
 
@@ -682,6 +744,336 @@ def slice_phase(torch, bps, ok, api, registry, resnet, chunks):
           f"{dev_ms}: each call must be one device kernel")
     bps.shutdown()
     return launches, step_ms
+
+
+# ----------------------------------------------------------- codec slice
+
+def codec_reference(torch, registry, kw, ctx, raw, snap):
+    """The compressed push_pull of ``raw`` at one rank, run chunk by chunk
+    by the port's codec chain on the CPU from the states ``snap``
+    (``comm/compressed.py`` without the all-gather): (result, the
+    worker's new states)."""
+    g = raw.detach().cpu().reshape(-1)
+    outs, states = [], []
+    for (off, ln), (ws, ss) in zip(ctx.chunk_bounds, snap):
+        wc = registry.create(kw, ln, ctx.dtype)
+        sc = registry.create(kw, ln, ctx.dtype, for_server=True)
+        p, ws = wc.compress(g[off:off + ln], ws)
+        y = wc.decompress_sum({k: v[None] for k, v in p.items()}).float()
+        if wc.bidirectional:
+            p2, _ = sc.compress(y, ss)
+            y = sc.decompress(p2).float()
+        outs.append(y.to(ctx.dtype))
+        states.append(ws)
+    return torch.cat(outs).reshape(raw.shape), states
+
+
+def max_share(got, want):
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def off_share(got, want, tol=L2_TOL):
+    """The share of elements farther than ``tol`` x max |want| apart."""
+    return float(((got - want).abs() > tol * want.abs().max()).float()
+                 .mean())
+
+
+def check_received(torch, registry, arm, name, kw, ctx, raw, got, snap,
+                   slots):
+    """The gradient the optimizer received for ``name`` against the
+    port's codec chain on the CPU on the same raw gradient; returns what
+    was compared, for the log."""
+    if ctx.compressor is None:              # an all-reduce over one rank
+        check(same_bits(got.float(), raw.cpu().float()),
+              f"codec {arm}: {name} (uncompressed) differs from its raw "
+              f"gradient")
+        return "bit-exact (uncompressed)"
+    want, states = codec_reference(torch, registry, kw, ctx, raw, snap)
+    codec = kw["compressor"]
+    if codec in ("topk", "randomk") or (
+            codec == "dithering" and kw.get("normalize", "max") == "max"):
+        check(same_bits(got, want), f"codec {arm}: {name} differs from the "
+              f"codec chain on the CPU (max share {max_share(got, want)})")
+        return f"bit-exact ({codec})"
+    if codec == "onebit":
+        # the scale's L1 sum is taken in another order on the card
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        if kw.get("momentum") == "nesterov":
+            for slot, ws in zip(slots, states):
+                check(same_bits(slot.wstate["momentum"].cpu(),
+                                ws["momentum"]),
+                      f"codec {arm}: {name}'s momentum differs from the "
+                      f"CPU's")
+            return "rtol 1e-5 (onebit scale), momentum bit-exact"
+        return "rtol 1e-5 (onebit scale)"
+    if codec == "dithering":
+        share = off_share(got, want)
+        check(share <= L2_CODE_SHARE,
+              f"codec {arm}: {name}: {share:.2e} of the elements farther "
+              f"than {L2_TOL:g} of the max-abs from the CPU's")
+        return (f"{share:.2e} of elements off by > {L2_TOL:g} x max-abs "
+                f"(limit {L2_CODE_SHARE:g}), max share "
+                f"{max_share(got, want):.2e}")
+    if codec == "powersgd":
+        err = max_share(got, want)
+        # the control: rank 1 in place of the configured rank, from the
+        # first column of the same warm start
+        ckw = dict(kw, rank="1")
+        csnap = [({"error": ws["error"], "inner": {"q": ws["inner"]["q"]
+                                                   [:, :1]}}, ss)
+                 for ws, ss in snap]
+        control, _ = codec_reference(torch, registry, ckw, ctx, raw, csnap)
+        cerr = max_share(control, want)
+        check(err <= PSGD_CARD_TOL,
+              f"codec {arm}: {name} {err:.2e} of the max-abs from the CPU's "
+              f"(limit {PSGD_CARD_TOL:g})")
+        check(cerr > PSGD_CARD_TOL,
+              f"codec {arm}: the rank-1 control is within {PSGD_CARD_TOL:g} "
+              f"({cerr:.2e}): the check cannot see a wrong rank")
+        return (f"{err:.2e} of the max-abs (limit {PSGD_CARD_TOL:g}; rank-1 "
+                f"control {cerr:.2e})")
+    raise RuntimeError(f"chip_smoke: no check for codec {codec}")
+
+
+def codec_slice_phase(torch, bps, ok, api, registry, resnet, Config):
+    """Train ResNet-50 at full width through each arm of CODEC_ARMS;
+    returns {arm: results}."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    init = resnet.resnet50(num_classes=CLASSES, generator=gen).state_dict()
+    batch = resnet.synthetic_images(gen, BATCH, IMAGE, CLASSES, "cpu")
+    out = {}
+    for arm, wrapper, momentum, kw in CODEC_ARMS:
+        t0 = time.perf_counter()
+        out[arm] = codec_arm(torch, bps, ok, api, registry, resnet, Config,
+                             arm, wrapper, momentum, kw, init, batch)
+        log(f"codec {arm}: arm took {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    log("codec slice: arm, median step ms (min-max), busy, wire/raw bytes "
+        "per step: " + "; ".join(
+            f"{a} {r['median_ms']:.2f} ({r['min_ms']:.2f}-{r['max_ms']:.2f})"
+            f" {r['busy']:.1%} {r['wire']}/{r['raw']}"
+            for a, r in out.items()))
+    return out
+
+
+def codec_arm(torch, bps, ok, api, registry, resnet, Config, arm, wrapper,
+              momentum, kw, init, batch):
+    t_arm = time.perf_counter()
+    bps.init(Config(compress_autotune=True) if arm == "autotune" else None)
+    try:
+        return _codec_arm(torch, bps, ok, api, registry, resnet, arm,
+                          wrapper, momentum, kw, init, batch, t_arm)
+    finally:
+        bps.shutdown()
+
+
+def _codec_arm(torch, bps, ok, api, registry, resnet, arm, wrapper,
+               momentum, kw, init, batch, t_arm):
+    check(bps.size() == 1, f"world of {bps.size()}, expected 1")
+    dev = api.device()
+    check(dev.type == "cuda", f"codec {arm} runs on {dev}")
+    half = wrapper == "half"
+    with torch.device("meta"):
+        model = resnet.resnet50(num_classes=CLASSES, compute_dtype=(
+            torch.float16 if half else torch.bfloat16))
+    model = model.to_empty(device=dev)
+    model.load_state_dict(init)
+    if half:
+        model.half()
+    images, labels = batch["images"].to(dev), batch["labels"].to(dev)
+    ce = torch.nn.functional.cross_entropy
+
+    # the raw gradients (hooks registered before the wrapper's, so they
+    # fire first) and the gradients the optimizer receives (a step
+    # pre-hook of the inner optimizer)
+    watch = {"fc.weight": model.fc.weight, "fc.bias": model.fc.bias}
+    raw, received = {}, {}
+    for name, p in watch.items():
+        p.register_post_accumulate_grad_hook(
+            lambda p, name=name: raw.__setitem__(name, p.grad.clone()))
+    target = dict(watch)
+    if wrapper == "half":
+        p16 = [p for p in model.parameters() if p.requires_grad]
+        p32 = [p.detach().float().requires_grad_() for p in p16]
+        inner = torch.optim.SGD(p32, lr=0.1, momentum=momentum)
+        for name, p in watch.items():
+            target[name] = next(m for q, m in zip(p16, p32) if q is p)
+        opt = bps.HalfPrecisionDistributedOptimizer(
+            inner, fp16_params=p16, fp32_params=p32,
+            loss_scale=HALF_LOSS_SCALE,
+            named_parameters=model.named_parameters(), compression=kw)
+        prefix = "Gradient."
+
+        def step():
+            opt.zero_grad()
+            loss = ce(model(images).float(), labels)
+            opt.scale_loss(loss).backward()
+            opt.step()
+            return loss
+    else:
+        inner = torch.optim.SGD(model.parameters(), lr=0.1,
+                                momentum=momentum)
+    if wrapper == "optimizer":
+        opt = bps.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters(),
+            compression=kw)
+        prefix = "torch.grad."
+
+        def step():
+            opt.zero_grad()
+            loss = ce(model(images), labels)
+            loss.backward()
+            opt.step()
+            return loss
+    elif wrapper == "ddp":
+        ddp = bps.DistributedDataParallel(model, compression=kw)
+        prefix = "ddp.grad."
+
+        def step():
+            inner.zero_grad()
+            loss = ce(ddp(images), labels)
+            loss.backward()
+            inner.step()
+            return loss
+    elif wrapper == "cross_barrier":
+        xb = bps.CrossBarrier(model, inner, compression=kw)
+        prefix = "xb.grad."
+
+        def step():
+            # the forward's pre-hooks apply the last step's updates
+            loss = ce(model(images), labels)
+            loss.backward()
+            xb.step()
+            return loss
+
+    def record(optimizer, args, kwargs):
+        for name, p in target.items():
+            if p.grad is not None:
+                received[name] = p.grad.detach().clone()
+
+    inner.register_step_pre_hook(record)
+
+    def settle():
+        if wrapper == "cross_barrier":
+            xb.synchronize()
+        torch.cuda.synchronize()
+
+    eng = api.engine()
+    secs = {"set-up": time.perf_counter() - t_arm}
+    ok.reset_launches()
+    t0 = t_steps = time.perf_counter()
+    loss = step()
+    settle()
+    check(bool(torch.isfinite(loss)), f"codec {arm}: loss {loss.item()} at "
+          f"the warm-up step")
+    log(f"codec {arm}: warm-up step {(time.perf_counter() - t0) * 1e3:.1f} "
+        f"ms, loss {loss.item():.4f}")
+    steps = 1
+    ctxs = [eng.registry.get(n) for n in
+            eng.registry.names_in_declaration_order()]
+    ctxs = [c for c in ctxs if c is not None and c.initialized]
+    if arm == "autotune":
+        # until every size bucket of a compressible tensor locks a codec
+        while not all(eng.planner.locked(c.nbytes)
+                      and eng.planner.compress_locked(c.nbytes)
+                      for c in ctxs):
+            check(steps < AUTOTUNE_MAX_STEPS,
+                  f"codec autotune: buckets not locked after {steps} steps: "
+                  f"{eng.planner.snapshot()['compression']['buckets']}")
+            loss = step()
+            steps += 1
+            check(bool(torch.isfinite(loss)),
+                  f"codec autotune: loss {loss.item()} at step {steps}")
+        torch.cuda.synchronize()
+        snap = eng.planner.snapshot()["compression"]["buckets"]
+        locked = {int(b): s["locked_codec"] for b, s in snap.items()}
+        log(f"codec autotune: every bucket locked after {steps} steps; "
+            f"locked codec per bucket (nbytes < 2**b): "
+            + ", ".join(f"2**{b} {c}" for b, c in sorted(locked.items()))
+            + "; golden errors " + str(next(iter(snap.values()))
+                                       ["golden_error"] if snap else {}))
+    step_ms = []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(loss)),
+              f"codec {arm}: loss {loss.item()} at timed step {i}")
+    steps += TIMED_STEPS
+    settle()
+    launches = dict(ok.launches)
+    comp = [c for c in ctxs if c.compressor]
+    n_chunks = sum(len(c.chunk_bounds) for c in comp)
+    wire = sum(s.worker.payload_nbytes() for c in comp for s in c.compressor)
+    raw_bytes = sum(c.nbytes for c in comp)
+    onebit = kw is not None and kw.get("compressor") == "onebit"
+    if onebit:
+        want = {"onebit_pack": 2 * n_chunks * steps,
+                "onebit_unpack": 3 * n_chunks * steps,
+                "onebit_unpack_sum": n_chunks * steps}
+        check(launches == want, f"codec {arm}: onebit launches {launches}, "
+              f"expected {want}")
+    elif arm == "autotune":
+        check(all(v > 0 for v in launches.values()),
+              f"codec autotune: the ladder explored onebit, but the launches "
+              f"are {launches}")
+    else:
+        check(not any(launches.values()),
+              f"codec {arm}: onebit launches {launches} without onebit")
+
+    secs["steps"] = time.perf_counter() - t_steps
+    t0 = time.perf_counter()
+    # one more step, checked: each watched gradient the optimizer received
+    # against the port's codec chain on the CPU on the same raw gradient
+    raw.clear()
+    received.clear()
+    names = {n: eng.registry.get(prefix + n) for n in watch}
+    snaps = {n: [(_cpu(s.wstate), _cpu(s.sstate)) for s in c.compressor]
+             if c.compressor else None for n, c in names.items()}
+    slots = {n: c.compressor for n, c in names.items()}
+    loss = step()
+    settle()
+    check(bool(torch.isfinite(loss)), f"codec {arm}: loss {loss.item()} at "
+          f"the checked step")
+    how = {}
+    for name, ctx in names.items():
+        got = received[name].cpu()
+        r = raw[name]
+        if half:        # the master gradient: the fp16 one, unscaled
+            got = got * HALF_LOSS_SCALE
+            check(received[name].dtype == torch.float32,
+                  f"codec half: the master gradient is "
+                  f"{received[name].dtype}")
+            r = r.float()
+        how[name] = check_received(torch, registry, arm, name,
+                                   ctx.compression_kwargs or None, ctx, r,
+                                   got.reshape(r.shape), snaps[name],
+                                   slots[name])
+    secs["check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    busy_ms, wall_ms, _, _ = profiled_step(
+        torch, lambda: (step(), settle()), by_thread=False)
+    secs["profile"] = time.perf_counter() - t0
+    check(busy_ms > 0, f"codec {arm}: the profiled step shows no device "
+          f"work")
+    med = statistics.median(step_ms)
+    codec = {n: (c.compression_kwargs or {}).get("compressor", "none")
+             for n, c in names.items()}
+    log(f"codec {arm}: steps {[round(t, 2) for t in step_ms]} ms, median "
+        f"{med:.2f} ms; a profiled step {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); {len(comp)} of "
+        f"{len(ctxs)} tensors "
+        f"compressed in {n_chunks} chunks, wire {wire} B per step against "
+        f"{raw_bytes} B raw ({wire / max(raw_bytes, 1):.4f}); onebit "
+        f"launches {launches} over {steps} steps; received gradients "
+        f"(codec {codec}): {how}; seconds {_fmt(secs)}")
+    return {"median_ms": med, "min_ms": min(step_ms), "max_ms": max(step_ms),
+            "busy": busy_ms / wall_ms, "wire": wire, "raw": raw_bytes}
 
 
 def flash_kernel_phase(torch, fa):
@@ -1160,14 +1552,16 @@ def _union_us(spans):
     return busy
 
 
-def profiled_step(torch, step, threads=None):
+def profiled_step(torch, step, threads=None, by_thread=True):
     """(device-busy ms, host ms, device events, host ms by thread) of one
     ``step`` under torch.profiler: the union of the intervals of the
     kernels and copies on the card (user annotations left out), the host
     clock around the step, those kernels and copies as (name, ms), and
     for each thread the union of its host events' intervals, which is
     their self CPU time summed (events nest), labelled by ``threads``
-    ({OS thread id: label}) or the thread's name."""
+    ({OS thread id: label}) or the thread's name.  ``by_thread=False``
+    skips the split by thread (a chrome trace exported and read back),
+    and the last item is then empty."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -1175,8 +1569,13 @@ def profiled_step(torch, step, threads=None):
         every_thread = _ExperimentalConfig(profile_all_threads=True)
     except (ImportError, TypeError):
         every_thread = None       # then only the profiling thread is seen
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 experimental_config=every_thread) as prof:
+    # without the split by thread only the card's activity is traced:
+    # thousands of host ops a ResNet step cost seconds to read back
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if by_thread
+                  else [ProfilerActivity.CUDA])
+    with profile(activities=activities,
+                 experimental_config=every_thread if by_thread else None
+                 ) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -1186,6 +1585,10 @@ def profiled_step(torch, step, threads=None):
               and not getattr(e, "is_user_annotation", False)]
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in events)
+    dev_events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                  for e in events]
+    if not by_thread:
+        return busy_us / 1e3, wall_ms, dev_events, {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -1202,9 +1605,7 @@ def profiled_step(torch, step, threads=None):
         host_ms[_thread_name(tid, threads or {})] += _union_us(sp) / 1e3
     if every_thread is None:
         host_ms["(other threads not recorded)"] = 0.0
-    return busy_us / 1e3, wall_ms, [
-        (e.name, (e.time_range.end - e.time_range.start) / 1e3)
-        for e in events], dict(host_ms)
+    return busy_us / 1e3, wall_ms, dev_events, dict(host_ms)
 
 
 def onebit_device_ms(events):
@@ -1251,6 +1652,8 @@ def main():
     chunks = resnet_chunks(torch, resnet, config, chunk_bounds)
     rows = kernel_phase(torch, ok, chunk_numel, chunks)
     launches, _ = slice_phase(torch, bps, ok, api, registry, resnet, chunks)
+    torch.cuda.empty_cache()
+    codec_slice_phase(torch, bps, ok, api, registry, resnet, Config)
     torch.cuda.empty_cache()
     flash_rows, shape_ms = flash_kernel_phase(torch, fa)
     flash_launches = {k: 0 for k in FLASH_KERNELS}

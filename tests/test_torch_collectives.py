@@ -7,13 +7,19 @@ two nodes of one (its cross-node all-reduce), and two nodes of two (both
 levels, on separate process groups).  Rank r contributes row r of seeded
 numpy arrays (tests/torch_collectives_worker.py).
 
+Every codec of the registry (and Nesterov momentum) goes through the
+compressed push_pull; its gathered payload leaves, which cross the wire
+as bytes, are compared leaf by leaf with the JAX codec's.
+
 Tolerances: all-reduces are exact (the inputs are chosen so that every
 f32 sum is exact in any order, and the port accumulates f16/bf16 in f32
-as the reference does); onebit words are bit-exact; the first-level
-scales to rtol 1e-6, because an L1 sum is taken in another order; values
+as the reference does); payload leaves are bit-exact except the sums
+taken in another order: onebit's first-level scales and dithering's L2
+norms to rtol 1e-6, PowerSGD's P and Q to 1e-5 of their max-abs; values
 after the server's re-compression to rtol 1e-5, because XLA's CPU
 reduction of the padded (32, L) merged chunk is itself off by up to
-~3e-6 of an f64 sum at 5000 elements (the port's torch sum by ~1e-7).
+~3e-6 of an f64 sum at 5000 elements (the port's torch sum by ~1e-7),
+and PowerSGD's merged sum to 1e-5 of its max-abs.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -82,7 +88,9 @@ def test_broadcast(results, layout):
 
 def _jax_codec_run(R, kw, numel, steps_rows):
     """The JAX codec calls: compress each rank's row -> stack ->
-    decompress_sum -> compress -> decompress, state threaded over steps."""
+    decompress_sum -> (a bidirectional codec) compress -> decompress,
+    state threaded over steps.  Per step: the gathered payload leaves in
+    the payload's key order, and the result."""
     workers = [jax_create(dict(kw), numel) for _ in range(R)]
     server = jax_create(dict(kw), numel, for_server=True)
     wst = [w.init_state() for w in workers]
@@ -96,11 +104,31 @@ def _jax_codec_run(R, kw, numel, steps_rows):
         gathered = {k: jnp.stack([p[k] for p in payloads])
                     for k in payloads[0]}
         y = workers[0].decompress_sum(gathered).astype(jnp.float32)
-        p2, sst = server.compress(y, sst)
-        outs.append((np.asarray(gathered["words"]),
-                     np.asarray(gathered["scale"]),
-                     np.asarray(server.decompress(p2))))
+        if server.bidirectional:
+            p2, sst = server.compress(y, sst)
+            y = server.decompress(p2)
+        outs.append(([(k, np.asarray(v)) for k, v in gathered.items()],
+                     np.asarray(y)))
     return outs
+
+
+# leaves that are sums taken in another order: onebit's L1 scale and
+# dithering's L2 norm to rtol 1e-6; every other leaf is bit-exact, but
+# PowerSGD's P and Q (products and a QR of BLAS/LAPACK against XLA),
+# held, like its result, to PSGD_TOL of their max-abs
+LEAF_RTOL = {"scale": 1e-6, "norm": 1e-6}
+PSGD_TOL = 1e-5
+
+
+def _close_to_max(got, want, tol, what):
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= tol, f"{what}: {err} of the max-abs"
+
+
+def _as_jax_dtype(got, want):
+    if want.dtype in (np.uint16, np.uint32):
+        return got.view(want.dtype)
+    return got
 
 
 @pytest.mark.parametrize("codec", list(W.CODECS))
@@ -112,13 +140,24 @@ def test_compressed_push_pull_matches_jax_codec(results, layout, codec):
     ref = _jax_codec_run(R, W.CODECS[codec], W.CODEC_NUMEL, steps)
     for rank in range(R):
         res = results[layout][rank]
-        for s, (words, scales, out) in enumerate(ref):
-            got_w = res[f"codec/{codec}/{s}/words"].view(np.uint32)
-            np.testing.assert_array_equal(got_w, words)
-            np.testing.assert_allclose(res[f"codec/{codec}/{s}/scales"],
-                                       scales, rtol=1e-6)
-            np.testing.assert_allclose(res[f"codec/{codec}/{s}/out"], out,
-                                       rtol=1e-5)
+        for s, (leaves, out) in enumerate(ref):
+            assert f"codec/{codec}/{s}/g{len(leaves)}" not in res
+            for i, (name, want) in enumerate(leaves):
+                got = _as_jax_dtype(res[f"codec/{codec}/{s}/g{i}"], want)
+                assert got.shape == want.shape, name
+                if codec == "powersgd":
+                    _close_to_max(got, want, PSGD_TOL, name)
+                elif name in LEAF_RTOL:
+                    np.testing.assert_allclose(got, want,
+                                               rtol=LEAF_RTOL[name],
+                                               err_msg=name)
+                else:
+                    np.testing.assert_array_equal(got, want, err_msg=name)
+            got = res[f"codec/{codec}/{s}/out"]
+            if codec == "powersgd":
+                _close_to_max(got, out, PSGD_TOL, "out")
+            else:
+                np.testing.assert_allclose(got, out, rtol=1e-5)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -135,7 +174,7 @@ def test_engine_push_pull(results, layout):
                                          for x in a_steps])
                  for off, ln in bounds]
     for s in range(2):
-        a_ref.append(np.concatenate([c[s][2] for c in per_chunk]) / R)
+        a_ref.append(np.concatenate([c[s][1] for c in per_chunk]) / R)
     for rank in range(R):
         res = results[layout][rank]
         np.testing.assert_array_equal(res["engine/chunks"], [3, 3, 1])

@@ -601,3 +601,205 @@ def test_flash_wrappers_count_and_reject(card):
         with pytest.raises(ValueError, match="kv_len"):
             fa.flash_fwd(x, x, x, 0.125, False, 0, kv_len)
     assert fa.launches["flash_fwd"] == 1
+
+
+# ------------------------------------------------ codecs and the wrappers
+
+CARD_CODECS = {
+    "topk": {"compressor": "topk", "k": "0.01", "ef": "vanilla"},
+    "randomk": {"compressor": "randomk", "k": "0.01", "ef": "vanilla"},
+    "dithering": {"compressor": "dithering", "k": "16"},
+    "dithering_sparse_u16": {"compressor": "dithering", "k": "16",
+                             "sparse_ratio": "0.05", "ef": "vanilla"},
+    "dithering_l2": {"compressor": "dithering", "k": "16",
+                     "partition": "natural", "normalize": "l2",
+                     "sparse_ratio": "0.05", "ef": "vanilla"},
+    "powersgd": {"compressor": "powersgd", "rank": "4", "ef": "vanilla"},
+    "nesterov": {"compressor": "onebit", "ef": "vanilla",
+                 "momentum": "nesterov"},
+}
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _to(device, tree):
+    return {k: _to(device, v) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("numel", [60000, 1024000])
+@pytest.mark.parametrize("codec", list(CARD_CODECS))
+def test_codecs_on_card_match_cpu(card, codec, numel):
+    """Each codec on the card against the same codec on the CPU, three
+    steps, each from the CPU's state of the step before: payload, new
+    state and decompression bit for bit, except the sums taken in
+    another order, held to chip_smoke's tolerances (onebit's scale rtol
+    1e-6; the l2 norm rtol 1e-6 and at most L2_CODE_SHARE of the codes
+    and residuals off; PowerSGD PSGD_CARD_TOL of the max-abs)."""
+    from byteps_tpu_torch.compression import registry
+    from chip_smoke import L2_CODE_SHARE, PSGD_CARD_TOL, max_share, off_share
+
+    kw = CARD_CODECS[codec]
+    c = registry.create(kw, numel)
+    sc = c.init_state("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for step in range(3):
+        x = _x(numel, 40 + step, "cpu")
+        x[3] = 0.25
+        pg, sg = c.compress(x.to(card), _to(card, sc))
+        pc, sc = c.compress(x, sc)
+        dg, dc = c.decompress(pg).cpu(), c.decompress(pc)
+        leaves = {**{f"p/{k}": (v, pc[k]) for k, v in pg.items()},
+                  **{f"s/{k}": (v, _leaves(sc)[k])
+                     for k, v in _leaves(sg).items()}}
+        for k, (g, want) in leaves.items():
+            g = g.cpu()
+            assert g.dtype == want.dtype and g.shape == want.shape, k
+            if codec == "powersgd":
+                assert max_share(g, want) <= PSGD_CARD_TOL, k
+            elif k in ("p/scale", "p/norm"):
+                torch.testing.assert_close(g, want, rtol=1e-6, atol=0)
+            elif codec == "nesterov" and k == "s/inner/error":
+                torch.testing.assert_close(g, want, rtol=1e-6, atol=1e-6)
+            elif codec == "dithering_l2" and k == "s/error":
+                assert off_share(g, want) <= L2_CODE_SHARE, k
+            elif codec == "dithering_l2" and k in ("p/codes", "p/idx"):
+                assert (g != want).float().mean() <= L2_CODE_SHARE, k
+            else:
+                assert torch.equal(g, want), k
+        if codec in ("topk", "randomk", "dithering",
+                     "dithering_sparse_u16"):
+            assert same_bits(dg, dc)
+        if codec == "dithering_sparse_u16" and numel <= 0xFFFF:
+            assert pg["idx"].dtype == torch.int16
+
+
+def test_dithering_sparse_payload_gathers_over_nccl(card):
+    """uint16 indices (held as int16) cross NCCL as bytes: the compressed
+    push_pull of a 60,000-element chunk equals the codec chain on the
+    CPU."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm import compressed
+    from byteps_tpu_torch.compression import registry
+    from byteps_tpu_torch.core import api
+
+    kw = CARD_CODECS["dithering_sparse_u16"]
+    bps.init()
+    try:
+        comm = api.engine().comm
+        wc = registry.create(kw, 60000)
+        sc = registry.create(kw, 60000, for_server=True)
+        x = _x(60000, 8, "cpu")
+        x[3] = 1.0
+        p, _ = wc.compress(x.to(card), wc.init_state(card))
+        g = compressed._all_gather(comm, p["idx"])
+        assert g.dtype == torch.int16 and g.shape == (1,) + p["idx"].shape
+        assert torch.equal(g[0], p["idx"])
+        n = compressed._all_gather(comm, p["norm"])
+        assert n.shape == (1,) and same_bits(n[0:1], p["norm"].reshape(1))
+        out, _, _ = compressed.fused_compressed_push_pull(
+            comm, x.to(card), wc, sc, wc.init_state(card),
+            sc.init_state(card))
+        ps, _ = wc.compress(x, wc.init_state("cpu"))
+        y = wc.decompress_sum({k: v[None] for k, v in ps.items()})
+        p2, _ = sc.compress(y, sc.init_state("cpu"))
+        assert same_bits(out.cpu(), sc.decompress(p2))
+    finally:
+        bps.shutdown()
+
+
+def _mlp(card):
+    torch.manual_seed(3)
+    return torch.nn.Sequential(torch.nn.Linear(256, 512), torch.nn.ReLU(),
+                               torch.nn.Linear(512, 10)).to(card)
+
+
+@pytest.mark.parametrize("wrapper", ["optimizer", "ddp", "cross_barrier",
+                                     "half", "autotune"])
+def test_wrappers_at_a_world_of_one_on_card(card, wrapper):
+    """Each wrapper over NCCL at a world of one, uncompressed: two steps
+    end at the parameters of plain SGD on the card, bit for bit (the
+    all-reduce over one rank is the identity).  The autotune arm lets the
+    ladder own the tensors: its losses must stay finite."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.config import Config
+
+    x = torch.randn(16, 256, generator=torch.Generator().manual_seed(1))
+    y = torch.arange(16) % 10
+    x, y = x.to(card), y.to(card)
+    half = wrapper == "half"
+    ref = _mlp(card)
+    model = _mlp(card)
+    if half:
+        ref.half()
+        model.half()
+        x = x.half()
+    ref_masters = [p.detach().float().requires_grad_()
+                   for p in ref.parameters()]
+    ref_opt = torch.optim.SGD(ref_masters if half else ref.parameters(),
+                              lr=0.1, momentum=0.9)
+    ce = torch.nn.functional.cross_entropy
+    for _ in range(2):
+        ref_opt.zero_grad()
+        (ce(ref(x).float(), y) * (1024.0 if half else 1.0)).backward()
+        if half:
+            for p, m in zip(ref.parameters(), ref_masters):
+                m.grad = p.grad.float().mul_(1.0 / 1024.0)
+                p.grad = None
+        ref_opt.step()
+        if half:
+            with torch.no_grad():
+                for p, m in zip(ref.parameters(), ref_masters):
+                    p.copy_(m.to(p.dtype))
+    bps.init(Config(compress_autotune=True, min_compress_bytes=4096)
+             if wrapper == "autotune" else None)
+    try:
+        if half:
+            masters = [p.detach().float().requires_grad_()
+                       for p in model.parameters()]
+            opt = bps.HalfPrecisionDistributedOptimizer(
+                torch.optim.SGD(masters, lr=0.1, momentum=0.9),
+                fp16_params=list(model.parameters()), fp32_params=masters)
+        inner = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        if wrapper in ("optimizer", "autotune"):
+            opt = bps.DistributedOptimizer(
+                inner, named_parameters=model.named_parameters())
+        elif wrapper == "ddp":
+            fwd = bps.DistributedDataParallel(model)
+        elif wrapper == "cross_barrier":
+            xb = bps.CrossBarrier(model, inner)
+        for _ in range(2 if wrapper != "autotune" else 24):
+            if wrapper == "ddp":
+                inner.zero_grad()
+                ce(fwd(x), y).backward()
+                inner.step()
+            elif wrapper == "cross_barrier":
+                ce(model(x), y).backward()
+                xb.step()
+            elif half:
+                opt.zero_grad()
+                opt.scale_loss(ce(model(x).float(), y)).backward()
+                opt.step()
+            else:
+                opt.zero_grad()
+                loss = ce(model(x), y)
+                assert torch.isfinite(loss)
+                loss.backward()
+                opt.step()
+        if wrapper == "cross_barrier":
+            xb.synchronize()
+        torch.cuda.synchronize()
+    finally:
+        bps.shutdown()
+    if wrapper == "autotune":
+        return
+    for p, q in zip(model.parameters(), ref.parameters()):
+        assert torch.equal(p, q)

@@ -206,13 +206,15 @@ def test_wire_frames_byte_identical_and_cross_decode(numel):
 
 
 def test_registry_names_what_is_registered():
-    with pytest.raises(ValueError, match=r"registered: compressors \['onebit'\]"):
-        port_registry.create({"compressor": "topk"}, 100)
+    with pytest.raises(ValueError, match=(
+            r"registered: compressors \['dithering', 'onebit', 'powersgd', "
+            r"'randomk', 'topk'\], decorators \['ef', 'momentum'\]")):
+        port_registry.create({"compressor": "nope"}, 100)
     with pytest.raises(ValueError, match="unknown ef"):
         port_registry.create({"compressor": "onebit", "ef": "vanila"}, 100)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown momentum"):
         port_registry.create({"compressor": "onebit",
-                              "momentum": "nesterov"}, 100)
+                              "momentum": "nesterovv"}, 100)
     assert port_registry.create(None, 100).name == "identity"
 
 

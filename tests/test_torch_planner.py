@@ -278,3 +278,295 @@ def test_native_library_is_keyed_by_source(tmp_path, monkeypatch):
     src.write_text(native.SOURCE.read_text() + "\n// edited\n")
     monkeypatch.setattr(native, "SOURCE", src)
     assert native.library_path() != lib
+
+
+def test_elias_coder_build_failure_raises(broken_native):
+    """The Elias-delta coder of dithering's wire frame has no quiet
+    fallback to the numpy twin either."""
+    from byteps_tpu_torch.compression import elias
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        elias.encode_wire(np.ones(8, np.int8), 1.0)
+
+
+# ------------------------------------------------------ compressor ladder
+
+LADDER_KW = {"partition_bytes": 16384, "partition_pinned": False,
+             "credit_pinned": False, "compress_autotune": True,
+             "min_compress_bytes": 4096}
+ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
+
+
+def _lock_partition(planners, nbytes):
+    for _ in range(64):
+        if all(pl.locked(nbytes) for pl in planners):
+            return
+        cand = planners[0].plan_partition(nbytes)
+        for pl in planners:
+            assert pl.plan_partition(nbytes) == cand
+            pl.observe(nbytes, cand, 0.001)
+    raise AssertionError("partition bucket never locked")
+
+
+def _codec_key(kw):
+    return (kw or {}).get("compressor", "none")
+
+
+def _same_ladder(j, p, sizes):
+    assert [p.plan_compression(n) for n in sizes] == \
+        [j.plan_compression(n) for n in sizes]
+    assert [p.compress_locked(n) for n in sizes] == \
+        [j.compress_locked(n) for n in sizes]
+    assert p.compress_active == j.compress_active
+    assert p.snapshot()["compression"] == j.snapshot()["compression"]
+
+
+@pytest.mark.parametrize("case", ["slow_wire", "ceiling", "below_cutoff",
+                                  "straddle", "multiprocess", "off",
+                                  "random"])
+def test_compress_ladder_matches_jax(case):
+    """The compressor ladder's plan, observe and lock against the JAX
+    ChunkPlanner fed the same samples: the cases of
+    tests/test_compressed_aot.py, and a seeded random sequence."""
+    kw, procs = dict(LADDER_KW), 1
+    sizes = [40_000, 4_000_000]
+    if case == "ceiling":
+        kw["compress_error_ceiling"] = 0.2      # onebit and randomk out
+    elif case == "below_cutoff":
+        kw["min_compress_bytes"] = 10**9
+    elif case == "straddle":
+        kw["min_compress_bytes"] = 100_000
+        sizes = [120_000, 80_000]               # one size bucket
+    elif case == "multiprocess":
+        procs = 2
+    elif case == "off":
+        kw["compress_autotune"] = False
+    j, p = _planners(procs, **kw)
+    _same_ladder(j, p, sizes)                   # before the chunk locks
+    for n in sizes:
+        _lock_partition((j, p), n)
+    rng = np.random.RandomState(7)
+    for step in range(24):
+        for n in sizes:
+            key = _codec_key(p.plan_compression(n))
+            assert key == _codec_key(j.plan_compression(n))
+            if case == "random":
+                secs = float(rng.uniform(1e-4, 1e-2))
+                if rng.rand() < 0.1:
+                    key = "nope"                # an earlier ladder's codec
+            elif n >= 1_000_000:
+                secs = 0.002 if key == "onebit" else 0.020
+            else:
+                secs = 0.001 if key == "none" else 0.010
+            for pl in (j, p):
+                pl.observe_compression(n, key, secs)
+        _same_ladder(j, p, sizes)
+    snap = p.snapshot()["compression"]["buckets"]
+    if case == "slow_wire":
+        assert p.plan_compression(40_000) is None
+        assert _codec_key(p.plan_compression(4_000_000)) == "onebit"
+    elif case == "ceiling":
+        assert all(set(b["golden_error"]) == {"none", "topk"}
+                   for b in snap.values())
+    elif case in ("below_cutoff", "multiprocess", "off"):
+        assert snap == {} and all(p.compress_locked(n) for n in sizes)
+    elif case == "straddle":
+        assert p.plan_compression(80_000) is None
+    assert all(p.compress_locked(n) for n in sizes)
+
+
+def test_compress_autotune_config_matches_jax(monkeypatch):
+    monkeypatch.setenv("BYTEPS_COMPRESS_AUTOTUNE", "1")
+    monkeypatch.setenv("BYTEPS_COMPRESS_ERROR_CEILING", "0.3")
+    for cfg in (jax_config.Config.from_env(), port_config.Config.from_env()):
+        assert cfg.compress_autotune is True
+        assert cfg.compress_error_ceiling == 0.3
+    assert port_config.Config().compress_autotune is False
+    assert port_config.Config().compress_error_ceiling == 0.55
+    for bad in (0.0, 1.5):
+        for cls in (jax_config.Config, port_config.Config):
+            with pytest.raises(ValueError, match="compress_error_ceiling"):
+                cls(compress_error_ceiling=bad)
+    monkeypatch.setenv("BYTEPS_COMPRESS_ERROR_CEILING", "high")
+    with pytest.raises(ValueError, match="must be a number"):
+        port_config.Config.from_env()
+
+
+@pytest.fixture
+def jax_ladder():
+    import byteps_tpu as jax_bps
+    from byteps_tpu.common.config import set_config
+    set_config(jax_config.Config(**LADDER_KW))
+    jax_bps.init()
+    from byteps_tpu.core import api as jax_api
+    yield jax_api._engine
+    jax_bps.shutdown()
+
+
+@pytest.fixture
+def port_ladder():
+    api.init(port_config.Config(**LADDER_KW), device="cpu")
+    yield api.engine()
+    api.shutdown()
+
+
+def _owner(ctx):
+    return (ctx.compression_tuned, ctx.compression_pin,
+            _codec_key(ctx.compression_kwargs))
+
+
+def _pin_sequence(push, ctx_of):
+    """Pin, re-pin and a re-pin deferred behind an in-flight push: the
+    codec owner of each tensor after every push."""
+    trace = []
+    push("pin", ONEBIT_EF)
+    trace.append(_owner(ctx_of("pin")))
+    push("pin", None)
+    trace.append(_owner(ctx_of("pin")))
+    push("repin", None)
+    trace.append(_owner(ctx_of("repin")))
+    push("repin", ONEBIT_EF)
+    trace.append(_owner(ctx_of("repin")))
+    push("repin", None)
+    trace.append(_owner(ctx_of("repin")))
+    push("defer", None)
+    ctx = ctx_of("defer")
+    with ctx.lock:
+        ctx.inflight += 1           # another push holds a claim
+    try:
+        push("defer", ONEBIT_EF)
+        trace.append(_owner(ctx))
+    finally:
+        with ctx.lock:
+            ctx.inflight -= 1
+    push("defer", None)
+    trace.append(_owner(ctx))
+    return trace
+
+
+def test_engine_pin_and_repin_match_jax(jax_ladder):
+    """Codec ownership in the engine: decided at the first push, explicit
+    kwargs re-pin a ladder-owned tensor, and a re-pin behind an in-flight
+    push is applied at the next idle push, as in the JAX engine."""
+    n = 40_000
+    x = np.random.RandomState(1).randn(n).astype(np.float32)
+    stacked = np.ascontiguousarray(
+        np.broadcast_to(x[None], (jax_ladder.comm.num_ranks, n)))
+
+    def jax_push(name, kw):
+        jax_ladder.push_pull_async(stacked, name, op="sum", out_shape=(n,),
+                                   compression=kw).wait()
+
+    want = _pin_sequence(jax_push, jax_ladder.registry.get)
+    import byteps_tpu as jax_bps
+    jax_bps.shutdown()
+    api.init(port_config.Config(**LADDER_KW), device="cpu")
+    try:
+        eng = api.engine()
+        got = _pin_sequence(
+            lambda name, kw: api.push_pull(torch.from_numpy(x), name,
+                                           op="sum", compression=kw),
+            eng.registry.get)
+    finally:
+        api.shutdown()
+    assert got == want
+    assert want[3] == (False, None, "onebit")
+    assert want[5] == (False, ONEBIT_EF, "none")    # deferred, not lost
+
+
+def test_engine_ladder_explores_retunes_and_charges_the_codec_run(
+        port_ladder, monkeypatch):
+    """A bare tensor under the ladder: every rung is explored, each retune
+    happens between pushes with fresh compressor state, each sample is
+    charged to the codec its push ran under, and once the bucket locks
+    every push carries the locked codec."""
+    eng = port_ladder
+    n = 40_000
+    nbytes = n * 4
+    charged = []
+    real = eng.planner.observe_compression
+    monkeypatch.setattr(
+        eng.planner, "observe_compression",
+        lambda nb, codec, s: (charged.append(codec), real(nb, codec, s)))
+    rng = np.random.RandomState(0)
+    ran = []
+    for _ in range(80):
+        x = torch.from_numpy(rng.randn(n).astype(np.float32))
+        before = len(charged)
+        ctx0 = eng.registry.get("tune/w")
+        slots0 = ctx0.compressor if ctx0 is not None else None
+        api.push_pull(x, "tune/w")
+        ctx = eng.registry.get("tune/w")
+        codec = _codec_key(ctx.compression_kwargs)
+        ran.append(codec)
+        if len(charged) > before:
+            assert charged[-1] == codec
+        if ctx.compressor is not None and ctx.compressor is not slots0:
+            # slots built for this push start from fresh state: the first
+            # chunk's residual is this push's alone
+            slot = ctx.compressor[0]
+            x0 = x[:ctx.chunk_bounds[0][1]]
+            p0, _ = slot.worker.compress(x0, slot.worker.init_state("cpu"))
+            assert torch.equal(slot.wstate["error"],
+                               x0 - slot.worker.decompress(p0))
+        if eng.planner.locked(nbytes) and eng.planner.compress_locked(nbytes):
+            break
+    assert eng.planner.compress_locked(nbytes)
+    snap = eng.planner.snapshot()["compression"]["buckets"][
+        str(nbytes.bit_length())]
+    assert set(snap["explored"]) == {k for k, _ in
+                                     port_scheduler.COMPRESS_LADDER}
+    assert set(ran) == set(snap["explored"])
+    for _ in range(2):
+        api.push_pull(torch.randn(n), "tune/w")
+        ctx = eng.registry.get("tune/w")
+        assert _codec_key(ctx.compression_kwargs) == snap["locked_codec"]
+
+
+def test_failed_dispatch_restores_nested_decorator_state(port_ladder,
+                                                         monkeypatch):
+    """momentum(ef(topk)): a push whose all-gather fails leaves the whole
+    nested state ({"momentum", "inner": {"error", "inner"}}) as it was,
+    and the next push continues from it."""
+    from byteps_tpu_torch.comm import compressed
+    from byteps_tpu_torch.compression import registry as codecs
+    kw = {"compressor": "randomk", "k": "0.1", "ef": "vanilla",
+          "momentum": "nesterov"}
+    rng = np.random.RandomState(2)
+    xs = [torch.from_numpy(rng.randn(3000).astype(np.float32))
+          for _ in range(3)]
+    api.push_pull(xs[0], "nest", compression=kw)
+    slot, = port_ladder.registry.get("nest").compressor
+    before = {k: v.clone() for k, v in _leaves(slot.wstate).items()}
+    assert set(before) == {"momentum", "inner/error", "inner/inner/counter"}
+
+    def failing(comm, t):
+        raise RuntimeError("injected all-gather fault")
+
+    monkeypatch.setattr(compressed, "_all_gather", failing)
+    with pytest.raises(RuntimeError, match="injected"):
+        api.push_pull(xs[1], "nest", compression=kw)
+    monkeypatch.undo()
+    after = _leaves(slot.wstate)
+    assert all(torch.equal(after[k], before[k]) for k in before)
+    out = api.push_pull(xs[2], "nest", compression=kw)
+    wc = codecs.create(kw, 3000)
+    sc = codecs.create(kw, 3000, for_server=True)
+    ws, ss = wc.init_state("cpu"), sc.init_state("cpu")
+    for x in (xs[0], xs[2]):
+        p, ws = wc.compress(x, ws)
+        y = wc.decompress_sum({k: v[None] for k, v in p.items()})
+        p2, ss = sc.compress(y, ss)
+        want = sc.decompress(p2)
+    assert torch.equal(out, want)
+    assert all(torch.equal(_leaves(slot.wstate)[k], v)
+               for k, v in _leaves(ws).items())
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
