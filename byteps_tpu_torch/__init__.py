@@ -17,6 +17,10 @@ tensor or by the planner's compressor ladder.  Besides
 ``CrossBarrier``, ``HalfPrecisionDistributedOptimizer`` and
 ``Compression``.  ``models`` carries the ResNet family, GPT and Llama,
 whose attention is the flash kernels of ``csrc/flash_attention.cu``.
+Under ``Config.sharded_update`` the engine also runs the optimizer on
+each tensor's owner-resident reduce-scatter shard
+(``core/sharded_update.py``, ``DistributedOptimizer(sharded_update=
+True)``), and ``parallel/zero.py`` has the ZeRO-1 and flat FSDP steps.
 """
 
 from .torch import *  # noqa: F401,F403 — the adapter is the public surface

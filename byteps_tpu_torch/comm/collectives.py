@@ -10,7 +10,13 @@ Each rank contributes its own tensor and receives the reduction:
   flat tensor zero-padded to a multiple of ``local_size``;
 - :func:`broadcast`: every rank receives rank ``root``'s tensor;
 - :func:`push_pull_arrays_batched`: k equal-length chunks, one buffer,
-  one reduction, k results (the engine's chunk groups).
+  one reduction, k results (the engine's chunk groups);
+- the scatter accumulator (:func:`scatter_layout`,
+  :func:`push_pull_chunk_scatter`, :func:`assemble_scatter`): the flat
+  tensor viewed as ``[L, C]`` (``L = local_size``), each chunk a column
+  slab whose reduce-scatter lands at its final owner's position, so
+  rank ``local_rank`` ends up holding block ``local_rank`` of the sum
+  (the sharded weight update's owner-resident gradient shard).
 
 Two numeric rules carry over from the JAX package.  ``_acc``: f16 and
 bf16 summands are cast to f32 before the collective, because NCCL's own
@@ -169,3 +175,98 @@ def push_pull_arrays_batched(comm: CommContext, xs: Sequence[torch.Tensor],
         buf[i * n:(i + 1) * n].copy_(x.reshape(-1))
     out = _reduce_acc(comm, buf, x0.dtype, False, True, scale, None)
     return list(out.split(n))
+
+
+# ---------------------------------------------------------------------------
+# The scatter accumulator (JAX ``collectives.py:582-881``, buffer mode).
+#
+# The flat [n] tensor, padded to n_pad = C * L, is viewed as [L, C]: row d
+# is block d of the tensor, the block rank ``local_rank == d`` owns.
+# Chunk i becomes the column slab [col_off_i, col_off_i + col_ln_i) of all
+# rows; its reduce-scatter over the node hands each rank the summed slab
+# of its own block, written in place into the rank's accumulator [C] at
+# col_off_i.  The accumulator's layout depends on n and L only, not on the
+# chunk bounds, so a repartition between pushes never moves ownership.
+# ---------------------------------------------------------------------------
+
+
+def scatter_layout(chunk_bounds, n_ici: int):
+    """Column-space chunk layout for the scatter accumulator, or ``None``
+    when the tensor's chunk bounds don't admit it.
+
+    The flat tensor is viewed as ``[n_ici, C]`` with ``C = ceil(n /
+    n_ici)`` columns (``n_ici`` is the port's ``local_size``).  Eligible
+    when every non-tail chunk's offset and length, and the tail's offset,
+    are divisible by ``n_ici`` (the partitioner's 512-element alignment
+    guarantees it for power-of-2 nodes).  The tail slab runs to column
+    ``C``, over the padding.  Returns ``([(col_off, col_ln), ...], C)``."""
+    n = chunk_bounds[-1][0] + chunk_bounds[-1][1]
+    C = -(-n // n_ici)
+    for off, ln in chunk_bounds[:-1]:
+        if off % n_ici or ln % n_ici:
+            return None
+    if chunk_bounds[-1][0] % n_ici:
+        return None
+    layout = []
+    for i, (off, ln) in enumerate(chunk_bounds):
+        col_off = off // n_ici
+        col_ln = (C - col_off if i == len(chunk_bounds) - 1
+                  else ln // n_ici)
+        layout.append((col_off, col_ln))
+    return layout, C
+
+
+def push_pull_chunk_scatter(comm: CommContext, flat: torch.Tensor,
+                            buf: Optional[torch.Tensor], col_off: int,
+                            w: int, k: int, C: int) -> torch.Tensor:
+    """Reduce ``k`` contiguous ``w``-column slabs of ``flat`` (the padded
+    ``[C * L]`` contribution, viewed as ``[L, C]``) starting at column
+    ``col_off`` into this rank's accumulator ``buf`` (``[C]`` in the
+    accumulation dtype; ``None`` allocates it).  Returns ``buf``.
+
+    The slab is copied contiguous in the accumulation dtype (f32 for
+    f16/bf16, as ``_acc``), reduce-scattered over the node into
+    ``buf[col_off:col_off + k*w]``, and at more than one node that slice
+    is all-reduced across nodes.  At one rank per node the view is
+    ``[1, C]`` and nothing is scattered: the slab is copied into place."""
+    L = comm.local_size
+    if buf is None:
+        buf = torch.empty(C, dtype=_acc_dtype(flat.dtype),
+                          device=flat.device)
+    kw = k * w
+    out = buf[col_off:col_off + kw]
+    cols = flat.view(L, C)[:, col_off:col_off + kw]
+    if L > 1:
+        slab = torch.empty((L, kw), dtype=buf.dtype, device=buf.device)
+        slab.copy_(cols)
+        dist.reduce_scatter_tensor(out, slab.view(-1),
+                                   group=comm.intra_group)
+    else:
+        out.copy_(cols[0])
+    if comm.num_nodes > 1:
+        dist.all_reduce(out, group=comm.inter_group)
+    return buf
+
+
+def assemble_scatter(comm: CommContext, buf: torch.Tensor, n: int, C: int,
+                     out_shape, dtype: torch.dtype,
+                     scale: Optional[float] = None,
+                     denom: int = 1) -> torch.Tensor:
+    """Final assembly from an accumulator block: the scale (or divisor)
+    in the accumulation dtype, the cast to ``dtype``, then an all-gather
+    of the blocks over the node, trimmed to ``n`` and shaped
+    ``out_shape``.  The gather ships each rank's block in ``dtype``; the
+    result is a fresh tensor (it never aliases ``buf``)."""
+    x = buf
+    if scale is not None:
+        x = x * scale
+    elif denom != 1:
+        x = x / denom
+    block = x.to(dtype, copy=x is buf)
+    L = comm.local_size
+    if L > 1:
+        full = block.new_empty(C * L)
+        dist.all_gather_into_tensor(full, block, group=comm.intra_group)
+    else:
+        full = block
+    return full[:n].view(out_shape)

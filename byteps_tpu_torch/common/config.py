@@ -17,6 +17,8 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
   - BYTEPS_MIN_COMPRESS_BYTES            -> min_compress_bytes
   - BYTEPS_COMPRESS_AUTOTUNE             -> compress_autotune
   - BYTEPS_COMPRESS_ERROR_CEILING        -> compress_error_ceiling
+  - BYTEPS_SHARDED_UPDATE                -> sharded_update
+  - BYTEPS_SHARDED_UPDATE_FUSED          -> sharded_update_fused
 
 ``partition_pinned`` / ``credit_pinned`` are set when the environment
 variable is present (whatever its value) or the field is given a value
@@ -27,9 +29,14 @@ Unlike the JAX package there is no process-wide cached config: ``init``
 builds one with :meth:`Config.from_env` (or takes the caller's) and the
 engine owns it.
 
-Not ported: the knobs of the planes the port does not have yet (sharded
-update, membership and the sync deadline, telemetry, tracing, the
-server).
+Not ported: the knobs of the planes the port does not have yet
+(membership and the sync deadline, telemetry, tracing, the server), and
+``sharded_param_codec`` (``BYTEPS_SHARDED_PARAM_CODEC``), the quantized
+parameter leg of the sharded update: the JAX slot compresses the whole
+update vector with one codec instance under one controller, where each
+of the port's processes holds only its own block, so onebit's scale,
+topk's and randomk's selection and PowerSGD's factors would each need a
+design of their own across ranks.
 """
 
 from __future__ import annotations
@@ -106,6 +113,21 @@ class Config:
     compress_autotune: bool = False
     compress_error_ceiling: float = 0.55
 
+    # --- sharded weight update (core/sharded_update.py) ---
+    # The pull leg returns the owner-updated parameters instead of the
+    # merged gradient: the reduce-scatter shard of a tensor declared with
+    # ``declare_update`` stays on its owner, a torch.optim optimizer
+    # steps that shard against a flat f32 master, and the owners'
+    # updated slices are all-gathered.  Wire per tensor and step: push N
+    # + pull N/R, where the replicated update ships N + N; optimizer
+    # state per rank: 1/local_size.
+    sharded_update: bool = False
+    # Build each shard optimizer with fused=True (SGD, Adam, AdamW): one
+    # fused kernel per step, which drifts from the unfused trajectory by
+    # ulps (the default pins nothing and matches the replicated step bit
+    # for bit).  Requires sharded_update.
+    sharded_update_fused: bool = False
+
     # --- native core ---
     # The C++ priority/credit queue (native/core.cc).  With True a failed
     # build or load raises; False selects the Python heap.
@@ -140,6 +162,11 @@ class Config:
             raise ValueError("scheduling_credit must be >= 0")
         if self.min_compress_bytes < 0:
             raise ValueError("min_compress_bytes must be >= 0")
+        if self.sharded_update_fused and not self.sharded_update:
+            raise ValueError(
+                "sharded_update_fused requires sharded_update "
+                "(BYTEPS_SHARDED_UPDATE=1) — there is no update program "
+                "to fuse outside sharded-update mode")
         if not 0 < self.compress_error_ceiling <= 1.0:
             raise ValueError(
                 "compress_error_ceiling must be in (0, 1] — it is a "
@@ -175,6 +202,9 @@ class Config:
             compress_error_ceiling=_env_float(
                 "BYTEPS_COMPRESS_ERROR_CEILING", 0.55),
             use_native=_env_bool("BYTEPS_NATIVE", True),
+            sharded_update=_env_bool("BYTEPS_SHARDED_UPDATE", False),
+            sharded_update_fused=_env_bool("BYTEPS_SHARDED_UPDATE_FUSED",
+                                           False),
             # the variable's presence is the pin, whatever its value
             partition_pinned=("BYTEPS_PARTITION_BYTES" in os.environ
                               or None),

@@ -91,6 +91,7 @@ class TensorRegistry:
         ctx.chunk_bounds = bounds
         ctx.key_list = [make_key(ctx.declared_key, i)
                         for i in range(len(bounds))]
+        ctx.scatter_layout = None   # recomputed lazily for the new bounds
         _log.debug("repartitioned tensor %s: %d chunk(s) at %d B", ctx.name,
                    len(bounds), partition_bytes)
         return True
@@ -122,6 +123,7 @@ class TensorRegistry:
             ctx.chunk_bounds = bounds
             ctx.key_list = [make_key(ctx.declared_key, i)
                             for i in range(len(bounds))]
+            ctx.scatter_layout = None
         _log.debug("retuned tensor %s codec -> %s (%d chunk(s) at %d B)",
                    ctx.name, new_kwargs.get("compressor", "none"),
                    len(bounds), partition_bytes)

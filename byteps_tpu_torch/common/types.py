@@ -116,4 +116,8 @@ class TensorContext:
     # pushes enqueued and not yet resolved; the planner re-carves chunk
     # bounds only at 0 (under ``lock``)
     inflight: int = 0
+    # a sharded-update tensor's column layout for the scatter accumulator
+    # (``(layout, C)``), "ineligible" once computed and refused, None
+    # until computed; reset when the chunk bounds move
+    scatter_layout: Any = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)

@@ -40,11 +40,31 @@ ranks, so with more than one rank the engine dispatches in enqueue order
 (a width of 1, as the JAX engine has for more than one process,
 ``byteps_tpu/core/engine.py:139-141``), and the planner does not tune.
 
+The sharded weight update (``Config.sharded_update``): a tensor declared
+with :meth:`PushPullEngine.declare_update` owns a
+:class:`~.sharded_update.ShardedUpdateSlot`, and its pushes
+(:meth:`PushPullEngine.push_pull_update_async`) ride the scatter
+accumulator: each chunk is a column slab of the ``[L, C]`` view of the
+tensor, reduce-scattered into this rank's block (``comm/collectives.py``).
+Right after the tensor's last reduce-scatter the dispatcher runs the
+slot's optimizer step on that block and the all-gather of the updated
+parameters, on the engine stream, so the collectives keep one order on
+every rank and the syncer never issues one; the handle resolves to the
+parameters.  Chunk bounds the column view cannot express, and small
+single-chunk tensors, take the parts fallback: the chunks are
+all-reduced as usual, the dispatcher merges them and the slot steps its
+block of the merged gradient.  ``stats`` counts the wire bytes of each
+leg (``wire_push``, ``wire_pull``): push N, and pull N/R on the buffer
+path, N on the fallback and for every other tensor.
+
 Not ported:
 - AOT warming: eager PyTorch compiles no program per shape, and the
   CUDA kernels are built once per process at their first launch, so
   there is nothing to warm;
-- sharded update;
+- the quantized parameter leg of the sharded update
+  (``sharded_param_codec``; ``common/config.py`` says why),
+  ``export_shards`` (serving cuts) and ``sync_master`` (the async
+  parameter server);
 - membership epochs with the stale-epoch guard, and the
   ``_deadline_loop`` watchdog: they need ``fault/membership.py`` and
   ``utils/failure_detector.py``;
@@ -61,8 +81,10 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
-from ..comm.collectives import push_pull_array, push_pull_arrays_batched
+from ..comm.collectives import (push_pull_array, push_pull_arrays_batched,
+                                push_pull_chunk_scatter, scatter_layout)
 from ..comm.compressed import fused_compressed_push_pull
 from ..comm.mesh import CommContext
 from ..common.config import Config
@@ -72,22 +94,31 @@ from ..common.scheduler import ChunkPlanner, ChunkScheduler
 from ..common.telemetry import SpeedMonitor
 from ..common.types import ChunkTask, Status, StatusCode, TensorContext
 from ..compression import registry as compression_registry
+from .sharded_update import ShardedUpdateSlot
 
 _log = logging.getLogger("byteps_tpu_torch")
 
 _SHUTDOWN = object()  # sync-queue sentinel
 _DRAIN_BUDGET_S = 60.0  # shutdown waits this long, in all, for handles
+# A single-chunk sharded-update tensor rides the scatter accumulator from
+# this size up, and the parts fallback below it: the JAX engine's
+# buffer-mode rule, at the default of its BYTEPS_BUFFER_MIN_BYTES (not a
+# knob here).
+BUFFER_MIN_BYTES = 1 << 20
 
 
 def _plan_batch(batch: List[ChunkTask]):
     """Group a popped, priority-ordered task batch into dispatch units:
 
     - ``("run", tasks)``: contiguous equal-length chunks of ONE
-      uncompressed multi-chunk tensor.  JAX's run is a slab of the
-      buffer-mode staging of a stacked ``[R, n]`` array, which the port
-      does not have; here a run is the slice of the caller's flat tensor
-      that its chunks cover, reduced as one collective whose one
-      cast-copy reads it (no per-chunk copy-in);
+      uncompressed multi-chunk tensor, or of one sharded-update tensor.
+      For a tensor on the scatter accumulator (a sharded-update tensor's
+      buffer mode) that is JAX's run: contiguous equal-width column slabs,
+      one reduce-scatter.  Otherwise it is the slice of the caller's flat
+      tensor that its chunks cover, reduced as one collective whose one
+      cast-copy reads it (no per-chunk copy-in).  A sharded-update
+      tensor's chunks never join a group with other tensors: its slot
+      steps when its own last chunk is dispatched;
     - ``("group", tasks)``: consecutive uncompressed chunks of distinct
       single-chunk tensors with equal length, dtype and scale: one buffer,
       one collective (``push_pull_arrays_batched``).  JAX compares the
@@ -181,20 +212,40 @@ class _CompressionSlot:
 
 
 class _PendingTensor:
-    """Collects the finished chunks of one push_pull."""
+    """Collects the finished chunks of one push_pull.
+
+    A sharded-update push (``slot``) is finished on the dispatcher: it
+    counts the chunks dispatched, keeps the accumulator (``scatter``:
+    the ``(layout, C)`` of buffer mode) or the fallback's merged chunk
+    results, and after the last chunk stores the slot's emitted
+    parameters in ``result``, which assembly returns."""
 
     def __init__(self, handle: Handle, ctx: TensorContext, out_shape,
-                 denom: int, total: int, compressed: bool):
+                 denom: int, total: int, compressed: bool, slot=None,
+                 scatter=None, scale: Optional[float] = None,
+                 hyperparameters=None):
         self.handle = handle
         self.ctx = ctx
         self.out_shape = out_shape
         self.denom = denom        # divisor applied at assembly (1 = none)
         self.total = total
-        # an uncompressed tensor of several chunks: its chunks form runs
-        self.multi_chunk = total > 1 and not compressed
+        # chunks that form runs of their own, never groups: those of an
+        # uncompressed tensor of several chunks, and any of a
+        # sharded-update tensor (its slot steps after its own last chunk)
+        self.multi_chunk = (total > 1 and not compressed) or slot is not None
+        self.slot = slot
+        self.scatter = scatter
+        self.scale = scale        # buffer mode's 1/R, applied by the slot
+        self.hyperparameters = hyperparameters
         self.parts: Dict[int, Any] = {}
         self.resolved = False     # the handle has been (or is being) set
         self.lock = threading.Lock()
+        # dispatcher-owned (sharded update)
+        self.dispatched = 0
+        self.dispatch_failed = False
+        self.buf = None           # the scatter accumulator block
+        self.merged: Dict[int, torch.Tensor] = {}  # fallback, by offset
+        self.result = None
 
     def complete_part(self, part_idx: int, data) -> bool:
         """Keep a chunk's result; True for the chunk that completes the
@@ -211,11 +262,19 @@ class _PendingTensor:
         with self.lock:
             first, self.resolved = not self.resolved, True
             self.parts.clear()
+            self.result = None
             return first
 
     def assemble(self) -> torch.Tensor:
-        parts = [self.parts.pop(i) for i in range(self.total)]
-        if self.total == 1:
+        if self.slot is not None:
+            self.parts.clear()
+            out, self.result = self.result, None
+            return out
+        return self.merge([self.parts.pop(i) for i in range(self.total)])
+
+    def merge(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The reduced tensor from its chunks' results, in order."""
+        if len(parts) == 1:
             flat = parts[0]
         else:
             flat = _joined(parts)
@@ -250,8 +309,12 @@ class PushPullEngine:
         self._group_size = (1 if comm.size > 1
                             else -1 if cfg.group_size < 0
                             else max(1, cfg.group_size))
-        # collectives issued vs chunk tasks consumed
-        self.stats = {"dispatches": 0, "chunks": 0}
+        # collectives issued vs chunk tasks consumed; bytes on the wire of
+        # each leg of every retired chunk
+        self.stats = {"dispatches": 0, "chunks": 0, "wire_push": 0,
+                      "wire_pull": 0}
+        # name -> ShardedUpdateSlot, one per declare_update
+        self.update_slots: Dict[str, ShardedUpdateSlot] = {}
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
         self._sync_q: "queue.Queue" = queue.Queue()
@@ -282,6 +345,20 @@ class PushPullEngine:
     def _on_stream(self):
         return (torch.cuda.stream(self.stream) if self.stream is not None
                 else contextlib.nullcontext())
+
+    @contextlib.contextmanager
+    def _caller_to_engine_stream(self):
+        """Run the body on the engine stream, ordered after the caller's
+        stream, and order the caller's later work after it (state the
+        dispatcher will use, built or read from the caller's thread)."""
+        if self.stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            yield
+        caller.wait_stream(self.stream)
 
     def _record(self) -> Optional[torch.cuda.Event]:
         if self.stream is None:
@@ -338,6 +415,11 @@ class PushPullEngine:
         once every chunk has been reduced and the result reassembled.
         The caller must not modify ``tensor`` until the handle resolves.
         """
+        return self._push(tensor, name, priority, op, compression)
+
+    def _push(self, tensor: torch.Tensor, name: str, priority, op: str,
+              compression, slot: Optional[ShardedUpdateSlot] = None,
+              hyperparameters=None) -> Handle:
         if not self._running:
             raise RuntimeError("engine is shut down")
         if tensor.device != self.device:
@@ -397,9 +479,12 @@ class PushPullEngine:
                 codec_used = (ctx.compression_kwargs.get("compressor")
                               or "none") if ctx.compression_kwargs else "none"
                 tuned = bool(ctx.compression_tuned)
+                scatter = (self._scatter_layout_locked(ctx)
+                           if slot is not None else None)
             return self._enqueue(tensor, name, ctx, priority, op, bounds,
                                  keys, slots, est_nbytes, part_used,
-                                 codec_used, tuned)
+                                 codec_used, tuned, slot, scatter,
+                                 hyperparameters)
         except BaseException:
             # the done callback never got the claim: release it, or the
             # tensor could never be re-carved again
@@ -407,13 +492,32 @@ class PushPullEngine:
                 ctx.inflight -= 1
             raise
 
+    def _scatter_layout_locked(self, ctx: TensorContext):
+        """A sharded-update tensor's column layout ``(layout, C)`` on the
+        scatter accumulator, or None for the parts fallback: chunk bounds
+        the ``[L, C]`` view cannot express, or a single chunk under
+        BUFFER_MIN_BYTES (the JAX engine's buffer-mode rule).  Computed
+        once per chunk geometry; the caller holds ``ctx.lock``."""
+        if ctx.scatter_layout is None:
+            layout = None
+            if (len(ctx.chunk_bounds) > 1
+                    or ctx.nbytes >= BUFFER_MIN_BYTES):
+                layout = scatter_layout(ctx.chunk_bounds,
+                                        self.comm.local_size)
+            ctx.scatter_layout = layout or "ineligible"
+        if ctx.scatter_layout == "ineligible":
+            return None
+        return ctx.scatter_layout
+
     def _enqueue(self, tensor, name, ctx, priority, op, bounds, keys, slots,
-                 est_nbytes, part_used, codec_used, tuned) -> Handle:
+                 est_nbytes, part_used, codec_used, tuned, update_slot,
+                 scatter, hyperparameters) -> Handle:
         denom = self.comm.size if op == "average" else 1
         scale = None
         if denom != 1 and slots is None and tensor.is_floating_point():
             # fused scale: the collective multiplies by 1/R before the
-            # downcast, and assembly is a reshape
+            # downcast, and assembly is a reshape (on the scatter
+            # accumulator the slot applies it to its block)
             scale, denom = 1.0 / denom, 1
         # the planner's samples: wall seconds from enqueue to resolution,
         # for the chunk size until the tensor's size bucket locks, then,
@@ -422,6 +526,14 @@ class PushPullEngine:
         track_comp = (tuned and self.planner.locked(est_nbytes)
                       and not self.planner.compress_locked(est_nbytes))
         flat = tensor.detach().reshape(-1)
+        task_bounds = bounds
+        if scatter is not None:
+            # chunks are column slabs of the [L, C] view of the padded
+            # tensor; credits and wire still count each chunk's real bytes
+            task_bounds, C = scatter
+            pad = C * self.comm.local_size - flat.numel()
+            if pad:
+                flat = F.pad(flat, (0, pad))
         ready = None
         if flat.is_cuda:
             ready = torch.cuda.Event()
@@ -431,7 +543,10 @@ class PushPullEngine:
             flat.record_stream(self.stream)
         handle = self.handles.allocate(name)
         pending = _PendingTensor(handle, ctx, tuple(tensor.shape), denom,
-                                 len(bounds), compressed=slots is not None)
+                                 len(bounds), compressed=slots is not None,
+                                 slot=update_slot, scatter=scatter,
+                                 scale=scale,
+                                 hyperparameters=hyperparameters)
         t_enq = time.perf_counter()
         with self._enq_lock:
             self._enq_seq += 1
@@ -441,11 +556,11 @@ class PushPullEngine:
                 prio = priority
             else:
                 prio = -ctx.declared_key if self.cfg.enable_priority else 0
-            for i, (off, ln) in enumerate(bounds):
+            for i, (off, ln) in enumerate(task_bounds):
                 task = ChunkTask(
                     name=name, key=keys[i], priority=prio,
                     offset_elems=off, num_elems=ln,
-                    nbytes=ln * tensor.element_size(), data=flat,
+                    nbytes=bounds[i][1] * tensor.element_size(), data=flat,
                     compression=slots[i] if slots else None,
                     scale=scale, pending=pending, ready=ready,
                     t_enqueue=t_enq)
@@ -470,6 +585,88 @@ class PushPullEngine:
     def push_pull(self, tensor: torch.Tensor, name: str, **kw):
         """Synchronous push_pull; returns the reduced tensor."""
         return self.push_pull_async(tensor, name, **kw).wait()
+
+    # ---------------------------------------------------- sharded update
+    def declare_update(self, name: str, shape, dtype: torch.dtype, *,
+                       optimizer, init_value=None,
+                       restore=None) -> TensorContext:
+        """Declare a tensor whose pull leg is the sharded weight update:
+        register its geometry as :meth:`declare_tensor` does, then build
+        its owner-resident slot, an f32 master block (seeded from
+        ``init_value``, the caller's initial parameters, which must be the
+        same on every rank) and the optimizer over it.  ``optimizer`` is
+        ``(cls, hyperparameters)``: a ``torch.optim`` class and a param
+        group's hyperparameters.  ``restore``: a
+        :meth:`ShardedUpdateSlot.export` snapshot, re-padded to this
+        world's geometry (how an elastic resume re-shards the optimizer
+        state).  Local: issues no collective."""
+        if not self.cfg.sharded_update:
+            raise ValueError(
+                "declare_update requires sharded-update mode: set "
+                "BYTEPS_SHARDED_UPDATE=1 or Config(sharded_update=True)")
+        if not dtype.is_floating_point:
+            raise ValueError(
+                f"sharded update needs a float tensor (the optimizer "
+                f"runs on the shard), got dtype {dtype}")
+        ctx = self.declare_tensor(name, shape, dtype)
+        with ctx.lock:
+            # the compressor ladder never takes this tensor: its gradient
+            # stays on its owner, so there is nothing to compress
+            ctx.compression_tuned = False
+        with self._caller_to_engine_stream():
+            self.update_slots[name] = ShardedUpdateSlot(
+                self.comm, self.cfg, name, shape, dtype, optimizer,
+                init_value=init_value, restore=restore)
+        return ctx
+
+    def push_pull_update_async(self, tensor: torch.Tensor, name: str, *,
+                               op: str = "average", compression=None,
+                               hyperparameters=None) -> Handle:
+        """Contribute this rank's gradient for ``name`` and receive the
+        owner-updated parameters (the declared shape and dtype), which
+        the caller ``copy_``s into its parameter.  ``hyperparameters``
+        (a param group's lr, betas, ...) are set on the slot's optimizer
+        just before its step, so a scheduler's change reaches the step of
+        this push.  Requires a prior :meth:`declare_update`."""
+        slot = self.update_slots.get(name)
+        if slot is None:
+            raise ValueError(
+                f"{name!r} has no sharded-update slot: call "
+                f"declare_update(name, shape, dtype, optimizer=...) first")
+        if op != "average":
+            raise ValueError(
+                "sharded_update supports op='average' only (the 1/R scale "
+                "is applied to the shard before the optimizer step)")
+        if compression:
+            raise ValueError(
+                "sharded update does not take gradient compression "
+                "kwargs: the gradient never leaves its owner, so there "
+                "is nothing to compress on the pull leg except the "
+                "parameter all-gather, whose codec is not ported")
+        return self._push(tensor, name, None, op, None, slot=slot,
+                          hyperparameters=hyperparameters)
+
+    def push_pull_update(self, tensor: torch.Tensor, name: str, **kw):
+        """Synchronous :meth:`push_pull_update_async`."""
+        return self.push_pull_update_async(tensor, name, **kw).wait()
+
+    def export_update_slots(self) -> Dict[str, dict]:
+        """Host snapshots of every sharded-update slot (suspend):
+        logical-length state, which :meth:`declare_update` can restore on
+        any world size.  A collective over the node, made with the
+        dispatcher parked: every rank calls it, with nothing in flight."""
+        if not self.update_slots:
+            return {}
+        if self.handles.outstanding():
+            raise RuntimeError("export_update_slots with pushes in flight: "
+                               "wait for them first")
+        self.pause_dispatch()
+        try:
+            with self._caller_to_engine_stream():
+                return {name: slot.export()
+                        for name, slot in self.update_slots.items()}
+        finally:
+            self.resume_dispatch()
 
     def _ensure_compression(self, ctx: TensorContext) -> None:
         """One compressor pair per chunk, built on first use; tensors under
@@ -575,7 +772,13 @@ class PushPullEngine:
                 for ev in {id(t.ready): t.ready for t in unit
                            if t.ready is not None}.values():
                     self.stream.wait_event(ev)
-                if kind == "run":
+                pending = t0.pending
+                if kind == "run" and pending.scatter is not None:
+                    pending.buf = push_pull_chunk_scatter(
+                        self.comm, t0.data, pending.buf, t0.offset_elems,
+                        t0.num_elems, len(unit), pending.scatter[1])
+                    outs = [None] * len(unit)
+                elif kind == "run":
                     n = t0.num_elems
                     x = t0.data[t0.offset_elems:
                                 t0.offset_elems + n * len(unit)]
@@ -596,12 +799,46 @@ class PushPullEngine:
                 else:
                     outs = [push_pull_array(self.comm, _chunk(t0), op="sum",
                                             keep_acc=True, scale=t0.scale)]
+                if pending is not None and pending.slot is not None:
+                    outs = self._advance_slot(pending, unit, outs)
                 done = self._record()
             self._sync_q.put((unit, outs, done, rollback, None))
         except Exception as e:  # noqa: BLE001 — report on the handles
             _log.exception("dispatch failed for %s", t0.name)
             self._restore(rollback)
+            if t0.pending is not None and t0.pending.slot is not None:
+                t0.pending.dispatch_failed = True
+                t0.pending.buf = None
+                t0.pending.merged.clear()
             self._sync_q.put((unit, None, None, None, e))
+
+    @staticmethod
+    def _advance_slot(pending: _PendingTensor, unit: List[ChunkTask],
+                      outs) -> list:
+        """After a sharded-update tensor's unit: keep the fallback's
+        merged chunks, and once its last chunk is dispatched run the
+        slot's step and all-gather here, on the dispatcher and the
+        engine stream, behind the tensor's last reduction.  The units
+        carry no per-chunk result: assembly returns the slot's."""
+        if pending.scatter is None:
+            for t, o in zip(unit, outs):
+                pending.merged[t.offset_elems] = o
+        pending.dispatched += len(unit)
+        if pending.dispatched == pending.total:
+            if pending.dispatch_failed:
+                raise RuntimeError(f"an earlier chunk of {unit[0].name} "
+                                   f"failed: the slot does not step")
+            slot, hyper = pending.slot, pending.hyperparameters
+            if pending.scatter is not None:
+                pending.result = slot.apply_buffer(pending.buf,
+                                                   pending.scale, hyper)
+                pending.buf = None
+            else:
+                merged = pending.merge([pending.merged[k]
+                                        for k in sorted(pending.merged)])
+                pending.merged.clear()
+                pending.result = slot.apply_full(merged, hyper)
+        return [None] * len(unit)
 
     @staticmethod
     def _restore(rollback) -> None:
@@ -650,7 +887,16 @@ class PushPullEngine:
         # credits back before the callbacks: the dispatcher can issue the
         # next window while this thread assembles
         self.scheduler.report_finish(sum(t.nbytes for t in tasks))
-        self.speed.record(sum(2 * _wire_nbytes(t) for t in tasks))
+        wire = 0
+        for t in tasks:
+            push = pull = _wire_nbytes(t)
+            slot = t.pending.slot if t.pending is not None else None
+            if slot is not None:
+                pull = slot.pull_share(t.nbytes, t.pending.scatter is not None)
+            self.stats["wire_push"] += push
+            self.stats["wire_pull"] += pull
+            wire += push + pull
+        self.speed.record(wire)
         for i, task in enumerate(tasks):
             if err is not None:
                 task.callback(None, Status.error(str(err)))
@@ -658,16 +904,21 @@ class PushPullEngine:
                 task.callback(outs[i], Status.ok())
 
     # --------------------------------------------------------- lifecycle
+    def drain(self) -> None:
+        """Wait, within _DRAIN_BUDGET_S in all, for the outstanding
+        handles (their errors are the callers' to read)."""
+        deadline = time.monotonic() + _DRAIN_BUDGET_S
+        for h in self.handles.outstanding():
+            try:
+                h.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except Exception:  # noqa: BLE001 — draining, not consuming
+                pass
+
     def shutdown(self, wait: bool = True):
         """Drain outstanding handles (``wait``), stop both threads, and fail
         whatever never reached dispatch."""
         if wait:
-            deadline = time.monotonic() + _DRAIN_BUDGET_S
-            for h in self.handles.outstanding():
-                try:
-                    h.wait(timeout=max(0.1, deadline - time.monotonic()))
-                except Exception:  # noqa: BLE001 — draining, not consuming
-                    pass
+            self.drain()
         self._running = False
         # wake a dispatcher blocked in the pop or parked on the pause gate
         self._dispatch_enabled.set()

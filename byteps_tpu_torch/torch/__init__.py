@@ -21,6 +21,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from ..comm.collectives import broadcast
+from ..common.config import Config
 from ..common.handles import Handle
 from ..core import api as _api
 from .compression import Compression
@@ -30,6 +31,7 @@ from .parallel import CrossBarrier, DistributedDataParallel, _remove, _weak
 __all__ = [
     "init", "shutdown", "rank", "size", "local_rank", "local_size",
     "declare", "push_pull", "push_pull_async", "poll", "synchronize",
+    "declare_update", "push_pull_update", "push_pull_update_async",
     "suspend", "resume", "get_pushpull_speed",
     "BytePSPushPull", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "Compression", "DistributedDataParallel",
@@ -43,6 +45,9 @@ size = _api.size
 local_rank = _api.local_rank
 local_size = _api.local_size
 declare = _api.declare
+declare_update = _api.declare_update
+push_pull_update = _api.push_pull_update
+push_pull_update_async = _api.push_pull_update_async
 poll = _api.poll
 synchronize = _api.synchronize
 suspend = _api.suspend
@@ -97,6 +102,14 @@ def push_pull(tensor: torch.Tensor, average: bool = True,
                                 compression)
 
 
+def _sharded_update_default() -> bool:
+    """``Config.sharded_update`` of the running engine, else of the
+    environment."""
+    if _api.initialized():
+        return _api.engine().cfg.sharded_update
+    return Config.from_env().sharded_update
+
+
 def broadcast_parameters(params, root_rank: int = 0) -> None:
     """In-place broadcast of a state_dict or a named_parameters iterable.
     Call it before training: it issues collectives from the caller's
@@ -134,13 +147,31 @@ class DistributedOptimizer(torch.optim.Optimizer):
     handle, writes the averaged gradient into ``p.grad`` and runs the
     inner optimizer.  ``backward_passes_per_step`` defers communication
     across gradient-accumulation micro-steps.
+
+    With ``sharded_update=True`` (``None``: follow
+    ``Config.sharded_update`` of the running engine, else of the
+    environment) the optimizer's work moves into the engine: the
+    constructor declares one sharded-update slot per parameter (in the
+    same order on every rank, seeded with the parameter's value, so
+    broadcast the parameters first) running the inner optimizer's class
+    and hyperparameters on this rank's shard; the hooks push through
+    ``push_pull_update_async``, carrying the parameter's param-group
+    hyperparameters at that moment (so an ``lr_scheduler`` attached to
+    the wrapped optimizer still steers the steps); and ``step()`` waits
+    and ``copy_``s the emitted parameters into each parameter.  The inner
+    optimizer never steps and its ``state`` stays empty: the moments live
+    1/L on each rank.  Under ``backward_passes_per_step`` the pushed
+    gradient is the accumulated one divided by the count, as the JAX
+    adapter does before its push.  After a suspend/resume the slots are
+    declared again on the new engine at the next push, from the stash.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Optional[
                      Iterable[Tuple[str, torch.nn.Parameter]]] = None,
                  compression: Optional[Dict[str, str]] = None,
-                 backward_passes_per_step: int = 1):
+                 backward_passes_per_step: int = 1,
+                 sharded_update: Optional[bool] = None):
         self._inner = optimizer
         self.param_groups = optimizer.param_groups
         self.defaults = optimizer.defaults
@@ -157,10 +188,24 @@ class DistributedOptimizer(torch.optim.Optimizer):
             named = [(f"param.{gi}.{pi}", p)
                      for gi, g in enumerate(optimizer.param_groups)
                      for pi, p in enumerate(g["params"]) if p.requires_grad]
-        # the same order on every process, so keys and priorities agree
-        for n, _ in named:
-            _api.declare(f"torch.grad.{n}")
         self._name_of = {p: n for n, p in named}
+        self._sharded = (_sharded_update_default() if sharded_update is None
+                         else bool(sharded_update))
+        if self._sharded:
+            if compression:
+                raise ValueError(
+                    "sharded update does not take gradient compression: "
+                    "the gradient never leaves its owner")
+            self._group_of = {p: g for g in optimizer.param_groups
+                              for p in g["params"]}
+            self._named = named
+            self._declared_engine = None
+            self._declare_slots()
+        else:
+            # the same order on every process, so keys and priorities
+            # agree
+            for n, _ in named:
+                _api.declare(f"torch.grad.{n}")
         # the hooks reach the optimizer through a weak reference: a hook
         # list lives in C++, where Python's cycle collector cannot see it,
         # so a strong one would keep a dropped optimizer, and through it
@@ -170,19 +215,60 @@ class DistributedOptimizer(torch.optim.Optimizer):
         for _, p in named:
             self._hooks.append(p.register_post_accumulate_grad_hook(hook))
 
+    def _hyperparameters(self, p) -> dict:
+        return {k: v for k, v in self._group_of[p].items() if k != "params"}
+
+    def _declare_slots(self) -> None:
+        """One sharded-update slot per parameter, in the constructor's
+        order; again on a new engine (after suspend/resume, where each
+        declaration consumes its stashed state)."""
+        if not _api.initialized():
+            raise RuntimeError(
+                "DistributedOptimizer(sharded_update=True) needs a running "
+                "engine: call init() first (the optimizer's state lives in "
+                "the engine)")
+        for n, p in self._named:
+            _api.declare_update(
+                f"torch.grad.{n}", p.shape, p.dtype,
+                optimizer=(type(self._inner), self._hyperparameters(p)),
+                init_value=p.detach())
+        self._declared_engine = _api.engine()
+
     def _hook(self, p: torch.nn.Parameter) -> None:
         with self._lock:
             self._counts[p] = self._counts.get(p, 0) + 1
             if self._counts[p] % self._bpps != 0:
                 return  # accumulation micro-step: no communication
-            self._handles[p] = push_pull_async(
-                p.grad, average=True, name=f"torch.grad.{self._name_of[p]}",
-                compression=self._compression)
+            name = f"torch.grad.{self._name_of[p]}"
+            if not self._sharded:
+                self._handles[p] = push_pull_async(
+                    p.grad, average=True, name=name,
+                    compression=self._compression)
+                return
+            if self._declared_engine is not _api.engine():
+                self._declare_slots()
+            grad = p.grad if self._bpps == 1 else p.grad / self._bpps
+            self._handles[p] = _api.push_pull_update_async(
+                grad, name, hyperparameters=self._hyperparameters(p))
 
     def zero_grad(self, set_to_none: bool = True):
         return self._inner.zero_grad(set_to_none=set_to_none)
 
     def step(self, closure=None):
+        if self._sharded:
+            loss = None
+            if closure is not None:
+                with torch.enable_grad():
+                    loss = closure()
+            with self._lock:
+                handles, self._handles = self._handles, {}
+            with torch.no_grad():
+                for p, h in handles.items():
+                    p.copy_(h.wait())
+            # the inner optimizer's step ran in the engine: tell an
+            # lr_scheduler attached to it that it did
+            self._inner._opt_called = True
+            return loss
         with self._lock:
             handles, self._handles = self._handles, {}
         if not handles and self._bpps > 1:

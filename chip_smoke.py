@@ -143,7 +143,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    two controls on the same weights (attention output zeroed for the
    later half of the positions, and everywhere) must not.  Each slice
    prints the flash kernels' share of the main path's median step
-   (``num_layers`` x their device ms at its shape).
+   (``num_layers`` x their device ms at its shape);
+8. sharded update: the sharded weight update and ZeRO at a world of one
+   over NCCL (a shard is the whole tensor), four arms, each freed before
+   the next, each 1 warm-up and SHARDED_STEPS timed steps with the loss
+   finite at every step, foreach pinned in every optimizer an arm
+   compares:
+   - ``llama_sharded``: Llama-3-8B width with 4 layers, bf16 parameters,
+     the LM slice's batch (2 x 4096) and data, AdamW through
+     ``DistributedOptimizer(sharded_update=True)``.  For the embedding,
+     one attention and one MLP weight (LLAMA_WATCH) a reference f32
+     master with its own AdamW takes the raw gradient (at one rank the
+     averaged one) after each step; cast to bf16 it must equal the
+     emitted parameter bit for bit.  Control: the bf16 parameter stepped
+     by AdamW without a master must differ;
+   - ``resnet_sharded``: ResNet-50 at full width (f32 parameters), the
+     ResNet slice's batch, SGD(momentum=0.9): a sharded and an unsharded
+     ``DistributedOptimizer`` on two copies in one engine, the unsharded
+     copy fed the sharded copy's raw gradients through autograd (so the
+     check does not rest on cuDNN's determinism); after the steps every
+     parameter must be equal, bit for bit;
+   - ``gpt_zero1``, ``gpt_fsdp``: GPT-small at full width, AdamW through
+     ``make_zero_train_step`` (bf16 parameters) and
+     ``make_fsdp_train_step`` (bf16 compute of an f32 template), against
+     a plain step with an f32 master per parameter fed the same raw
+     gradients, its loss from a forward of its masters: losses and
+     masters bit for bit (the tolerance is 0: at one rank the
+     collectives are identities, the division by 1 is exact and AdamW is
+     elementwise).  Control: the bf16 parameters stepped by AdamW
+     without a master must differ.
+   Each arm prints its median step (min-max), its peak memory (reset at
+   its start, references included), the bytes of state in the slots or
+   the ZeroState beside those of the inner optimizer (which must be 0 in
+   the engine arms), and the engine's wire bytes per step of each leg,
+   which at one rank must be N and N.
 
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (flash launches: the two main paths');
@@ -255,6 +288,13 @@ L2_CODE_SHARE = 1e-3
 # 7.07e-07 on fc.weight, H100 80GB HBM3 at 700 W); products in TF32, a
 # 10-bit mantissa, would be ~1e-3 off, and rank 1 in place of 4 ~0.8
 PSGD_CARD_TOL = 1e-5
+# the sharded-update phase: AdamW for the LM arms, SGD with momentum for
+# ResNet, foreach pinned in every optimizer an arm compares
+SHARDED_ADAMW = {"lr": 3e-4, "weight_decay": 0.1, "foreach": True}
+SHARDED_SGD = {"lr": 0.1, "momentum": 0.9, "foreach": True}
+SHARDED_STEPS = 3                # timed steps of each arm, after 1 warm-up
+SHARDED_LM_BATCH = {"llama": (2, 4096), "gpt": (1, 8192)}   # the LM slices'
+LLAMA_WATCH = ("wte.embedding", "h.0.attn.q.kernel", "h.0.mlp.up.kernel")
 
 
 def log(msg):
@@ -268,11 +308,12 @@ def check(ok, msg):
 
 
 def same_bits(a, b):
-    """Whether two f32 tensors have the same shape and bits (torch.equal
-    takes -0.0 for +0.0)."""
+    """Whether two f32 (or two 16-bit float) tensors have the same shape,
+    dtype and bits (torch.equal takes -0.0 for +0.0)."""
     import torch
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    bits = torch.int32 if a.element_size() == 4 else torch.int16
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(bits), b.view(bits)))
 
 
 def merge_inputs(R, L, seed):
@@ -1413,6 +1454,313 @@ def lm_arm(torch, bps, api, fa, name, model_fn, cfg, batch, seq, arm,
     return out
 
 
+# ------------------------------------------------------- sharded update
+
+def _timed_arm_steps(torch, name, step, after=None):
+    """1 warm-up and SHARDED_STEPS timed steps of ``step`` (which returns
+    the loss), each ending in a synchronize; the loss must be finite at
+    every step.  ``after(i)`` runs after step i, outside the timing (the
+    checks).  Returns (timed step ms, losses)."""
+    ms, losses = [], []
+    for i in range(1 + SHARDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(loss.detach().item())
+        check(math.isfinite(losses[-1]),
+              f"{name}: loss {losses[-1]} at step {i}")
+        if i:
+            ms.append(dt)
+        if after is not None:
+            after(i)
+    return ms, losses
+
+
+def _state_nbytes(torch, opt):
+    """Bytes of the tensors a torch optimizer's state holds."""
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v))
+
+
+def _engine_arm_report(torch, eng, inner, ms, wire, nbytes, name):
+    """The slots' and the inner optimizer's state bytes, the wire per step
+    (at one rank push N and pull N), and the arm's row."""
+    slot_bytes = sum(s.state_nbytes() for s in eng.update_slots.values())
+    inner_bytes = _state_nbytes(torch, inner)
+    check(inner_bytes == 0, f"{name}: the inner optimizer holds "
+                            f"{inner_bytes} B of state")
+    check(all(w == (nbytes, nbytes) for w in wire),
+          f"{name}: wire (push, pull) per step {wire}, expected "
+          f"({nbytes}, {nbytes}) at one rank")
+    return {"arm": name, "step_ms": ms, "peak_gib":
+            torch.cuda.max_memory_allocated() / 2**30,
+            "state_bytes": slot_bytes, "inner_bytes": inner_bytes,
+            "wire": wire[-1]}
+
+
+def llama_sharded_arm(torch, bps, api, Config, llama):
+    """Llama-3-8B width, 4 layers, bf16 parameters, the LM slice's batch and
+    data, AdamW through DistributedOptimizer(sharded_update=True): each
+    slot's f32 master and moments live in the engine.  For the embedding,
+    one attention and one MLP weight, an f32 master of its own with its
+    own AdamW takes the raw gradient (the averaged one, at one rank) after
+    each step, and cast to bf16 it must equal the emitted parameter bit
+    for bit; the control, the bf16 parameter stepped by AdamW without a
+    master, must differ."""
+    from byteps_tpu_torch.models.gpt import lm_loss
+    from byteps_tpu_torch.ops.flash_attention import flash_attention
+    from byteps_tpu_torch.parallel.long_context import synthetic_lm_batch
+
+    name = "llama_sharded"
+    torch.cuda.reset_peak_memory_stats()
+    bps.init(Config(sharded_update=True))               # NCCL, world of one
+    eng, dev = api.engine(), api.device()
+    cfg = dataclasses.replace(llama.llama3_8b(), num_layers=4)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = llama.Llama(cfg, attn_fn=flash_attention, device=dev,
+                        generator=gen).to(torch.bfloat16)
+    data = synthetic_lm_batch(gen, cfg, *SHARDED_LM_BATCH["llama"])
+    ids, labels = data["input_ids"], data["labels"]
+    params = dict(model.named_parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    inner = torch.optim.AdamW(model.parameters(), **SHARDED_ADAMW)
+    opt = bps.DistributedOptimizer(
+        inner, named_parameters=model.named_parameters(),
+        sharded_update=True)
+    refs = {n: params[n].detach().float() for n in LLAMA_WATCH}
+    ref_opts = {n: torch.optim.AdamW([r], **SHARDED_ADAMW)
+                for n, r in refs.items()}
+    ctrls = {n: params[n].detach().clone() for n in LLAMA_WATCH}
+    ctrl_opts = {n: torch.optim.AdamW([c], **SHARDED_ADAMW)
+                 for n, c in ctrls.items()}
+    wire, differ = [], {}
+
+    def step():
+        before = (eng.stats["wire_push"], eng.stats["wire_pull"])
+        opt.zero_grad()
+        loss = lm_loss(model(ids), labels)
+        loss.backward()
+        opt.step()
+        wire.append((eng.stats["wire_push"] - before[0],
+                     eng.stats["wire_pull"] - before[1]))
+        return loss
+
+    def after(i):
+        for n in LLAMA_WATCH:
+            g = params[n].grad
+            refs[n].grad = g.float()
+            ref_opts[n].step()
+            refs[n].grad = None
+            ctrls[n].grad = g.clone()
+            ctrl_opts[n].step()
+            ctrls[n].grad = None
+            check(same_bits(refs[n].bfloat16(), params[n].detach()),
+                  f"{name}: {n} after step {i} differs from its f32-master "
+                  f"reference cast to bf16")
+            differ[n] = not same_bits(ctrls[n], params[n].detach())
+
+    ms, losses = _timed_arm_steps(torch, name, step, after)
+    check(all(differ.values()), f"{name}: the control (bf16 parameters "
+                                f"stepped without a master) did not differ: "
+                                f"{differ}")
+    row = _engine_arm_report(torch, eng, inner, ms, wire, nbytes, name)
+    log(f"{name}: {len(params)} tensors, {nbytes} B of bf16 parameters; "
+        f"{', '.join(LLAMA_WATCH)} equal their f32-master references cast "
+        f"to bf16 after each of {len(losses)} steps, the bf16-stepped "
+        f"control differs; losses {[round(x, 4) for x in losses]}")
+    bps.shutdown()
+    del opt, inner, model, params, refs, ref_opts, ctrls, ctrl_opts, data
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet_sharded_arm(torch, bps, api, Config, resnet):
+    """ResNet-50 at full width (f32 parameters), the ResNet slice's batch,
+    SGD(momentum=0.9) with foreach pinned: DistributedOptimizer with
+    sharded_update on one copy, the unsharded DistributedOptimizer on
+    another, in one engine.  The unsharded copy takes the sharded copy's
+    raw gradients of each step through autograd (a backward of its
+    leaves), so the comparison is independent of cuDNN's determinism;
+    after the steps every parameter of the two must be equal, bit for
+    bit."""
+    import copy
+
+    name = "resnet_sharded"
+    torch.cuda.reset_peak_memory_stats()
+    bps.init(Config(sharded_update=True))
+    eng, dev = api.engine(), api.device()
+    gen = torch.Generator().manual_seed(0)
+    a = resnet.resnet50(num_classes=CLASSES, generator=gen).to(dev)
+    b = copy.deepcopy(a)
+    batch = resnet.synthetic_images(gen, BATCH, IMAGE, CLASSES, dev)
+    images, labels = batch["images"], batch["labels"]
+    nbytes = sum(p.numel() * p.element_size() for p in a.parameters())
+    inner = torch.optim.SGD(a.parameters(), **SHARDED_SGD)
+    opt_a = bps.DistributedOptimizer(
+        inner, named_parameters=[(f"sharded.{n}", p)
+                                 for n, p in a.named_parameters()],
+        sharded_update=True)
+    inner_b = torch.optim.SGD(b.parameters(), **SHARDED_SGD)
+    opt_b = bps.DistributedOptimizer(
+        inner_b, named_parameters=[(f"replicated.{n}", p)
+                                   for n, p in b.named_parameters()],
+        sharded_update=False)
+    wire = []
+
+    def step():
+        before = (eng.stats["wire_push"], eng.stats["wire_pull"])
+        opt_a.zero_grad()
+        loss = torch.nn.functional.cross_entropy(a(images), labels)
+        loss.backward()
+        opt_a.step()
+        wire.append((eng.stats["wire_push"] - before[0],
+                     eng.stats["wire_pull"] - before[1]))
+        return loss
+
+    def after(i):
+        opt_b.zero_grad()
+        torch.autograd.backward(list(b.parameters()),
+                                [p.grad for p in a.parameters()])
+        opt_b.step()
+
+    ms, losses = _timed_arm_steps(torch, name, step, after)
+    diff = [n for (n, p), q in zip(a.named_parameters(), b.parameters())
+            if not same_bits(p.detach(), q.detach())]
+    check(not diff, f"{name}: {len(diff)} parameters differ from the "
+                    f"unsharded arm's, first {diff[:3]}")
+    row = _engine_arm_report(torch, eng, inner, ms, wire, nbytes, name)
+    row["unsharded_inner_bytes"] = _state_nbytes(torch, inner_b)
+    log(f"{name}: every one of {len(list(a.parameters()))} parameters equals "
+        f"the unsharded arm's bit for bit after {len(losses)} steps; the "
+        f"unsharded inner optimizer holds {row['unsharded_inner_bytes']} B; "
+        f"losses {[round(x, 4) for x in losses]}")
+    bps.shutdown()
+    del opt_a, opt_b, inner, inner_b, a, b, batch, images, labels
+    torch.cuda.empty_cache()
+    return row
+
+
+def gpt_zero_arm(torch, bps, api, gpt, kind):
+    """GPT-small at full width (1 x 8192 tokens, flash attention), AdamW
+    through ZeRO-1 (bf16 parameters, an f32 master) or flat FSDP (an f32
+    template, bf16 compute), at a world of one.  The plain step with an
+    f32 master: a master per parameter from the template's values, its
+    own AdamW fed the raw gradients of each step (captured by hooks), and
+    its loss from a forward of a bf16 copy of the model holding its
+    masters.  Losses and masters must be equal bit for bit (at one rank
+    the reduce-scatter and the all-gather are identities, the division
+    by 1 is exact, and AdamW on the flat vector is AdamW on each tensor
+    element for element); the control, the bf16 parameters stepped by
+    AdamW without a master, must differ."""
+    from byteps_tpu_torch.models.gpt import lm_loss
+    from byteps_tpu_torch.ops.flash_attention import flash_attention
+    from byteps_tpu_torch.parallel import zero
+    from byteps_tpu_torch.parallel.long_context import synthetic_lm_batch
+
+    name = f"gpt_{kind}"
+    torch.cuda.reset_peak_memory_stats()
+    bps.init()
+    comm, dev = api.engine().comm, api.device()
+    cfg = gpt.gpt_small()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = gpt.GPT(cfg, attn_fn=flash_attention, device=dev, generator=gen)
+    if kind == "zero1":
+        model = model.to(torch.bfloat16)
+    data = synthetic_lm_batch(gen, cfg, *SHARDED_LM_BATCH["gpt"])
+    batch = (data["input_ids"], data["labels"])
+    masters = {n: p.detach().float().clone()
+               for n, p in model.named_parameters()}
+    ref_opt = torch.optim.AdamW(list(masters.values()), **SHARDED_ADAMW)
+    ctrls = {n: m.bfloat16() for n, m in masters.items()}
+    ctrl_opt = torch.optim.AdamW(list(ctrls.values()), **SHARDED_ADAMW)
+    plain = gpt.GPT(cfg, attn_fn=flash_attention, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4)
+                    ).to(torch.bfloat16)
+    raw = {}
+    for n, p in model.named_parameters():
+        p.register_post_accumulate_grad_hook(
+            lambda p, n=n: raw.__setitem__(n, p.grad.clone()))
+    zs = zero.init_zero_state(
+        comm, model, lambda ps: torch.optim.AdamW(ps, **SHARDED_ADAMW))
+
+    def loss_fn(m, b):
+        return lm_loss(m(b[0]), b[1])
+
+    if kind == "zero1":
+        zstep = zero.make_zero_train_step(comm, model, loss_fn)
+    else:
+        zstep = zero.make_fsdp_train_step(comm, model, loss_fn,
+                                          compute_dtype=torch.bfloat16)
+    n = sum(m.numel() for m in masters.values())
+    differ = []
+
+    def plain_loss():
+        """The plain step's loss at its current masters (bf16 copies)."""
+        with torch.no_grad():
+            for (_, p), m in zip(plain.named_parameters(), masters.values()):
+                p.copy_(m)
+            return float(loss_fn(plain, batch))
+
+    ref_losses = [plain_loss()]
+
+    def after(i):
+        for k, m in masters.items():
+            m.grad = raw[k].float()
+            ctrls[k].grad = raw[k]
+        ref_opt.step()
+        ctrl_opt.step()
+        raw.clear()
+        flat = torch.cat([m.reshape(-1) for m in masters.values()])
+        check(same_bits(zs.master[:n], flat),
+              f"{name}: the master after step {i} differs from the plain "
+              f"step's f32 masters")
+        differ.append(not all(same_bits(c, m.bfloat16())
+                              for c, m in zip(ctrls.values(),
+                                              masters.values())))
+        ref_losses.append(plain_loss())        # the next step's
+
+    ms, losses = _timed_arm_steps(torch, name, lambda: zstep(zs, batch),
+                                  after)
+    check(losses == ref_losses[:-1], f"{name}: losses {losses}, the plain "
+                                     f"step's {ref_losses[:-1]}")
+    check(differ[-1], f"{name}: the control (bf16 parameters stepped "
+                      f"without a master) did not differ")
+    state = (zs.master.numel() * 4 + _state_nbytes(torch, zs.optimizer))
+    log(f"{name}: {n} parameters; losses {[round(x, 4) for x in losses]} "
+        f"and the f32 masters equal the plain step's bit for bit after each "
+        f"of {len(losses)} steps, the bf16-stepped control differs")
+    row = {"arm": name, "step_ms": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "state_bytes": state, "inner_bytes": None, "wire": None}
+    bps.shutdown()
+    del zs, zstep, model, plain, masters, ref_opt, ctrls, ctrl_opt, data
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_phase(torch, bps, api, Config, llama, gpt, resnet):
+    """Phase 8: the sharded weight update and ZeRO on the card, four arms,
+    each freed before the next (the docstring at the top)."""
+    rows = [llama_sharded_arm(torch, bps, api, Config, llama),
+            resnet_sharded_arm(torch, bps, api, Config, resnet),
+            gpt_zero_arm(torch, bps, api, gpt, "zero1"),
+            gpt_zero_arm(torch, bps, api, gpt, "fsdp")]
+    for r in rows:
+        ms = r["step_ms"]
+        inner = ("none (ZeRO)" if r["inner_bytes"] is None
+                 else f"{r['inner_bytes']} B")
+        wire = ("not through the engine" if r["wire"] is None
+                else f"push {r['wire'][0]} B, pull {r['wire'][1]} B")
+        log(f"sharded update: {r['arm']}: median {statistics.median(ms):.2f}"
+            f" ms (min {min(ms):.2f}, max {max(ms):.2f}) over {len(ms)} "
+            f"steps after 1 warm-up; peak {r['peak_gib']:.2f} GiB; state "
+            f"{r['state_bytes']} B in the slots/ZeroState, inner optimizer "
+            f"{inner}; wire per step {wire}")
+    return rows
+
+
 def planner_locked(eng):
     """Whether every planner bucket (tensors above the base bound) has
     locked its chunk size; False while there is none yet."""
@@ -1685,6 +2033,9 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations", "library_ms": r["library_ms"]})
+    t_phase = time.perf_counter()
+    sharded_phase(torch, bps, api, Config, llama, gpt, resnet)
+    log(f"sharded update phase: {time.perf_counter() - t_phase:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
+import torch
 
 from byteps_tpu.common.partitioner import chunk_bounds
 from byteps_tpu.compression import create as jax_create
@@ -207,3 +208,33 @@ def test_ranks_receive_identical_results(results, layout):
         assert r0.keys() == r.keys()
         for k in r0:
             np.testing.assert_array_equal(r0[k], r[k], err_msg=k)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_sharded_update_and_zero(results, layout):
+    """The worker's sharded-update case (SGD with momentum and Adam on a
+    ragged multi-chunk tensor, an even one and a small one) equals the
+    replicated update and the optimizer on the exact averages, bit for
+    bit; its ZeRO-1 and FSDP steps ("all", and "ici" across two nodes)
+    equal replicated data parallelism with AdamW to rtol 1e-5 (the ranks'
+    gradients of the MLP are summed in another order)."""
+    from . import torch_sharded_worker as SW
+    R = _world(layout)
+    _, want_params = SW.replicated_mlp(
+        R, SW.ZERO_STEPS, lambda ps: torch.optim.AdamW(ps, **SW.ZERO_ADAMW))
+    axes = ("all", "ici") if W.LAYOUTS[layout][0] > 1 else ("all",)
+    for res in results[layout]:
+        for opt in W.SHARDED_OPTIMIZERS:
+            for t, n in W.SHARDED_TENSORS.items():
+                want = SW.replay(opt, SW.init_param(7, n),
+                                 SW.exact_averages(opt, t, R, n, SW.STEPS))
+                key = f"sharded/{opt}/{t}"
+                np.testing.assert_array_equal(res[f"{key}/sharded"], want)
+                np.testing.assert_array_equal(res[f"{key}/unsharded"], want)
+                assert bool(res[f"{key}/buffered"]) == (t != "b")
+        for a in axes:
+            for kind in ("zero1", "fsdp"):
+                for k, v in want_params.items():
+                    np.testing.assert_allclose(res[f"zero/{a}/{kind}/{k}"],
+                                               v, rtol=1e-5, atol=1e-7,
+                                               err_msg=(a, kind, k))

@@ -415,7 +415,7 @@ def _grouped_run(card, group_size, n_tensors=8, numel=1000):
         outs = [h.wait(timeout=60) for h in hs]
         torch.cuda.synchronize()
         return ([o.cpu() for o in outs], [x.cpu() for x in xs],
-                dict(eng.stats))
+                {k: eng.stats[k] for k in ("dispatches", "chunks")})
     finally:
         bps.shutdown()
 
@@ -451,7 +451,7 @@ def test_group_results_outlive_the_other_handles(card):
         hs = [api.push_pull_async(x, f"keep/{i}") for i, x in enumerate(xs)]
         eng.resume_dispatch()
         outs = [h.wait(timeout=60) for h in hs]
-        assert eng.stats == {"dispatches": 1, "chunks": 4}
+        assert (eng.stats["dispatches"], eng.stats["chunks"]) == (1, 4)
         keep = outs[2]
         del outs, hs
         torch.cuda.synchronize()
@@ -803,3 +803,102 @@ def test_wrappers_at_a_world_of_one_on_card(card, wrapper):
         return
     for p, q in zip(model.parameters(), ref.parameters()):
         assert torch.equal(p, q)
+
+
+# -------------------------------------------------- sharded update and ZeRO
+
+def _slot_trajectory(device, opt, n, dtype, steps=3):
+    """``opt`` of the sharded worker on one slot at a world of one, pushed
+    through the engine on ``device`` (the card: an engine; the CPU: the
+    same optimizer on the whole tensor, which is what a slot at one rank
+    computes)."""
+    from tests import torch_sharded_worker as SW
+    from byteps_tpu_torch.core import api
+    cls, hyper = SW.OPTIMIZERS[opt]
+    hyper = dict(hyper, foreach=False)      # one implementation on both
+    p0 = torch.from_numpy(SW.init_param(7, n)).to(dtype)
+    grads = [torch.from_numpy(SW.rows(SW.grad_seed(opt, "w", s), 1, n)[0])
+             .to(dtype) for s in range(steps)]
+    if device.type == "cpu":
+        m = p0.float()
+        o = cls([m], **hyper)
+        for g in grads:
+            m.grad = g.float()
+            o.step()
+        return m.to(dtype)
+    name = f"card/{opt}/{n}/{dtype}"
+    api.declare_update(name, (n,), dtype, optimizer=(cls, hyper),
+                       init_value=p0.to(device))
+    for g in grads:
+        out = api.push_pull_update(g.to(device), name)
+    return out.cpu()
+
+
+def test_sharded_slot_on_card_matches_cpu(card):
+    """Slots on the card (the scatter accumulator, the parts fallback, a
+    bf16 tensor) against the same optimizer on the CPU: SGD with momentum
+    bit for bit, Adam to 1e-6 (the card's elementwise kernels may
+    contract a multiply-add the CPU's round twice)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.config import Config
+
+    bps.init(Config(sharded_update=True, partition_bytes=4096))
+    try:
+        for opt, n, dtype in (("momentum", 3001, torch.float32),
+                              ("momentum", 37, torch.float32),
+                              ("adam", 3001, torch.float32),
+                              ("adamw", 3001, torch.bfloat16)):
+            got = _slot_trajectory(card, opt, n, dtype)
+            want = _slot_trajectory(torch.device("cpu"), opt, n, dtype)
+            if opt == "momentum":
+                assert torch.equal(got, want), (opt, n)
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=1e-6 if dtype ==
+                                           torch.float32 else 2**-7)
+    finally:
+        bps.shutdown()
+
+
+def test_zero_steps_on_card_match_cpu(card):
+    """ZeRO-1 and FSDP at a world of one on the card against the same
+    steps on the CPU (no collective at one rank): losses and masters to
+    1e-5 (cuBLAS and the CPU's BLAS sum the MLP's products in other
+    orders)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.comm.mesh import CommContext
+    from byteps_tpu_torch.core import api
+    from byteps_tpu_torch.parallel import zero
+    from tests import torch_sharded_worker as SW
+
+    def run(comm, kind):
+        dev = comm.device
+        model = SW.TinyMLP(SW.mlp_params()).to(dev)
+        zs = zero.init_zero_state(
+            comm, model, lambda ps: torch.optim.AdamW(ps, **SW.ZERO_ADAMW))
+        step = (zero.make_zero_train_step(comm, model, SW.mse)
+                if kind == "zero1" else
+                zero.make_fsdp_train_step(comm, model, SW.mse))
+        losses = []
+        for s in range(SW.ZERO_STEPS):
+            x, y = SW.mlp_batch(s, 1)
+            losses.append(step(zs, (torch.from_numpy(x).to(dev),
+                                    torch.from_numpy(y).to(dev))).item())
+        return losses, zs.master.cpu()
+
+    cpu = CommContext(rank=0, size=1, local_rank=0, local_size=1,
+                      num_nodes=1, device=torch.device("cpu"),
+                      backend="gloo")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bps.init()
+    try:
+        for kind in ("zero1", "fsdp"):
+            got = run(api.engine().comm, kind)
+            want = run(cpu, kind)
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                                       atol=1e-6)
+    finally:
+        bps.shutdown()
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -28,6 +28,7 @@ from byteps_tpu_torch.comm import collectives, compressed
 from byteps_tpu_torch.common.config import Config
 from byteps_tpu_torch.compression import registry
 from byteps_tpu_torch.core import api
+from tests import torch_sharded_worker as SW
 
 DTYPES = {"float32": torch.float32, "float16": torch.float16,
           "bfloat16": torch.bfloat16}
@@ -52,6 +53,10 @@ CODECS = {
                  "momentum": "nesterov"},
 }
 CODEC_STEPS = 2
+# the sharded weight update: a ragged multi-chunk tensor (the scatter
+# accumulator), an even one, and a small one (the parts fallback)
+SHARDED_TENSORS = {"w": 3001, "v": 4096, "b": 37}
+SHARDED_OPTIMIZERS = ("momentum", "adam")
 
 
 def rows(seed, world, n):
@@ -65,6 +70,7 @@ def main(out_path, device="cpu"):
     cfg = Config.from_env()
     # small partitions: the engine tensors below span several chunks
     cfg.partition_bytes = 4096
+    cfg.sharded_update = True         # only declare_update tensors use it
     api.init(cfg, device=device)
     comm = api.engine().comm
     dev = comm.device
@@ -131,6 +137,14 @@ def main(out_path, device="cpu"):
     res["engine/stats"] = np.array([eng.stats["dispatches"],
                                     eng.stats["chunks"]])
     res["engine/planner_active"] = np.array(eng.planner.active)
+
+    # the sharded weight update and ZeRO (ZeRO-1 and FSDP, "all" and, at
+    # more than one node, "ici"), as tests/torch_sharded_worker.py runs
+    # them
+    SW.slot_cases(res, "sharded", SHARDED_OPTIMIZERS, SHARDED_TENSORS, R,
+                  rank, dev)
+    SW.zero_cases(res, "zero", R, rank, dev,
+                  layouts=("all", "ici") if comm.num_nodes > 1 else ("all",))
     api.shutdown()
     np.savez(out_path, **res)
 
@@ -178,7 +192,10 @@ def spawn(layout, device, out_dir, timeout=180):
 # PSGD_TOL of their max-abs; the l2 dithering arm's integer leaves may
 # differ in L2_SHARE of their elements (a code on a rounding threshold),
 # its float leaves in L2_SHARE of them beyond 1e-5 of the max-abs; the
-# other codec values and compressed results to rtol 1e-5; the rest exact
+# other codec values and compressed results to rtol 1e-5; the optimizers'
+# results (the sharded update's and ZeRO's) to rtol 1e-5 and atol 1e-7
+# (the card's elementwise kernels contract multiply-adds, the matmuls of
+# the MLP sum in another order); the rest exact
 PSGD_TOL = 1e-5
 L2_SHARE = 1e-3
 
@@ -196,8 +213,9 @@ def _disagreement(k, a, b):
             share = float((np.abs(a - b) > 1e-5 * np.abs(b).max()).mean())
         return None if share <= L2_SHARE else f"{share:.3g} of the elements"
     rtol = 1e-5 if k.endswith("/out") or k.startswith(
-        ("codec/", "engine/a/")) else 0
-    if np.allclose(a, b, rtol=rtol, atol=0):
+        ("codec/", "engine/a/", "sharded/", "zero/")) else 0
+    atol = 1e-7 if k.startswith(("sharded/", "zero/")) else 0
+    if np.allclose(a, b, rtol=rtol, atol=atol):
         return None
     return f"max rel diff {np.abs(a - b).max() / np.abs(b).max():.3g}"
 
