@@ -21,6 +21,12 @@ Under ``Config.sharded_update`` the engine also runs the optimizer on
 each tensor's owner-resident reduce-scatter shard
 (``core/sharded_update.py``, ``DistributedOptimizer(sharded_update=
 True)``), and ``parallel/zero.py`` has the ZeRO-1 and flat FSDP steps.
+The async parameter server: ``AsyncDistributedOptimizer`` pushes each
+step's weight deltas, sealed in CRC32C envelopes
+(``common/integrity.py``), to a ``KVStore`` that sums them on arrival,
+and pulls the fresh weights; ``ServerEngine`` is the reference's
+synchronous merge; ``fault/injector.py`` injects seeded faults into
+their wire hops.
 """
 
 from .torch import *  # noqa: F401,F403 — the adapter is the public surface

@@ -19,18 +19,46 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
   - BYTEPS_COMPRESS_ERROR_CEILING        -> compress_error_ceiling
   - BYTEPS_SHARDED_UPDATE                -> sharded_update
   - BYTEPS_SHARDED_UPDATE_FUSED          -> sharded_update_fused
+  - BYTEPS_ENABLE_ASYNC                  -> enable_async
+  - BYTEPS_SERVER_ENGINE_THREAD / BYTEPS_SERVER_ENABLE_SCHEDULE /
+    BYTEPS_SERVER_DEBUG_KEY              -> server_engine_threads /
+                                            server_enable_schedule /
+                                            server_debug_key
+  - BYTEPS_KEY_HASH_FN / BYTEPS_ENABLE_MIXED_MODE /
+    BYTEPS_MIXED_MODE_BOUND              -> key_hash_fn / enable_mixed_mode
+                                            / mixed_mode_bound
+  - BYTEPS_SERVE_REPLICAS / BYTEPS_SERVE_HOT_KEYS -> serve_replicas /
+                                            serve_hot_keys (the
+                                            ServerAssigner's replica sets)
+  - BYTEPS_INTEGRITY / BYTEPS_INTEGRITY_LOOPBACK /
+    BYTEPS_INTEGRITY_MAX_RETRANSMITS / BYTEPS_NONFINITE_POLICY
+                                         -> integrity_on /
+                                            integrity_loopback /
+                                            integrity_max_retransmits /
+                                            nonfinite_policy
+  - BYTEPS_FAULT_SPEC / BYTEPS_FAULT_SEED -> fault_spec / fault_seed
+  - BYTEPS_RETRY_MAX_ATTEMPTS / BYTEPS_RETRY_BASE_DELAY /
+    BYTEPS_RETRY_MAX_DELAY / BYTEPS_RETRY_DEADLINE
+                                         -> retry_max_attempts /
+                                            retry_base_delay_s /
+                                            retry_max_delay_s /
+                                            retry_deadline_s
 
 ``partition_pinned`` / ``credit_pinned`` are set when the environment
 variable is present (whatever its value) or the field is given a value
 other than its default; the planner never moves a pinned knob
 (JAX ``config.py:761-771``, ``1002-1005``).
 
-Unlike the JAX package there is no process-wide cached config: ``init``
-builds one with :meth:`Config.from_env` (or takes the caller's) and the
-engine owns it.
+``init`` builds the engine's config with :meth:`Config.from_env` (or
+takes the caller's) and the engine owns it.  The planes without an
+engine (the parameter server, the integrity envelope, the retry policy)
+read the process-wide config of :func:`get_config`, built from the
+environment at first use or installed with :func:`set_config`, as in the
+JAX package.
 
 Not ported: the knobs of the planes the port does not have yet
-(membership and the sync deadline, telemetry, tracing, the server), and
+(membership and the sync deadline, telemetry, tracing, serving,
+durability, the transport), and
 ``sharded_param_codec`` (``BYTEPS_SHARDED_PARAM_CODEC``), the quantized
 parameter leg of the sharded update: the JAX slot compresses the whole
 update vector with one codec instance under one controller, where each
@@ -70,6 +98,10 @@ def _env_float(name: str, default: float) -> float:
         return float(v)
     except ValueError:
         raise ValueError(f"{name} must be a number, got {v!r}") from None
+
+
+def _env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -133,6 +165,40 @@ class Config:
     # build or load raises; False selects the Python heap.
     use_native: bool = True
 
+    # --- modes ---
+    enable_async: bool = False       # async-PS weight deltas
+    #                                  (torch/async_opt.py)
+
+    # --- server engine (reference server.cc) ---
+    server_engine_threads: int = 4
+    server_enable_schedule: bool = False
+    server_debug_key: str = ""
+    key_hash_fn: str = "djb2"        # server/sharding.py ServerAssigner
+    enable_mixed_mode: bool = False
+    mixed_mode_bound: int = 101
+    serve_replicas: int = 1          # hot-key replica set size
+    serve_hot_keys: int = 8          # keys eligible for a replica set
+
+    # --- data integrity (common/integrity.py) ---
+    # CRC32C envelopes and the non-finite quarantine on every host hop of
+    # the parameter server; False = nothing sealed, hashed or screened
+    integrity_on: bool = True
+    # in-process ServerEngine pushes skip the seal->CRC->open round trip
+    # while no chaos is armed (one plain copy instead)
+    integrity_loopback: bool = True
+    integrity_max_retransmits: int = 3
+    nonfinite_policy: str = "raise"  # raise | skip | zero
+
+    # --- fault injection (fault/injector.py) ---
+    fault_spec: str = ""             # armed by init(); empty = disabled
+    fault_seed: int = 0
+
+    # --- retry/backoff (common/retry.py) ---
+    retry_max_attempts: int = 3
+    retry_base_delay_s: float = 0.1
+    retry_max_delay_s: float = 2.0
+    retry_deadline_s: float = 60.0
+
     # None: resolved in __post_init__ (pinned when not the default)
     partition_pinned: Optional[bool] = None
     credit_pinned: Optional[bool] = None
@@ -171,6 +237,17 @@ class Config:
             raise ValueError(
                 "compress_error_ceiling must be in (0, 1] — it is a "
                 "relative gradient-error bound")
+        if self.serve_replicas < 1:
+            raise ValueError("serve_replicas must be >= 1 (1 = primary "
+                             "only, no replication)")
+        if self.serve_hot_keys < 0:
+            raise ValueError("serve_hot_keys must be >= 0")
+        if self.nonfinite_policy not in ("raise", "skip", "zero"):
+            raise ValueError(
+                f"BYTEPS_NONFINITE_POLICY must be raise, skip, or zero — "
+                f"got {self.nonfinite_policy!r}")
+        if self.integrity_max_retransmits < 0:
+            raise ValueError("integrity_max_retransmits must be >= 0")
 
     @property
     def world_size(self) -> int:
@@ -205,9 +282,54 @@ class Config:
             sharded_update=_env_bool("BYTEPS_SHARDED_UPDATE", False),
             sharded_update_fused=_env_bool("BYTEPS_SHARDED_UPDATE_FUSED",
                                            False),
+            enable_async=_env_bool("BYTEPS_ENABLE_ASYNC", False),
+            server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
+            server_enable_schedule=_env_bool("BYTEPS_SERVER_ENABLE_SCHEDULE",
+                                             False),
+            server_debug_key=_env_str("BYTEPS_SERVER_DEBUG_KEY", ""),
+            key_hash_fn=_env_str("BYTEPS_KEY_HASH_FN", "djb2"),
+            enable_mixed_mode=_env_bool("BYTEPS_ENABLE_MIXED_MODE", False),
+            mixed_mode_bound=_env_int("BYTEPS_MIXED_MODE_BOUND", 101),
+            serve_replicas=_env_int("BYTEPS_SERVE_REPLICAS", 1),
+            serve_hot_keys=_env_int("BYTEPS_SERVE_HOT_KEYS", 8),
+            integrity_on=_env_bool("BYTEPS_INTEGRITY", True),
+            integrity_loopback=_env_bool("BYTEPS_INTEGRITY_LOOPBACK", True),
+            integrity_max_retransmits=_env_int(
+                "BYTEPS_INTEGRITY_MAX_RETRANSMITS", 3),
+            nonfinite_policy=_env_str("BYTEPS_NONFINITE_POLICY",
+                                      "raise").strip().lower(),
+            fault_spec=_env_str("BYTEPS_FAULT_SPEC", ""),
+            fault_seed=_env_int("BYTEPS_FAULT_SEED", 0),
+            retry_max_attempts=_env_int("BYTEPS_RETRY_MAX_ATTEMPTS", 3),
+            retry_base_delay_s=_env_float("BYTEPS_RETRY_BASE_DELAY", 0.1),
+            retry_max_delay_s=_env_float("BYTEPS_RETRY_MAX_DELAY", 2.0),
+            retry_deadline_s=_env_float("BYTEPS_RETRY_DEADLINE", 60.0),
             # the variable's presence is the pin, whatever its value
             partition_pinned=("BYTEPS_PARTITION_BYTES" in os.environ
                               or None),
             credit_pinned=("BYTEPS_SCHEDULING_CREDIT" in os.environ
                            or None),
         )
+
+
+_config: Optional[Config] = None
+
+
+def get_config() -> Config:
+    """The process-wide config, built from the environment on first use."""
+    global _config
+    if _config is None:
+        _config = Config.from_env()
+    return _config
+
+
+def set_config(cfg: Config) -> None:
+    """Install an explicit process-wide config (tests, embedding
+    applications)."""
+    global _config
+    _config = cfg
+
+
+def reset_config() -> None:
+    global _config
+    _config = None

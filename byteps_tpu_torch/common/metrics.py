@@ -1,0 +1,340 @@
+"""Unified metrics registry; port of ``byteps_tpu/common/metrics.py``,
+whole, with the same metric names (``integrity.crc_reject``,
+``integrity.retransmit``, ``integrity.dup_dropped``,
+``integrity.nonfinite_*``, ``membership.stale_pushes_dropped``,
+``fault.*``, ``retry.*``, ``wire_bytes``).  The registry's lock is a
+plain ``threading.Lock``: the port has no lock-order witness yet.
+
+The JAX package's story of it: the trajectory accreted three process-wide singletons — ``counters``
+(monotonic), ``gauges`` (last-value), ``histograms`` (pow2-bucketed) —
+each with its own snapshot and no way to export any of them off-host.
+This module subsumes them behind ONE :class:`MetricsRegistry`:
+
+- **One consistent snapshot** (:meth:`MetricsRegistry.snapshot`): all
+  three kinds under a single lock, so a scrape never observes a counter
+  from before an event and the matching gauge from after it.
+- **Optional labels**: ``counters.inc("wire_bytes", n, key=name)``
+  keeps the plain ``wire_bytes`` series untouched while adding a
+  per-key breakdown; unlabeled series render exactly as before, so no
+  established metric name changes.
+- **Prometheus text exposition** (:meth:`render_prometheus`): the wire
+  format of a ``/metrics`` endpoint — names sanitized to
+  ``byteps_<name>`` with the established dotted spelling preserved in
+  the snapshot.
+
+``common/telemetry.py`` re-exports the :class:`Counters` /
+:class:`Gauges` / :class:`Histograms` views bound to the process-wide
+:data:`registry`, so every existing call site
+(``counters.inc("integrity.crc_reject")`` and friends) migrates without
+renaming anything.
+"""
+
+from __future__ import annotations
+
+import threading
+import weakref
+from typing import Dict, Iterable, List, Optional, Tuple
+
+
+# label set canonical form: sorted (key, value) tuple — hashable, and
+# the render order is deterministic regardless of call-site kwarg order
+_Labels = Tuple[Tuple[str, str], ...]
+_Key = Tuple[str, _Labels]
+
+
+def _labels_of(labels: Optional[Dict[str, object]]) -> _Labels:
+    if not labels:
+        return ()
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def pow2_bucket(value: float) -> int:
+    """The histogram bucket a value lands in: ``2**ceil(log2(v))`` for
+    positive values, bucket 0 for ``v <= 0`` — tiny bucket sets, no
+    pre-declaration (the established Histograms semantics).
+
+    Non-finite guard: without it ``+inf`` loops the doubling forever
+    (a Python int never reaches inf) and freezes whatever instrumented
+    thread observed it — a rate computed against a zero denominator
+    must corrupt one histogram cell, not wedge the dispatcher.  NaN
+    and ``-inf`` land in bucket 0, ``+inf`` in a single huge overflow
+    bucket."""
+    if value != value or value <= 0:       # NaN, zero, negatives, -inf
+        return 0
+    if value == float("inf"):
+        return 1 << 62
+    b = 1
+    while b < value:
+        b <<= 1
+    return b
+
+
+def escape_label_value(v: str) -> str:
+    """Prometheus text-format label-value escaping: backslash, double
+    quote, and newline (exposition format spec)."""
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def sanitize_name(name: str) -> str:
+    """Map an established dotted metric name onto the Prometheus name
+    charset ``[a-zA-Z_:][a-zA-Z0-9_:]*`` (``integrity.crc_reject`` →
+    ``integrity_crc_reject``)."""
+    out = "".join(c if c.isalnum() or c in "_:" else "_" for c in name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+def _render_series(name: str, labels: _Labels) -> str:
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{escape_label_value(v)}"' for k, v in labels)
+    return f"{name}{{{inner}}}"
+
+
+class MetricsRegistry:
+    """Thread-safe store for the three metric kinds, with labels.
+
+    Counters are monotonic ints, gauges last-value floats, histograms
+    pow2-bucketed counts plus a running sum (the sum exists only for
+    Prometheus ``_sum`` exposition; the bucket map is the established
+    snapshot shape).
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: Dict[_Key, int] = {}
+        self._gauges: Dict[_Key, float] = {}
+        self._hist: Dict[_Key, Dict[int, int]] = {}
+        self._hist_sum: Dict[_Key, float] = {}
+
+    # -- writes ------------------------------------------------------------
+
+    def inc(self, name: str, n: int = 1,
+            labels: Optional[Dict[str, object]] = None) -> None:
+        key = (name, _labels_of(labels))
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + n
+
+    def set(self, name: str, value: float,
+            labels: Optional[Dict[str, object]] = None) -> None:
+        key = (name, _labels_of(labels))
+        with self._lock:
+            self._gauges[key] = float(value)
+
+    def observe(self, name: str, value: float, n: int = 1,
+                labels: Optional[Dict[str, object]] = None) -> None:
+        b = pow2_bucket(value)
+        key = (name, _labels_of(labels))
+        with self._lock:
+            buckets = self._hist.setdefault(key, {})
+            buckets[b] = buckets.get(b, 0) + n
+            self._hist_sum[key] = self._hist_sum.get(key, 0.0) + value * n
+
+    # -- reads -------------------------------------------------------------
+
+    def get_counter(self, name: str,
+                    labels: Optional[Dict[str, object]] = None) -> int:
+        with self._lock:
+            return self._counters.get((name, _labels_of(labels)), 0)
+
+    def get_gauge(self, name: str, default: float = 0.0,
+                  labels: Optional[Dict[str, object]] = None) -> float:
+        with self._lock:
+            return self._gauges.get((name, _labels_of(labels)), default)
+
+    def hist_count(self, name: str,
+                   labels: Optional[Dict[str, object]] = None) -> int:
+        with self._lock:
+            return sum(self._hist.get((name, _labels_of(labels)),
+                                      {}).values())
+
+    def snapshot(self) -> Dict[str, dict]:
+        """One atomic view of everything: ``{"counters": {series: n},
+        "gauges": {series: v}, "histograms": {series: {bucket: count}}}``
+        where an unlabeled series key is the bare established name and a
+        labeled one renders as ``name{k="v"}``."""
+        with self._lock:
+            return {
+                "counters": {_render_series(n, lb): v
+                             for (n, lb), v in self._counters.items()},
+                "gauges": {_render_series(n, lb): v
+                           for (n, lb), v in self._gauges.items()},
+                "histograms": {_render_series(n, lb): dict(b)
+                               for (n, lb), b in self._hist.items()},
+            }
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def reset(self, kind: Optional[str] = None) -> None:
+        """Clear everything, or one kind (``"counters"`` / ``"gauges"`` /
+        ``"histograms"``) — the per-kind form backs the legacy
+        ``counters.reset()``-style facades."""
+        with self._lock:
+            if kind in (None, "counters"):
+                self._counters.clear()
+            if kind in (None, "gauges"):
+                self._gauges.clear()
+            if kind in (None, "histograms"):
+                self._hist.clear()
+                self._hist_sum.clear()
+
+    # -- exposition --------------------------------------------------------
+
+    def render_prometheus(self, prefix: str = "byteps_") -> str:
+        """Prometheus text exposition (format 0.0.4) of the whole
+        registry.  Counters render as ``<prefix><name>_total``, gauges as
+        ``<prefix><name>``, histograms as cumulative ``_bucket{le=...}``
+        series with ``_sum``/``_count`` — the standard shapes, with the
+        established dotted names sanitized to underscores."""
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hist = {k: dict(v) for k, v in self._hist.items()}
+            hist_sum = dict(self._hist_sum)
+        lines: List[str] = []
+        typed = set()
+
+        def _head(pname: str, kind: str):
+            if pname not in typed:
+                typed.add(pname)
+                lines.append(f"# TYPE {pname} {kind}")
+
+        for (name, lb), v in sorted(counters.items()):
+            pname = prefix + sanitize_name(name) + "_total"
+            _head(pname, "counter")
+            lines.append(f"{_render_series(pname, lb)} {v}")
+        for (name, lb), v in sorted(gauges.items()):
+            pname = prefix + sanitize_name(name)
+            _head(pname, "gauge")
+            lines.append(f"{_render_series(pname, lb)} {_fmt_float(v)}")
+        for (name, lb), buckets in sorted(hist.items()):
+            pname = prefix + sanitize_name(name)
+            _head(pname, "histogram")
+            cum = 0
+            for b in sorted(buckets):
+                cum += buckets[b]
+                series = _render_series(
+                    pname + "_bucket", lb + (("le", str(b)),))
+                lines.append(f"{series} {cum}")
+            lines.append(
+                f"{_render_series(pname + '_bucket', lb + (('le', '+Inf'),))}"
+                f" {cum}")
+            lines.append(f"{_render_series(pname + '_sum', lb)} "
+                         f"{_fmt_float(hist_sum.get((name, lb), 0.0))}")
+            lines.append(f"{_render_series(pname + '_count', lb)} {cum}")
+        return "\n".join(lines) + "\n"
+
+
+def _fmt_float(v: float) -> str:
+    # integers render without the trailing .0 (smaller exposition, and
+    # counters-as-gauges stay grep-identical to their int values)
+    return str(int(v)) if float(v).is_integer() and abs(v) < 2**53 else repr(v)
+
+
+# -- the legacy singleton surfaces (views over one registry) ----------------
+
+
+class Counters:
+    """Thread-safe named monotonic counters — now a view over a
+    :class:`MetricsRegistry` (the process singleton by default), with
+    optional labels: ``counters.inc("wire_bytes", n, key="grad.0")``
+    adds a labeled series beside the unlabeled one."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._r = registry if registry is not None else MetricsRegistry()
+
+    @property
+    def registry(self) -> MetricsRegistry:
+        return self._r
+
+    def inc(self, name: str, n: int = 1, **labels) -> None:
+        self._r.inc(name, n, labels or None)
+
+    def get(self, name: str, **labels) -> int:
+        return self._r.get_counter(name, labels or None)
+
+    def snapshot(self) -> Dict[str, int]:
+        return self._r.snapshot()["counters"]
+
+    def reset(self) -> None:
+        self._r.reset("counters")
+
+
+class Gauges:
+    """Thread-safe last-value gauges (point-in-time readings, unlike the
+    monotonic :class:`Counters`) — a view over the shared registry."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._r = registry if registry is not None else MetricsRegistry()
+
+    def set(self, name: str, value: float, **labels) -> None:
+        self._r.set(name, value, labels or None)
+
+    def get(self, name: str, default: float = 0.0, **labels) -> float:
+        return self._r.get_gauge(name, default, labels or None)
+
+    def snapshot(self) -> Dict[str, float]:
+        return self._r.snapshot()["gauges"]
+
+    def reset(self) -> None:
+        self._r.reset("gauges")
+
+
+class Histograms:
+    """Power-of-two-bucketed histograms for dispatch-path distributions
+    (dispatch-unit width, per-unit sync latency).  A value v lands in
+    bucket ``2**ceil(log2(v))`` (v <= 0 lands in bucket 0), so the
+    bucket set is tiny and needs no pre-declaration.  Snapshot shape:
+    ``{name: {bucket_upper_bound: count}}`` — a view over the shared
+    registry."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._r = registry if registry is not None else MetricsRegistry()
+
+    def observe(self, name: str, value: float, n: int = 1, **labels) -> None:
+        self._r.observe(name, value, n, labels or None)
+
+    def snapshot(self) -> Dict[str, Dict[int, int]]:
+        return self._r.snapshot()["histograms"]
+
+    def count(self, name: str, **labels) -> int:
+        return self._r.hist_count(name, labels or None)
+
+    def reset(self) -> None:
+        self._r.reset("histograms")
+
+
+# The process-wide registry and its three legacy views.  Every
+# established call site keeps its spelling (`counters.inc(...)` etc.);
+# the obs endpoint and cross-rank aggregation read `registry` directly.
+registry = MetricsRegistry()
+counters = Counters(registry)
+gauges = Gauges(registry)
+histograms = Histograms(registry)
+
+
+# -- component registry ------------------------------------------------------
+#
+# Stateful components whose internals a debug view must be able to reach
+# (ServerEngine quarantined rounds, KVStore dedup floors) register
+# themselves here at construction.  Weak references: registration must
+# not keep a shut-down engine alive.
+
+_components: Dict[str, "weakref.WeakSet"] = {}
+_components_lock = threading.Lock()
+
+
+def register_component(kind: str, obj: object) -> None:
+    with _components_lock:
+        _components.setdefault(kind, weakref.WeakSet()).add(obj)
+
+
+def components(kind: str) -> List[object]:
+    with _components_lock:
+        return list(_components.get(kind, ()))
+
+
+def _reset_components_for_tests() -> None:
+    with _components_lock:
+        _components.clear()

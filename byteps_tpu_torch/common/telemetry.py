@@ -1,12 +1,14 @@
 """Push_pull throughput; port of ``SpeedMonitor`` in
-``byteps_tpu/common/telemetry.py``, behind ``get_pushpull_speed()``.
+``byteps_tpu/common/telemetry.py``, behind ``get_pushpull_speed()``, and
+the metrics views of ``common/metrics.py`` (``counters``, ``gauges``,
+``histograms``), re-exported here as in the JAX package.
 
 The engine's retirement records each task's wire bytes (the payload for
 a compressed chunk, ``nbytes`` otherwise; pushed plus pulled), as the JAX
 engine does with telemetry on.
 
-Not ported: the counters, gauges, histograms, step statistics and
-attribution of the JAX module; they belong to the observability plane.
+Not ported: the step statistics and attribution of the JAX module; they
+belong to the observability plane.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import collections
 import threading
 import time
 from typing import Callable, Deque, Tuple
+
+from .metrics import counters, gauges, histograms  # noqa: F401
 
 
 class SpeedMonitor:

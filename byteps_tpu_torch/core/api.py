@@ -18,6 +18,10 @@ hold the only copy of the master and optimizer state, so
 :func:`declare_update` of each name after :func:`resume` consumes it,
 re-padded to the new world: that re-import is the elastic re-shard.
 
+``init()`` arms the fault injector from ``Config.fault_spec``
+(``BYTEPS_FAULT_SPEC``, validated eagerly) and ``shutdown()`` disarms it,
+as in the JAX package.
+
 Not ported: the metrics, health and membership entry points of the
 planes not ported yet.
 """
@@ -33,6 +37,7 @@ import torch
 from ..comm.mesh import bootstrap, resolve_device
 from ..common.config import Config
 from ..common.handles import Handle
+from ..fault import injector as _fault
 from .engine import PushPullEngine
 
 _engine: Optional[PushPullEngine] = None
@@ -60,6 +65,13 @@ def _start(config: Optional[Config], device, names: List[str]) -> None:
         if _engine is not None:
             return
         cfg = config or Config.from_env()
+        if cfg.fault_spec:
+            # eager validation: a chaos-spec typo fails init() with the
+            # valid kind/site lists instead of silently injecting nothing
+            _fault.arm(cfg.fault_spec, seed=cfg.fault_seed,
+                       rank=cfg.host_id)
+        else:
+            _fault.disarm(engine_scoped_only=True)
         comm = bootstrap(cfg, resolve_device(device, cfg.local_rank))
         try:
             engine = PushPullEngine(comm, cfg)
@@ -86,6 +98,9 @@ def shutdown(wait: bool = True) -> None:
         finally:
             _engine.comm.close()
             _engine = None
+            # chaos disarms with the engine; the next init() re-arms from
+            # its config (a persist-armed injector stays)
+            _fault.disarm(engine_scoped_only=True)
 
 
 def suspend(wait: bool = True) -> None:

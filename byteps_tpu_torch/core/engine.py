@@ -38,7 +38,7 @@ same order, and the moment a task becomes eligible differs between
 ranks, so with more than one rank the engine dispatches in enqueue order
 (hook order, which is the same on every rank), one chunk per collective
 (a width of 1, as the JAX engine has for more than one process,
-``byteps_tpu/core/engine.py:139-141``), and the planner does not tune.
+``byteps_tpu/core/engine.py:298``), and the planner does not tune.
 
 The sharded weight update (``Config.sharded_update``): a tensor declared
 with :meth:`PushPullEngine.declare_update` owns a

@@ -175,6 +175,14 @@ class ShardedUpdateSlot:
             "dtype": str(self.dtype),
         }
 
+    def sync_master(self, value) -> None:
+        """Re-seed this rank's f32 block from externally authoritative
+        parameters (the async-PS pull leg, ``torch/async_opt.py``: the
+        store's fresh weights absorb OTHER workers' deltas the local
+        master never saw).  In place: the optimizer holds ``master``."""
+        with torch.no_grad():
+            self.master.copy_(self._my_block(value, torch.float32))
+
     def params(self) -> torch.Tensor:
         """The current parameters: the gathered master, shaped and cast
         to the declared dtype (a collective over the node, as

@@ -1,5 +1,6 @@
 """ctypes bindings for the native core (``core.cc``); port of the
-scheduler and Elias-delta parts of ``byteps_tpu/native/__init__.py``.
+scheduler, Elias-delta, host-reducer and CRC32C parts of
+``byteps_tpu/native/__init__.py``.
 
 :func:`load` compiles ``core.cc`` with ``g++`` at first use into
 ``byteps_tpu_torch/_build/``, under a file name that carries a hash of
@@ -10,8 +11,10 @@ and the numpy Elias twin, a failed build or load raises: the engine asks
 for this scheduler only when ``Config.use_native`` is set, and a run that
 silently took the other queue, or the other coder, would measure
 something else than it says.  ``BYTEPS_NATIVE=0`` (``use_native=False``)
-selects the Python heap explicitly; the Elias coder has no other
-implementation outside the tests.
+selects the Python heap explicitly; the Elias coder and the CRC32C have
+no other implementation outside the tests.  :func:`inplace_add` adds
+with the native reducer for the dtypes it has (f32, f64, i32, i64,
+bf16) and with a plain ``add`` otherwise, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -23,14 +26,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 SOURCE = Path(__file__).resolve().with_name("core.cc")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-ABI_VERSION = 2
+ABI_VERSION = 3
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -104,6 +108,80 @@ def _declare_signatures(lib: ctypes.CDLL) -> None:
                                      ctypes.POINTER(ctypes.c_int8), i64]
     lib.bps_native_abi_version.restype = ctypes.c_int
     lib.bps_native_abi_version.argtypes = []
+    for name in _REDUCE_FNS.values():
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [p, p, i64, ctypes.c_int]
+    lib.bps_crc32c.restype = ctypes.c_uint32
+    lib.bps_crc32c.argtypes = [p, i64, ctypes.c_uint32]
+
+
+# ------------------------------------------------------------- cpu reducer
+
+_REDUCE_FNS = {
+    torch.float32: "bps_reduce_sum_f32",
+    torch.float64: "bps_reduce_sum_f64",
+    torch.int32: "bps_reduce_sum_i32",
+    torch.int64: "bps_reduce_sum_i64",
+    torch.bfloat16: "bps_reduce_sum_bf16",
+}
+_NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float64): torch.float64,
+                np.dtype(np.int32): torch.int32,
+                np.dtype(np.int64): torch.int64}
+
+HostArray = Union[torch.Tensor, np.ndarray]
+
+
+def _describe(x: HostArray):
+    """(address, dtype as torch's, C-contiguous, shape) of a host array."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError(f"inplace_add takes host arrays, got a tensor "
+                             f"on {x.device}")
+        return x.data_ptr(), x.dtype, x.is_contiguous(), tuple(x.shape)
+    return (x.ctypes.data, _NP_TO_TORCH.get(x.dtype), x.flags.c_contiguous,
+            x.shape)
+
+
+def inplace_add(dst: HostArray, src: HostArray,
+                nthreads: int = 0) -> HostArray:
+    """``dst += src`` with the native multithreaded reducer; either
+    argument is a CPU tensor or a numpy array.  Other dtypes and layouts
+    take a plain add, as in the JAX package.  Returns ``dst``."""
+    lib = load()
+    dp, dt, dc, dshape = _describe(dst)
+    sp, st, sc, sshape = _describe(src)
+    if dt is None or dt != st or not (dc and sc) or dshape != sshape \
+            or dt not in _REDUCE_FNS:
+        if isinstance(dst, torch.Tensor):
+            if isinstance(src, np.ndarray):   # may be a read-only view
+                src = torch.from_numpy(np.array(src))
+            dst.add_(src.reshape(dshape))
+        else:
+            np.add(dst, np.asarray(src), out=dst)
+        return dst
+    if nthreads <= 0:
+        nthreads = min(8, os.cpu_count() or 1)
+    n = int(np.prod(dshape, dtype=np.int64))
+    getattr(lib, _REDUCE_FNS[dt])(dp, sp, n, nthreads)
+    return dst
+
+
+# ------------------------------------------------------------------ crc32c
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C (Castagnoli) of a buffer (bytes or a C-contiguous
+    memoryview), continuing ``crc``; no copy of the buffer."""
+    lib = load()
+    mv = memoryview(data)
+    if not mv.c_contiguous:
+        mv = memoryview(bytes(mv))
+    # np.frombuffer exposes the address of a read-only buffer, which
+    # ctypes' from_buffer refuses
+    view = np.frombuffer(mv.cast("B") if mv.ndim != 1 or mv.format != "B"
+                         else mv, dtype=np.uint8)
+    return int(lib.bps_crc32c(view.ctypes.data, view.nbytes,
+                              crc & 0xFFFFFFFF))
 
 
 def elias_encode(codes: np.ndarray) -> Tuple[np.ndarray, int]:

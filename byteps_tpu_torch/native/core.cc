@@ -11,16 +11,23 @@
 // (compression/elias.py), bps_elias_encode / bps_elias_decode, is
 // copied from the same file.
 //
+// The host reducers bps_reduce_sum_{f32,f64,i32,i64,bf16} (the async
+// parameter server's sum on arrival, server/kv_store.py and
+// server/engine.py) and bps_crc32c (the integrity envelope's checksum,
+// common/integrity.py) are copied from the same file (ABI 3).
+//
 // Not copied: the partition arithmetic and key packing (the port's Python
-// versions are the ones it uses) and the host reducers and CRC32C, which
-// belong to planes not ported yet.
+// versions are the ones it uses) and the scaled f32 reducer, which no
+// ported module calls.
 
 #include <algorithm>
 #include <chrono>
 #include <condition_variable>
 #include <cstdint>
+#include <cstring>
 #include <mutex>
 #include <queue>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -182,7 +189,7 @@ int64_t bps_sched_drain(void* p, int64_t* out_ids, int64_t cap) {
   return n;
 }
 
-int bps_native_abi_version() { return 2; }
+int bps_native_abi_version() { return 3; }
 
 }  // extern "C"
 
@@ -314,6 +321,169 @@ int64_t bps_elias_decode(const uint32_t* words, int64_t nbits,
                                         : static_cast<int>(mag));
   }
   return 0;
+}
+
+}  // extern "C"
+
+// -------------------------------------------------------------- cpu reducer
+// dst += src (reference CpuReducer::sum, cpu_reducer.cc -- OpenMP there,
+// std::thread fan-out here).  Each element is one IEEE add of the two
+// operands, whichever thread does it, so the result has the bits of a
+// sequential numpy add.
+
+namespace {
+
+template <typename T>
+void add_range(T* dst, const T* src, int64_t begin, int64_t end) {
+  for (int64_t i = begin; i < end; ++i) dst[i] += src[i];
+}
+
+inline float bf16_to_f32(uint16_t v) {
+  uint32_t u = static_cast<uint32_t>(v) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+inline uint16_t f32_to_bf16(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  // round-to-nearest-even on the truncated 16 bits
+  uint32_t rounding = 0x7fff + ((u >> 16) & 1);
+  return static_cast<uint16_t>((u + rounding) >> 16);
+}
+
+// Split [0, n) across up to nthreads workers; tiny inputs stay inline --
+// thread spawn costs ~10us, worth it only for multi-MB buffers.
+template <typename Fn>
+void parallel_for(int64_t n, int nthreads, Fn fn) {
+  const int64_t kMinPerThread = 1 << 18;  // 256k elements
+  int workers = static_cast<int>(std::min<int64_t>(
+      nthreads, (n + kMinPerThread - 1) / kMinPerThread));
+  if (workers <= 1) {
+    fn(0, n);
+    return;
+  }
+  std::vector<std::thread> ts;
+  ts.reserve(workers);
+  int64_t per = (n + workers - 1) / workers;
+  for (int w = 0; w < workers; ++w) {
+    int64_t b = w * per, e = std::min<int64_t>(n, b + per);
+    if (b >= e) break;
+    ts.emplace_back([=] { fn(b, e); });
+  }
+  for (auto& t : ts) t.join();
+}
+
+}  // namespace
+
+extern "C" {
+
+void bps_reduce_sum_f32(float* dst, const float* src, int64_t n,
+                        int nthreads) {
+  parallel_for(n, nthreads,
+               [=](int64_t b, int64_t e) { add_range(dst, src, b, e); });
+}
+
+void bps_reduce_sum_f64(double* dst, const double* src, int64_t n,
+                        int nthreads) {
+  parallel_for(n, nthreads,
+               [=](int64_t b, int64_t e) { add_range(dst, src, b, e); });
+}
+
+void bps_reduce_sum_i32(int32_t* dst, const int32_t* src, int64_t n,
+                        int nthreads) {
+  parallel_for(n, nthreads,
+               [=](int64_t b, int64_t e) { add_range(dst, src, b, e); });
+}
+
+void bps_reduce_sum_i64(int64_t* dst, const int64_t* src, int64_t n,
+                        int nthreads) {
+  parallel_for(n, nthreads,
+               [=](int64_t b, int64_t e) { add_range(dst, src, b, e); });
+}
+
+// bf16 sum in f32 precision with round-to-nearest-even writeback (the
+// reference's software half_t serves the same purpose for its CUDA-less
+// server, half.h).
+void bps_reduce_sum_bf16(uint16_t* dst, const uint16_t* src, int64_t n,
+                         int nthreads) {
+  parallel_for(n, nthreads, [=](int64_t b, int64_t e) {
+    for (int64_t i = b; i < e; ++i)
+      dst[i] = f32_to_bf16(bf16_to_f32(dst[i]) + bf16_to_f32(src[i]));
+  });
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ crc32c
+// CRC32C (Castagnoli) for the integrity envelopes (common/integrity.py):
+// every sealed frame is verified with this checksum.  Slice-by-8 software
+// implementation with no ISA dependency (no SSE4.2 requirement).
+
+namespace {
+
+struct Crc32cTables {
+  uint32_t t[8][256];
+  Crc32cTables() {
+    const uint32_t kPoly = 0x82f63b78u;  // reflected Castagnoli
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c & 1) ? (kPoly ^ (c >> 1)) : (c >> 1);
+      t[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = t[0][i];
+      for (int s = 1; s < 8; ++s) {
+        c = t[0][c & 0xff] ^ (c >> 8);
+        t[s][i] = c;
+      }
+    }
+  }
+};
+
+const Crc32cTables kCrc;
+
+inline uint32_t crc32c_byte(uint32_t crc, uint8_t b) {
+  return kCrc.t[0][(crc ^ b) & 0xff] ^ (crc >> 8);
+}
+
+inline bool host_is_little_endian() {
+  const uint16_t probe = 1;
+  uint8_t low;
+  std::memcpy(&low, &probe, 1);
+  return low == 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Continue `crc` (0 to start) over n bytes; returns the finalized value.
+uint32_t bps_crc32c(const uint8_t* p, int64_t n, uint32_t crc) {
+  crc = ~crc;
+  if (host_is_little_endian()) {
+    while (n > 0 && (reinterpret_cast<uintptr_t>(p) & 7)) {
+      crc = crc32c_byte(crc, *p++);
+      --n;
+    }
+    while (n >= 8) {
+      uint64_t v;
+      std::memcpy(&v, p, 8);
+      v ^= crc;
+      crc = kCrc.t[7][v & 0xff] ^ kCrc.t[6][(v >> 8) & 0xff] ^
+            kCrc.t[5][(v >> 16) & 0xff] ^ kCrc.t[4][(v >> 24) & 0xff] ^
+            kCrc.t[3][(v >> 32) & 0xff] ^ kCrc.t[2][(v >> 40) & 0xff] ^
+            kCrc.t[1][(v >> 48) & 0xff] ^ kCrc.t[0][(v >> 56) & 0xff];
+      p += 8;
+      n -= 8;
+    }
+  }
+  while (n > 0) {
+    crc = crc32c_byte(crc, *p++);
+    --n;
+  }
+  return ~crc;
 }
 
 }  // extern "C"

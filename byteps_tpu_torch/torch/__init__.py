@@ -9,7 +9,10 @@ rest of backward; ``DistributedDataParallel`` and ``CrossBarrier``
 (``parallel.py``), ``HalfPrecisionDistributedOptimizer``
 (``half_precision.py``) and the ``Compression`` shim
 (``compression.py``).  Everything stays on the device: there is no host
-round trip (the JAX adapter's numpy conversion is gone).
+round trip (the JAX adapter's numpy conversion is gone).  The async
+parameter-server mode is ``AsyncDistributedOptimizer`` (``async_opt.py``)
+over a ``KVStore``; ``ServerEngine`` is the reference's synchronous
+merge engine (both from ``server/``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from ..comm.collectives import broadcast
 from ..common.config import Config
 from ..common.handles import Handle
 from ..core import api as _api
+from ..server import KVStore, ServerEngine
+from .async_opt import AsyncDistributedOptimizer
 from .compression import Compression
 from .half_precision import HalfPrecisionDistributedOptimizer
 from .parallel import CrossBarrier, DistributedDataParallel, _remove, _weak
@@ -36,6 +41,7 @@ __all__ = [
     "BytePSPushPull", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "Compression", "DistributedDataParallel",
     "CrossBarrier", "HalfPrecisionDistributedOptimizer",
+    "AsyncDistributedOptimizer", "KVStore", "ServerEngine",
 ]
 
 init = _api.init

@@ -178,6 +178,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the engine arms), and the engine's wire bytes per step of each leg,
    which at one rank must be N and N.
 
+9. async parameter server: two ResNet-50 replicas on the card (full
+   width, the ResNet slice's batch per worker from its own seed, f32
+   parameters, bf16 compute, SGD momentum 0.9), each with an
+   ``AsyncDistributedOptimizer`` over one ``KVStore``, stepping in turn
+   for 1 warm-up and ASYNC_STEPS timed steps each; after every step the
+   stepping worker's parameters must equal the store's value bit for bit
+   and every key ends at 2 x (1 + ASYNC_STEPS) versions.  Arms:
+   - ``async_resnet``: raw deltas, integrity on; the store must equal a
+     numpy replay (the initial value plus every delta in arrival order)
+     bit for bit, and a replay without one delta must differ;
+   - ``async_resnet_chaos``: the same workers fed the first arm's raw
+     gradients (so the check does not rest on cuDNN's determinism) under
+     ASYNC_SPEC (bitflip and drop at ``kv_push``): store and parameters
+     bit-identical to ``async_resnet``, with CRC rejects, retransmits and
+     lost acks counted; control: the same faults with integrity off must
+     change the store;
+   - ``async_resnet_onebit``: onebit + EF on every parameter; the store
+     must equal the CPU replay (the landed frames decoded by the plain
+     versions, summed in order) bit for bit; the onebit launch counters,
+     zeroed before the arm and read after it, must show a pack and two
+     unpacks per parameter and push (the worker's compress and EF
+     residual, the store's decode), as must the device kernels of one
+     profiled step;
+   - ``server_engine_resnet``: a 4-thread ``ServerEngine`` takes the
+     161 recorded gradients of two workers: each pull equals ``a + b``
+     bit for bit; under SERVER_SPEC the round is bit-identical; one
+     onebit round through ``push_compressed``/``pull_compressed`` merges
+     to the CPU chain's decode bit for bit and re-encodes to its words,
+     the scale to ONEBIT_SCALE_RTOL.
+   Each arm prints its median step (min-max), the host ms of each stage
+   (the optimizer's d2h, push, pull, h2d; inside the push seal + CRC,
+   open + CRC, screen, decode, sum; the pull's copy), the busy share of
+   one profiled step, wire and store bytes and its peak memory, beside
+   the card's name and power limit.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (flash launches: the two main paths');
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -295,6 +330,14 @@ SHARDED_SGD = {"lr": 0.1, "momentum": 0.9, "foreach": True}
 SHARDED_STEPS = 3                # timed steps of each arm, after 1 warm-up
 SHARDED_LM_BATCH = {"llama": (2, 4096), "gpt": (1, 8192)}   # the LM slices'
 LLAMA_WATCH = ("wte.embedding", "h.0.attn.q.kernel", "h.0.mlp.up.kernel")
+# the async parameter-server phase (9)
+ASYNC_SGD = {"lr": 0.1, "momentum": 0.9}
+ASYNC_STEPS = 3                  # timed steps per worker, after 1 warm-up
+ASYNC_SPEC = "bitflip:site=kv_push:p=0.05;drop:site=kv_push:p=0.1"
+SERVER_SPEC = "bitflip:site=server_push:p=0.05"
+FAULT_SEED = 7
+ASYNC_DEVICE = "cuda"            # where the workers and codecs run
+ONEBIT_SCALE_RTOL = 1e-5         # an L1 sum in another order (Queue C 6)
 
 
 def log(msg):
@@ -404,6 +447,7 @@ def device_phase(torch):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    return smi.splitlines()[0]
 
 
 def build_phase(build, sources, mma_source=None, pdl_source=None):
@@ -1975,6 +2019,396 @@ def _cpu(tree):
     return tree.detach().cpu().clone()
 
 
+# ------------------------------------------------- 9. async parameter server
+
+def _stage_timers(targets):
+    """Wrap each ``(module, attribute, stage)`` so that its calls add their
+    host seconds to ``acc[stage]``; returns (acc, restore)."""
+    acc = collections.defaultdict(float)
+    saved = []
+    for mod, attr, stage in targets:
+        real = getattr(mod, attr)
+
+        def timed(*a, _real=real, _stage=stage, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                acc[_stage] += time.perf_counter() - t0
+
+        saved.append((mod, attr, real))
+        setattr(mod, attr, timed)
+
+    def restore():
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return acc, restore
+
+
+def _median_line(ms):
+    return (f"median {statistics.median(ms):.2f} ms "
+            f"({min(ms):.2f}-{max(ms):.2f})")
+
+
+def async_arm(torch, bps, ok, resnet, smi, name, *, replay=None,
+              spec=None, compression=None, integrity=True):
+    """Two ResNet-50 replicas on the card, one ``AsyncDistributedOptimizer``
+    each (SGD with momentum), sharing one ``KVStore``, stepping in turn:
+    1 warm-up and ASYNC_STEPS timed steps each.  ``replay``: the raw
+    gradients of an earlier arm, set as ``p.grad`` in place of a forward
+    and backward (so the comparison does not rest on cuDNN's
+    determinism).  ``spec``: a fault spec armed for the run.  After every
+    step the stepping worker's parameters must equal the store's value
+    bit for bit, and every key ends at 2 x (1 + ASYNC_STEPS) versions.
+    Returns the arm's record."""
+    import copy
+    from byteps_tpu_torch.common import config as cfg_mod
+    from byteps_tpu_torch.common import integrity as integ
+    from byteps_tpu_torch.common.telemetry import counters
+    from byteps_tpu_torch.fault import injector
+    from byteps_tpu_torch.server import kv_store
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg_mod.set_config(cfg_mod.Config(integrity_on=integrity))
+    counters.reset()
+    store = bps.KVStore(ASYNC_DEVICE)
+    dev = store.device
+    gen = torch.Generator().manual_seed(0)
+    models = [resnet.resnet50(num_classes=CLASSES, generator=gen).to(dev)]
+    models.append(copy.deepcopy(models[0]))
+    names = [n for n, _ in models[0].named_parameters()]
+    keys = [f"async.{n}" for n in names]
+    init = [p.detach().cpu().numpy().copy() for p in models[0].parameters()]
+    batches = [resnet.synthetic_images(torch.Generator().manual_seed(1 + w),
+                                       BATCH, IMAGE, CLASSES, dev)
+               for w in range(2)]
+    opts = [bps.AsyncDistributedOptimizer(
+        torch.optim.SGD(m.parameters(), **ASYNC_SGD),
+        named_parameters=m.named_parameters(), store=store,
+        compression=compression, worker_id=w)
+        for w, m in enumerate(models)]
+    # what lands, in arrival order (chaos-free arms: one call per push)
+    pushed = []
+    push_attr = "push_delta_wire" if compression else "push_delta"
+    real_push = getattr(store, push_attr)
+
+    def recording(key, payload, **kw):
+        t0 = time.perf_counter()
+        pushed.append((key, payload if compression else
+                       payload.numpy().copy()))
+        record_s[0] += time.perf_counter() - t0
+        return real_push(key, payload, **kw)
+
+    record_s = [0.0]
+    if spec is None:
+        setattr(store, push_attr, recording)
+    acc, restore = _stage_timers([
+        (integ, "seal_array", "seal+crc"), (integ, "seal_bytes", "seal+crc"),
+        (integ, "open_array", "open+crc"), (integ, "open_bytes", "open+crc"),
+        (integ, "screen_nonfinite", "screen"),
+        (kv_store, "decode", "decode"), (kv_store, "inplace_add", "sum"),
+        (kv_store, "_copy_outside_lock", "pull copy")])
+    grads = {}
+
+    def step(w, i):
+        m, opt = models[w], opts[w]
+        opt.zero_grad()
+        loss = None
+        if replay is None:
+            images, labels = batches[w]["images"], batches[w]["labels"]
+            loss = torch.nn.functional.cross_entropy(m(images), labels)
+            loss.backward()
+            grads.setdefault((w, i), [p.grad.clone()
+                                      for p in m.parameters()])
+        else:
+            for p, g in zip(m.parameters(), replay[(w, i)]):
+                p.grad = g
+        opt.step()
+        return loss
+
+    if spec is not None:
+        injector.arm(spec, seed=FAULT_SEED)
+    ok.reset_launches()
+    step_ms, stages, mismatch = [], collections.defaultdict(float), []
+    try:
+        for i in range(1 + ASYNC_STEPS):
+            for w in range(2):
+                for k in acc:
+                    acc[k] = 0.0
+                record_s[0] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step(w, i)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                if loss is not None:
+                    check(math.isfinite(loss.item()),
+                          f"{name}: loss {loss.item()} at step {i}")
+                if i:
+                    step_ms.append(dt)
+                    for k, v in opts[w].stage_ms.items():
+                        stages[k] += v / (2 * ASYNC_STEPS)
+                    for k, v in acc.items():
+                        stages[k] += v * 1e3 / (2 * ASYNC_STEPS)
+                    stages["record"] += record_s[0] * 1e3 / (2 * ASYNC_STEPS)
+                # the worker's parameters are the store's value at its pull
+                mismatch += [(w, i, k) for k, p in zip(
+                    keys, models[w].parameters())
+                    if not same_bits(p.detach().cpu(), store.pull(k))]
+    finally:
+        injector.disarm()
+        restore()
+        setattr(store, push_attr, real_push)
+    launches = dict(ok.launches)
+    check(not mismatch, f"{name}: {len(mismatch)} parameters differ from "
+                        f"the store after their worker's pull, first "
+                        f"{mismatch[:3]}")
+    versions = {store.version(k) for k in keys}
+    check(versions == {2 * (1 + ASYNC_STEPS)},
+          f"{name}: versions {sorted(versions)}, expected "
+          f"{2 * (1 + ASYNC_STEPS)} pushes per key")
+    snap = {"store": {k: store.pull(k) for k in keys},
+            "params": [[p.detach().to("cpu", copy=True)
+                        for p in m.parameters()] for m in models]}
+    ctr = {k: counters.get(k) for k in (
+        "integrity.crc_reject", "integrity.retransmit",
+        "integrity.dup_dropped", "fault.bitflip", "fault.drop",
+        "retry.attempt")}
+    # one more step of worker 0 under the profiler: the busy share, and
+    # the onebit kernels on the card per step
+    last = (0, ASYNC_STEPS)
+    busy_ms, wall_ms, events, _ = profiled_step(
+        torch, lambda: step(*last) if replay is None else (
+            [setattr(p, "grad", g) for p, g in zip(
+                models[0].parameters(), replay[last])],
+            opts[0].step()), by_thread=False)
+    kernels = onebit_device_ms(events)
+    raw_bytes = sum(p.numel() * p.element_size()
+                    for p in models[0].parameters())
+    rec = {"arm": name, "step_ms": step_ms, "stages": dict(stages),
+           "busy": busy_ms / wall_ms, "counters": ctr, "pushed": pushed,
+           "init": init, "keys": keys, "snap": snap, "grads": grads,
+           "launches": launches, "kernels": kernels, "store": store,
+           "wire": (store.wire_bytes, store.wire_bytes_wasted),
+           "raw_bytes": raw_bytes, "host_bytes": store.nbytes(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"{name} [{smi}]: {_median_line(step_ms)} a worker step over "
+        f"{len(step_ms)}; busy {100 * rec['busy']:.1f} % of a profiled step "
+        f"({busy_ms:.2f} of {wall_ms:.2f} ms); host ms a step "
+        f"{_fmt(rec['stages'])}; pushed {raw_bytes} B raw a worker step, "
+        f"wire landed {rec['wire'][0]} B, wasted {rec['wire'][1]} B; store "
+        f"host {rec['host_bytes']} B; peak {rec['peak_gib']:.2f} GiB; "
+        f"counters {ctr}")
+    cfg_mod.reset_config()
+    del opts, models, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _replay_raw(rec, drop=None):
+    """The store's final value by numpy: the initial value plus every
+    recorded delta in arrival order (``drop``: the index of one delta to
+    leave out)."""
+    import numpy as np
+    acc = {k: np.array(v) for k, v in zip(rec["keys"], rec["init"])}
+    for j, (key, delta) in enumerate(rec["pushed"]):
+        if j != drop:
+            acc[key] += delta.reshape(acc[key].shape)
+    return acc
+
+
+def _replay_onebit(torch, registry, rec):
+    """The onebit arm's store by the CPU: every landed wire frame decoded
+    by the server chain's plain versions and summed in arrival order."""
+    import numpy as np
+    acc = {k: np.array(v) for k, v in zip(rec["keys"], rec["init"])}
+    codecs = {}
+    for key, wire in rec["pushed"]:
+        a = acc[key]
+        comp = codecs.get(key) or codecs.setdefault(key, registry.create(
+            ONEBIT_EF, a.size, torch.float32, for_server=True))
+        acc[key] += comp.decompress(comp.wire_decode(wire)).numpy() \
+            .reshape(a.shape)
+    return acc
+
+
+def _same_store(torch, store_snap, replay):
+    return [k for k, v in store_snap.items()
+            if not same_bits(v, torch.from_numpy(replay[k]))]
+
+
+def server_engine_arm(torch, bps, registry, ok, smi, grads, keys):
+    """A ServerEngine with 4 threads on the card takes ResNet-50's 161
+    gradients from 2 simulated workers (the async arm's recorded raw
+    gradients of step 0) per round: each pull must equal ``a + b`` bit
+    for bit; a onebit round through push_compressed/pull_compressed must
+    merge to the CPU chain's decode bit for bit and re-encode to its
+    words (the scale, an L1 sum in another order, to ONEBIT_SCALE_RTOL);
+    and with
+    SERVER_SPEC armed the round must equal the clean one bit for bit."""
+    import numpy as np
+    from byteps_tpu_torch.common.telemetry import counters
+    from byteps_tpu_torch.fault import injector
+
+    a = [g.cpu() for g in grads[(0, 0)]]
+    b = [g.cpu() for g in grads[(1, 0)]]
+    want = [x + y for x, y in zip(a, b)]
+
+    def dense_round():
+        eng = bps.ServerEngine(num_threads=4, device=ASYNC_DEVICE)
+        try:
+            t0 = time.perf_counter()
+            for k, x, y in zip(keys, a, b):
+                eng.push(k, x, worker_id=0, num_workers=2)
+                eng.push(k, y, worker_id=1, num_workers=2)
+            out = [eng.pull(k, timeout=60) for k in keys]
+            return out, (time.perf_counter() - t0) * 1e3
+        finally:
+            eng.shutdown()
+
+    counters.reset()
+    clean, clean_ms = dense_round()
+    bad = [k for k, g, w in zip(keys, clean, want) if not same_bits(g, w)]
+    check(not bad, f"server_engine_resnet: {len(bad)} pulls differ from "
+                   f"a + b, first {bad[:3]}")
+    loopback = counters.get("integrity.loopback_fast")
+    injector.arm(SERVER_SPEC, seed=FAULT_SEED)
+    try:
+        chaos, chaos_ms = dense_round()
+    finally:
+        injector.disarm()
+    rejects = counters.get("integrity.crc_reject")
+    bad = [k for k, g, w in zip(keys, chaos, clean) if not same_bits(g, w)]
+    check(not bad, f"server_engine_resnet under {SERVER_SPEC}: {len(bad)} "
+                   f"pulls differ from the clean round")
+    check(rejects > 0 and counters.get("integrity.retransmit") > 0,
+          f"server_engine_resnet: no CRC reject under {SERVER_SPEC}")
+    # one onebit round: worker frames packed on the card
+    kw = {"compressor": "onebit"}
+    wires = []
+    for x in (a, b):
+        row = []
+        for t in x:
+            wc = registry.create(kw, t.numel())
+            payload, _ = wc.compress(t.reshape(-1).to(ASYNC_DEVICE), {})
+            row.append(wc.wire_encode(payload))
+        wires.append(row)
+    ok.reset_launches()
+    eng = bps.ServerEngine(num_threads=4, device=ASYNC_DEVICE)
+    try:
+        for k, t in zip(keys, a):
+            eng.register_compression(k, kw, t.numel())
+        t0 = time.perf_counter()
+        for k, wa, wb in zip(keys, *wires):
+            eng.push_compressed(k, wa, worker_id=0, num_workers=2)
+            eng.push_compressed(k, wb, worker_id=1, num_workers=2)
+        merged = [eng.pull(k, timeout=60) for k in keys]
+        pulled = [eng.pull_compressed(k, timeout=60) for k in keys]
+        onebit_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng.shutdown()
+    launches = dict(ok.launches)
+    bad_merge, bad_wire, scale_err = [], [], 0.0
+    for k, t, wa, wb, m, p in zip(keys, a, *wires, merged, pulled):
+        sc = registry.create(kw, t.numel(), for_server=True)
+        ref = (sc.decompress(sc.wire_decode(wa))
+               + sc.decompress(sc.wire_decode(wb))).reshape(t.shape)
+        if not same_bits(m.reshape(t.shape), ref):      # merged flat
+            bad_merge.append(k)
+        payload, _ = sc.compress(ref.reshape(-1), {})
+        w = sc.wire_encode(payload)
+        if len(w) != len(p) or w[:4] != p[:4] or w[8:] != p[8:]:
+            bad_wire.append(k)
+        s_ref = float(np.frombuffer(w[4:8], "<f4")[0])
+        s_got = float(np.frombuffer(p[4:8], "<f4")[0])
+        scale_err = max(scale_err, abs(s_got - s_ref) / max(abs(s_ref),
+                                                            1e-30))
+    check(not bad_merge, f"server_engine_resnet onebit: {len(bad_merge)} "
+                         f"merges differ from the CPU decode")
+    check(not bad_wire and scale_err <= ONEBIT_SCALE_RTOL,
+          f"server_engine_resnet onebit: {len(bad_wire)} re-encoded frames "
+          f"differ from the CPU chain's, scale error {scale_err:.3g}")
+    check(launches["onebit_unpack"] == 2 * len(keys)
+          and launches["onebit_pack"] == len(keys),
+          f"server_engine_resnet onebit: launches {launches}")
+    log(f"server_engine_resnet [{smi}]: 4 threads, {len(keys)} keys x 2 "
+        f"workers; dense round {clean_ms:.2f} ms (loopback fast path "
+        f"{loopback} pushes), under {SERVER_SPEC} {chaos_ms:.2f} ms "
+        f"({rejects} CRC rejects), bit-identical; onebit round "
+        f"{onebit_ms:.2f} ms, merges equal the CPU decode, frames its words "
+        f"(scale within {scale_err:.3g}); launches {launches}")
+    return {"clean_ms": clean_ms, "chaos_ms": chaos_ms,
+            "onebit_ms": onebit_ms}
+
+
+def async_phase(torch, bps, ok, registry, resnet, smi):
+    """Phase 9: the async parameter server at ResNet-50's full width."""
+    clean = async_arm(torch, bps, ok, resnet, smi, "async_resnet")
+    replay = _replay_raw(clean)
+    bad = _same_store(torch, clean["snap"]["store"], replay)
+    check(not bad, f"async_resnet: {len(bad)} keys differ from the host "
+                   f"replay, first {bad[:3]}")
+    fc = clean["keys"].index("async.fc.weight")
+    drop = next(j for j, (k, _) in enumerate(clean["pushed"])
+                if k == clean["keys"][fc])
+    ctl = _replay_raw(clean, drop=drop)
+    check(bool(_same_store(torch, clean["snap"]["store"], ctl)),
+          "async_resnet: a replay without one delta matched the store")
+    log(f"async_resnet: the store equals the host replay of "
+        f"{len(clean['pushed'])} deltas bit for bit; without one it differs")
+
+    chaos = async_arm(torch, bps, ok, resnet, smi, "async_resnet_chaos",
+                      replay=clean["grads"], spec=ASYNC_SPEC)
+    diff = _same_store(torch, clean["snap"]["store"],
+                       {k: v.numpy() for k, v in
+                        chaos["snap"]["store"].items()})
+    diff += [(w, j) for w in range(2) for j, (p, q) in enumerate(zip(
+        chaos["snap"]["params"][w], clean["snap"]["params"][w]))
+        if not same_bits(p, q)]
+    c = chaos["counters"]
+    check(not diff, f"async_resnet_chaos: {len(diff)} values differ from "
+                    f"async_resnet, first {diff[:3]}")
+    check(c["integrity.crc_reject"] > 0 and c["integrity.retransmit"] > 0
+          and (c["integrity.dup_dropped"] > 0 or c["fault.drop"] > 0),
+          f"async_resnet_chaos: counters {c}")
+    off = async_arm(torch, bps, ok, resnet, smi, "async_resnet_chaos_off",
+                    replay=clean["grads"], spec=ASYNC_SPEC, integrity=False)
+    check(bool(_same_store(torch, clean["snap"]["store"],
+                           {k: v.numpy() for k, v in
+                            off["snap"]["store"].items()})),
+          "async_resnet_chaos with BYTEPS_INTEGRITY=0 matched the clean "
+          "store (the control must differ)")
+    log("async_resnet_chaos: store and parameters bit-identical to "
+        "async_resnet; with integrity off the same faults change the store")
+
+    onebit = async_arm(torch, bps, ok, resnet, smi, "async_resnet_onebit",
+                       compression=ONEBIT_EF)
+    bad = _same_store(torch, onebit["snap"]["store"],
+                      _replay_onebit(torch, registry, onebit))
+    check(not bad, f"async_resnet_onebit: {len(bad)} keys differ from the "
+                   f"CPU replay, first {bad[:3]}")
+    n = len(onebit["keys"])
+    pushes = 2 * (1 + ASYNC_STEPS)
+    want = {"onebit_pack": n * pushes, "onebit_unpack": 2 * n * pushes,
+            "onebit_unpack_sum": 0}
+    check(onebit["launches"] == want,
+          f"async_resnet_onebit: launches {onebit['launches']}, expected "
+          f"{want}")
+    k = onebit["kernels"]
+    check(k["onebit_pack"][0] == n and k["onebit_unpack"][0] == 2 * n,
+          f"async_resnet_onebit: device kernels in one step {k}")
+    raw = onebit["raw_bytes"] * pushes
+    log(f"async_resnet_onebit: store equals the CPU replay of "
+        f"{len(onebit['pushed'])} frames bit for bit; landed wire "
+        f"{onebit['wire'][0]} B against {raw} B raw "
+        f"({onebit['wire'][0] / raw:.4f}); launches {onebit['launches']}; "
+        f"device kernels in one profiled step {k}")
+    server = server_engine_arm(torch, bps, registry, ok, smi, clean["grads"],
+                               clean["keys"])
+    return {"clean": clean, "chaos": chaos, "onebit": onebit,
+            "server": server}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1992,7 +2426,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
     t_start = time.perf_counter()
-    device_phase(torch)
+    smi = device_phase(torch)
     build_phase(build, [ok.SOURCE, fa.SOURCE], mma_source=fa.SOURCE,
                 pdl_source=ok.SOURCE)
     config = Config()
@@ -2036,6 +2470,9 @@ def main():
     t_phase = time.perf_counter()
     sharded_phase(torch, bps, api, Config, llama, gpt, resnet)
     log(f"sharded update phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    async_phase(torch, bps, ok, registry, resnet, smi)
+    log(f"async parameter-server phase: {time.perf_counter() - t_phase:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -902,3 +902,97 @@ def test_zero_steps_on_card_match_cpu(card):
     finally:
         bps.shutdown()
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------- async parameter server
+
+def _onebit_wires(numel, steps, seed):
+    from byteps_tpu_torch.compression import registry
+    wc = registry.create(ONEBIT_EF_KW, numel)
+    st = wc.init_state(torch.device("cpu"))
+    rng = np.random.RandomState(seed)
+    wires = []
+    for _ in range(steps):
+        x = torch.from_numpy(rng.randn(numel).astype(np.float32))
+        payload, st = wc.compress(x, st)
+        wires.append(wc.wire_encode(payload))
+    return wires
+
+
+ONEBIT_EF_KW = {"compressor": "onebit", "ef": "vanilla"}
+
+
+def test_store_decodes_on_card_like_cpu(card):
+    """The same onebit frames pushed to a store on the card (decoded by
+    the unpack kernel) and to one on the CPU (the plain version): the
+    stored sums bit for bit; the ServerEngine's re-encode of the merge on
+    the card: the same words, the scale to rtol 1e-6."""
+    from byteps_tpu_torch.server import KVStore, ServerEngine
+    numel = 50000
+    wires = _onebit_wires(numel, 3, 0)
+    values, pulled = {}, {}
+    for dev in ("cuda", "cpu"):
+        ok.reset_launches()
+        s = KVStore(device=dev)
+        s.init_key("c", torch.zeros(numel))
+        s.register_compression("c", ONEBIT_EF_KW, numel)
+        for i, w in enumerate(wires):
+            s.push_delta_wire("c", w, worker_id=0, seq=i + 1)
+        values[dev] = s.pull("c")
+        eng = ServerEngine(num_threads=2, device=dev)
+        try:
+            eng.register_compression("c", ONEBIT_EF_KW, numel)
+            for w, wire in enumerate(wires[:2]):
+                eng.push_compressed("c", wire, worker_id=w, num_workers=2)
+            pulled[dev] = eng.pull_compressed("c", timeout=10)
+        finally:
+            eng.shutdown()
+        if dev == "cuda":
+            # store 3 decodes, engine 2 decodes + 1 EF residual, 1 pack
+            assert ok.launches["onebit_unpack"] == 6
+            assert ok.launches["onebit_pack"] == 1
+    assert same_bits(values["cuda"], values["cpu"])
+    g, w = pulled["cuda"], pulled["cpu"]
+    assert len(g) == len(w) and g[:4] == w[:4] and g[8:] == w[8:]
+    np.testing.assert_allclose(np.frombuffer(g[4:8], "<f4"),
+                               np.frombuffer(w[4:8], "<f4"), rtol=1e-6)
+
+
+def _async_run(device, compression=None, steps=3):
+    from byteps_tpu_torch import AsyncDistributedOptimizer, KVStore
+    gen = torch.Generator().manual_seed(0)
+    init = [torch.randn(300, 40, generator=gen), torch.randn(40,
+                                                             generator=gen)]
+    store = KVStore(device=device)
+    workers = []
+    for w in range(2):
+        ps = [torch.nn.Parameter(t.clone().to(device)) for t in init]
+        inner = torch.optim.SGD(ps, lr=0.1, momentum=0.9, foreach=False)
+        workers.append((AsyncDistributedOptimizer(
+            inner, named_parameters=[("w", ps[0]), ("b", ps[1])],
+            store=store, compression=compression, worker_id=w), ps))
+    for s in range(steps):
+        for w, (opt, ps) in enumerate(workers):
+            g = torch.Generator().manual_seed(10 * w + s)
+            for p in ps:
+                p.grad = torch.randn(p.shape, generator=g).to(device)
+            opt.step()
+    return store, [[p.detach().cpu() for p in ps] for _, ps in workers]
+
+
+def test_async_step_on_card_matches_cpu(card):
+    """Two workers through one store on the card and on the CPU, the same
+    gradients: SGD with momentum (foreach off, one implementation on
+    both) bit for bit; with onebit + EF the same wire bytes."""
+    s_card, p_card = _async_run("cuda")
+    s_cpu, p_cpu = _async_run("cpu")
+    for a, b in zip(p_card, p_cpu):
+        for x, y in zip(a, b):
+            assert same_bits(x, y)
+    for k in s_cpu.keys():
+        assert same_bits(s_card.pull(k), s_cpu.pull(k))
+    ok.reset_launches()
+    s_card, _ = _async_run("cuda", compression=ONEBIT_EF_KW)
+    assert ok.launches["onebit_pack"] == 12       # 2 tensors x 2 x 3
+    s_cpu, _ = _async_run("cpu", compression=ONEBIT_EF_KW)
+    assert s_card.wire_bytes == s_cpu.wire_bytes > 0
