@@ -26,7 +26,14 @@ step's weight deltas, sealed in CRC32C envelopes
 (``common/integrity.py``), to a ``KVStore`` that sums them on arrival,
 and pulls the fresh weights; ``ServerEngine`` is the reference's
 synchronous merge; ``fault/injector.py`` injects seeded faults into
-their wire hops.
+their wire hops.  The observability plane (``common/tracing.py``,
+``telemetry.py``, ``flight_recorder.py``, ``lock_witness.py``,
+``timeseries.py``, ``health.py``, ``obs_server.py``) traces and
+attributes every step, keeps a black box, and serves ``/metrics``,
+``/healthz``, ``/debug/state`` and ``/timeseries`` under the JAX
+package's names; ``metrics_snapshot()`` reads it in process.  Under
+``Config.sharded_param_codec`` the sharded update's pull leg carries a
+codec's payload (``core/param_codec.py``).
 """
 
 from .torch import *  # noqa: F401,F403 — the adapter is the public surface

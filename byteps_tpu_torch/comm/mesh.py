@@ -19,7 +19,6 @@ so the collective leg is a real collective even on one card.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import socket
 from typing import Any
 
@@ -27,8 +26,9 @@ import torch
 import torch.distributed as dist
 
 from ..common.config import Config
+from ..common.logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 
 def free_port() -> int:

@@ -43,6 +43,29 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
                                             retry_base_delay_s /
                                             retry_max_delay_s /
                                             retry_deadline_s
+  - BYTEPS_SHARDED_PARAM_CODEC           -> sharded_param_codec
+  - BYTEPS_LOG_LEVEL                     -> log_level
+  - BYTEPS_TRACE_ON / _START_STEP / _END_STEP / _DIR / _JAX / _SAMPLE /
+    _CAPACITY                            -> trace_on / trace_start_step /
+                                            trace_end_step / trace_dir /
+                                            trace_jax (the device profiler,
+                                            torch.profiler here) /
+                                            trace_sample / trace_capacity
+  - BYTEPS_TELEMETRY_ON / BYTEPS_OBS_PORT / BYTEPS_OBS_HOST
+                                         -> telemetry_on / obs_port /
+                                            obs_host
+  - BYTEPS_FLIGHT_RECORDER / _CAPACITY / _DIR / _DUMP_ON_EXIT
+                                         -> flight_recorder_on /
+                                            flight_capacity / flight_dir /
+                                            flight_dump_on_exit
+  - BYTEPS_TS_ON / _INTERVAL_S / _WINDOW -> ts_on / ts_interval_s /
+                                            ts_window
+  - BYTEPS_HEALTH_ON / _WINDOWS / _OVERLAP_FLOOR / _BURN_RATE /
+    _SKEW_RATIO                          -> health_on / health_windows /
+                                            health_overlap_floor /
+                                            health_burn_rate /
+                                            health_skew_ratio
+  - BYTEPS_LOCK_WITNESS                  -> lock_witness
 
 ``partition_pinned`` / ``credit_pinned`` are set when the environment
 variable is present (whatever its value) or the field is given a value
@@ -51,26 +74,26 @@ other than its default; the planner never moves a pinned knob
 
 ``init`` builds the engine's config with :meth:`Config.from_env` (or
 takes the caller's) and the engine owns it.  The planes without an
-engine (the parameter server, the integrity envelope, the retry policy)
-read the process-wide config of :func:`get_config`, built from the
-environment at first use or installed with :func:`set_config`, as in the
-JAX package.
+engine (the parameter server, the integrity envelope, the retry policy,
+the tracer, the flight recorder, the lock witness) read the process-wide
+config of :func:`get_config`, built from the environment at first use or
+installed with :func:`set_config`, as in the JAX package.
+
+``trace_dir`` and ``flight_dir`` default, through
+:func:`trace_dir_from_env` and :func:`flight_dir_from_env`, to a per-user
+directory under the system's temporary directory, never the working
+directory.
 
 Not ported: the knobs of the planes the port does not have yet
-(membership and the sync deadline, telemetry, tracing, serving,
-durability, the transport), and
-``sharded_param_codec`` (``BYTEPS_SHARDED_PARAM_CODEC``), the quantized
-parameter leg of the sharded update: the JAX slot compresses the whole
-update vector with one codec instance under one controller, where each
-of the port's processes holds only its own block, so onebit's scale,
-topk's and randomk's selection and PowerSGD's factors would each need a
-design of their own across ranks.
+(membership and the sync deadline, the clock-offset estimate, serving,
+durability, the transport).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import tempfile
 from typing import Optional
 
 # Partition bounds are rounded up to a multiple of this (config.py:73).
@@ -78,6 +101,50 @@ ALIGN_BYTES = 4096
 
 # Reference default for BYTEPS_PARTITION_BYTES (config.py:79).
 PARTITION_BYTES_DEFAULT = 4096000
+
+
+def _per_user_tmp(prefix: str) -> str:
+    try:
+        who = str(os.getuid())
+    except AttributeError:  # no getuid (non-POSIX)
+        who = os.environ.get("USERNAME") or os.environ.get("USER") or "user"
+    return os.path.join(tempfile.gettempdir(), f"{prefix}_{who}")
+
+
+def trace_dir_from_env() -> str:
+    """``BYTEPS_TRACE_DIR`` if set and non-empty, else a per-user
+    directory under the system's temporary directory (JAX
+    ``config.py:82-100``): shared by the field's default,
+    :meth:`Config.from_env` and ``tools/bps_trace.py``."""
+    return os.environ.get("BYTEPS_TRACE_DIR") or _per_user_tmp(
+        "byteps_traces")
+
+
+def flight_dir_from_env() -> str:
+    """``BYTEPS_FLIGHT_DIR`` if set and non-empty, else a per-user
+    directory under the system's temporary directory (JAX
+    ``config.py:103-121``)."""
+    return os.environ.get("BYTEPS_FLIGHT_DIR") or _per_user_tmp(
+        "byteps_flight")
+
+
+def _parse_trace_sample(spec: str) -> int:
+    """``BYTEPS_TRACE_SAMPLE``: '' / '0' = off; 'N' or '1/N' = capture
+    every Nth push (JAX ``config.py:124-142``)."""
+    s = (spec or "").strip()
+    if not s or s == "0":
+        return 0
+    if s.startswith("1/"):
+        s = s[2:]
+    try:
+        n = int(s)
+    except ValueError:
+        raise ValueError(
+            f"BYTEPS_TRACE_SAMPLE must be '1/N' or an integer N (0 = "
+            f"off), got {spec!r}") from None
+    if n < 0:
+        raise ValueError(f"BYTEPS_TRACE_SAMPLE must be >= 0, got {spec!r}")
+    return n
 
 
 def _env_int(name: str, default: int) -> int:
@@ -159,6 +226,12 @@ class Config:
     # ulps (the default pins nothing and matches the replicated step bit
     # for bit).  Requires sharded_update.
     sharded_update_fused: bool = False
+    # The quantized parameter leg: a codec spec ("onebit", "topk:0.25",
+    # "randomk:64", "dithering:16", "powersgd:2") applied, with error
+    # feedback, to each slot's update before it crosses the pull leg;
+    # "auto" lets the planner pick per size (plan_param_codec); "" = full
+    # precision.  Requires sharded_update.
+    sharded_param_codec: str = ""
 
     # --- native core ---
     # The C++ priority/credit queue (native/core.cc).  With True a failed
@@ -198,6 +271,36 @@ class Config:
     retry_base_delay_s: float = 0.1
     retry_max_delay_s: float = 2.0
     retry_deadline_s: float = 60.0
+
+    # --- observability (JAX config.py:650-756, same defaults) ---
+    log_level: str = "WARNING"
+    trace_on: bool = False           # the step window [start, end)
+    trace_start_step: int = 10
+    trace_end_step: int = 20
+    trace_dir: str = dataclasses.field(default_factory=trace_dir_from_env)
+    trace_jax: bool = False          # the device profiler over the window
+    trace_sample: str = ""           # '1/N': every Nth push, no window
+    trace_sample_n: int = -1         # resolved form of trace_sample
+    trace_capacity: int = 65536      # in-memory events before the spill
+    telemetry_on: bool = True        # wire counters, step statistics
+    obs_port: Optional[int] = None   # HTTP endpoint; None = off, 0 = any
+    obs_host: str = "127.0.0.1"
+    flight_recorder_on: bool = True
+    flight_capacity: int = 4096
+    flight_dir: str = dataclasses.field(default_factory=flight_dir_from_env)
+    flight_dump_on_exit: bool = False
+    ts_on: bool = True               # the time-series sampler
+    ts_interval_s: float = 2.0
+    ts_window: int = 256
+    health_on: bool = True           # the SLO rules, each sampler tick
+    health_windows: int = 3
+    health_overlap_floor: float = 0.2
+    health_burn_rate: float = 1.0
+    health_skew_ratio: float = 4.0
+    # the runtime lock-order witness (common/lock_witness.py); read when
+    # a lock is built, so the env var backs the default of every Config
+    lock_witness: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("BYTEPS_LOCK_WITNESS", False))
 
     # None: resolved in __post_init__ (pinned when not the default)
     partition_pinned: Optional[bool] = None
@@ -248,6 +351,44 @@ class Config:
                 f"got {self.nonfinite_policy!r}")
         if self.integrity_max_retransmits < 0:
             raise ValueError("integrity_max_retransmits must be >= 0")
+        if self.sharded_param_codec not in ("", "auto"):
+            # "name" or "name:param": the name and the parameter meet the
+            # registry and the quality gate at declare_update
+            parts = self.sharded_param_codec.split(":")
+            if (len(parts) > 2 or not parts[0]
+                    or any(ch.isspace() for ch in self.sharded_param_codec)):
+                raise ValueError(
+                    "sharded_param_codec must be '', 'auto', 'name' or "
+                    f"'name:param', got {self.sharded_param_codec!r}")
+        if self.sharded_param_codec and not self.sharded_update:
+            raise ValueError(
+                "sharded_param_codec requires sharded_update "
+                "(BYTEPS_SHARDED_UPDATE=1) — the parameter all-gather "
+                "leg only exists in sharded-update mode")
+        if self.obs_port is not None and not 0 <= self.obs_port < 65536:
+            raise ValueError("obs_port must be in 0..65535 (0 = ephemeral)")
+        if self.flight_capacity <= 0:
+            raise ValueError("flight_capacity must be positive")
+        if self.trace_sample_n < 0:
+            self.trace_sample_n = _parse_trace_sample(self.trace_sample)
+        if self.trace_capacity < 256:
+            raise ValueError("trace_capacity must be >= 256")
+        if self.ts_interval_s <= 0:
+            raise ValueError("ts_interval_s must be positive")
+        if self.ts_window < 8:
+            raise ValueError("ts_window must be >= 8 — the health rules "
+                             "need at least a few windows of history to "
+                             "judge a trend")
+        if self.health_windows < 1:
+            raise ValueError("health_windows must be >= 1")
+        if not 0 <= self.health_overlap_floor <= 1:
+            raise ValueError("health_overlap_floor must be in [0, 1] — "
+                             "it is a fraction of the step wall")
+        if self.health_burn_rate <= 0:
+            raise ValueError("health_burn_rate must be positive")
+        if self.health_skew_ratio <= 1:
+            raise ValueError("health_skew_ratio must be > 1 — a ratio at "
+                             "or below the median can never mean skew")
 
     @property
     def world_size(self) -> int:
@@ -282,6 +423,7 @@ class Config:
             sharded_update=_env_bool("BYTEPS_SHARDED_UPDATE", False),
             sharded_update_fused=_env_bool("BYTEPS_SHARDED_UPDATE_FUSED",
                                            False),
+            sharded_param_codec=_env_str("BYTEPS_SHARDED_PARAM_CODEC", ""),
             enable_async=_env_bool("BYTEPS_ENABLE_ASYNC", False),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
             server_enable_schedule=_env_bool("BYTEPS_SERVER_ENABLE_SCHEDULE",
@@ -304,6 +446,34 @@ class Config:
             retry_base_delay_s=_env_float("BYTEPS_RETRY_BASE_DELAY", 0.1),
             retry_max_delay_s=_env_float("BYTEPS_RETRY_MAX_DELAY", 2.0),
             retry_deadline_s=_env_float("BYTEPS_RETRY_DEADLINE", 60.0),
+            log_level=_env_str("BYTEPS_LOG_LEVEL", "WARNING"),
+            trace_on=_env_bool("BYTEPS_TRACE_ON", False),
+            trace_start_step=_env_int("BYTEPS_TRACE_START_STEP", 10),
+            trace_end_step=_env_int("BYTEPS_TRACE_END_STEP", 20),
+            trace_dir=trace_dir_from_env(),
+            trace_jax=_env_bool("BYTEPS_TRACE_JAX", False),
+            trace_sample=_env_str("BYTEPS_TRACE_SAMPLE", ""),
+            trace_capacity=_env_int("BYTEPS_TRACE_CAPACITY", 65536),
+            telemetry_on=_env_bool("BYTEPS_TELEMETRY_ON", True),
+            obs_port=(_env_int("BYTEPS_OBS_PORT", 0)
+                      if os.environ.get("BYTEPS_OBS_PORT") not in (None, "")
+                      else None),
+            obs_host=_env_str("BYTEPS_OBS_HOST", "127.0.0.1"),
+            flight_recorder_on=_env_bool("BYTEPS_FLIGHT_RECORDER", True),
+            flight_capacity=_env_int("BYTEPS_FLIGHT_CAPACITY", 4096),
+            flight_dir=flight_dir_from_env(),
+            flight_dump_on_exit=_env_bool("BYTEPS_FLIGHT_DUMP_ON_EXIT",
+                                          False),
+            ts_on=_env_bool("BYTEPS_TS_ON", True),
+            ts_interval_s=_env_float("BYTEPS_TS_INTERVAL_S", 2.0),
+            ts_window=_env_int("BYTEPS_TS_WINDOW", 256),
+            health_on=_env_bool("BYTEPS_HEALTH_ON", True),
+            health_windows=_env_int("BYTEPS_HEALTH_WINDOWS", 3),
+            health_overlap_floor=_env_float(
+                "BYTEPS_HEALTH_OVERLAP_FLOOR", 0.2),
+            health_burn_rate=_env_float("BYTEPS_HEALTH_BURN_RATE", 1.0),
+            health_skew_ratio=_env_float("BYTEPS_HEALTH_SKEW_RATIO", 4.0),
+            lock_witness=_env_bool("BYTEPS_LOCK_WITNESS", False),
             # the variable's presence is the pin, whatever its value
             partition_pinned=("BYTEPS_PARTITION_BYTES" in os.environ
                               or None),

@@ -50,31 +50,38 @@ off, nothing is sealed, hashed or allocated.
 
 CRC32C is the native core's slice-by-8 ``bps_crc32c`` (``native/
 core.cc``), built at first use; a failed build raises, as the port's
-native loader always does.  Not ported: the tracing spans, the flight
-recorder, step attribution and the slowness feed of the JAX
-``wire_transmit`` (the observability plane, ROADMAP Queue A item 3).
+native loader always does.
+
+:func:`wire_transmit` feeds the observability plane as the JAX one does:
+each hop's wall time (retransmits included) is the step's ``wire``
+attribution component, a captured operation gets a ``wire:<site>`` span
+and a flow step on its arc, a retransmitted hop an
+``integrity.retransmit`` span, and each NACK and non-finite screen a
+flight-recorder event.  Not ported: the slowness feed
+(``utils/slowness.py`` is not in the port yet).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
 import struct
+import time
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .telemetry import counters
+from .logging import get_logger
 
 __all__ = [
     "IntegrityError", "AckLost", "EnvelopeMeta", "enabled",
     "nonfinite_policy", "max_retransmits", "loopback_fast", "crc32c",
     "seal_array", "seal_bytes", "open_array", "open_bytes", "open_frame",
-    "wire_transmit", "screen_nonfinite",
+    "wire_transmit", "screen_nonfinite", "record_span",
 ]
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 MAGIC = b"BPSE"
 VERSION = 1
@@ -300,6 +307,7 @@ def wire_transmit(frame: bytes, *, key: str, worker: int, seq: int,
     from ..fault import injector as _fault
     budget = max_retransmits()
     attempts = {"n": 0}
+    t0 = time.monotonic()
 
     def transmit():
         attempts["n"] += 1
@@ -313,6 +321,10 @@ def wire_transmit(frame: bytes, *, key: str, worker: int, seq: int,
             payload, _meta = opener(wire)
         except IntegrityError as e:
             counters.inc("integrity.crc_reject")
+            from . import flight_recorder as _flight
+            _flight.record("integrity.crc_reject", key=key, seq=seq,
+                           worker=worker, site=site,
+                           attempt=attempts["n"])
             if on_reject is not None:
                 on_reject()
             _log.warning(
@@ -323,7 +335,26 @@ def wire_transmit(frame: bytes, *, key: str, worker: int, seq: int,
 
     policy = RetryPolicy(max_attempts=budget + 1, base_delay_s=0.0,
                          max_delay_s=0.0, retry_on=(IntegrityError,))
-    return policy.call(transmit, describe=f"{who} {key!r} wire")
+    out = policy.call(transmit, describe=f"{who} {key!r} wire")
+    dt = time.monotonic() - t0
+    # the hop's wall time, retransmit rounds included, is the step's
+    # "wire" attribution component
+    from .telemetry import attribution
+    attribution.add("wire", dt * 1e3)
+    # a captured operation gets this hop as a span on its arc (flow "t")
+    from . import tracing as _tracing
+    ctx = _tracing.current()
+    if ctx is not None:
+        tr = _tracing.tracer()
+        if tr.active:
+            tr.record_traced(ctx.trace_id, f"wire:{site}", f"wire/{site}",
+                             t0, t0 + dt, key=key, worker=worker, seq=seq,
+                             attempts=attempts["n"])
+            tr.flow(ctx.trace_id, "t", f"wire/{site}", t0)
+    if attempts["n"] > 1:
+        record_span("retransmit", t0, key=key, worker=worker, seq=seq,
+                    attempts=attempts["n"])
+    return out
 
 
 # -- non-finite quarantine --------------------------------------------------
@@ -346,6 +377,9 @@ def screen_nonfinite(arr, *, what: str, key: str, worker: int):
         return arr
     n_bad = int(a.size - np.count_nonzero(finite))
     policy = nonfinite_policy()
+    from . import flight_recorder as _flight
+    _flight.record("integrity.nonfinite", what=what, key=key,
+                   worker=worker, n_bad=n_bad, policy=policy)
     if policy == "zero":
         counters.inc("integrity.nonfinite_zeroed")
         _log.warning(
@@ -363,3 +397,18 @@ def screen_nonfinite(arr, *, what: str, key: str, worker: int):
     raise ValueError(
         f"{what} {key!r}: {n_bad} non-finite element(s) from worker "
         f"{worker} (BYTEPS_NONFINITE_POLICY=raise)")
+
+
+# -- tracing ----------------------------------------------------------------
+
+def record_span(name: str, t0: float, **meta) -> None:
+    """An integrity event span (``integrity.<name>``) into the running
+    engine's tracer (best-effort: retransmit storms and quarantines must
+    show in the timeline, and tracing must never fail a hop)."""
+    try:
+        from ..core import api
+        eng = api._require()
+        eng.tracer.record_span(f"integrity.{name}", t0, time.monotonic(),
+                               **meta)
+    except Exception:  # noqa: BLE001 — tracing is best-effort
+        pass

@@ -2,8 +2,9 @@
 whole, with the same metric names (``integrity.crc_reject``,
 ``integrity.retransmit``, ``integrity.dup_dropped``,
 ``integrity.nonfinite_*``, ``membership.stale_pushes_dropped``,
-``fault.*``, ``retry.*``, ``wire_bytes``).  The registry's lock is a
-plain ``threading.Lock``: the port has no lock-order witness yet.
+``fault.*``, ``retry.*``, ``wire_bytes``).  The registry's lock is the
+witnessed ``"metrics.registry"`` (``common/lock_witness.py``); the
+registry is built at import, so only ``BYTEPS_LOCK_WITNESS`` arms it.
 
 The JAX package's story of it: the trajectory accreted three process-wide singletons — ``counters``
 (monotonic), ``gauges`` (last-value), ``histograms`` (pow2-bucketed) —
@@ -34,6 +35,8 @@ from __future__ import annotations
 import threading
 import weakref
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from .lock_witness import named_lock
 
 
 # label set canonical form: sorted (key, value) tuple — hashable, and
@@ -102,7 +105,7 @@ class MetricsRegistry:
     """
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("metrics.registry")
         self._counters: Dict[_Key, int] = {}
         self._gauges: Dict[_Key, float] = {}
         self._hist: Dict[_Key, Dict[int, int]] = {}

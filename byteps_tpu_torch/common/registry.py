@@ -8,7 +8,6 @@ is also the priority source: frameworks pass ``priority = -declared_key``.
 
 from __future__ import annotations
 
-import logging
 import math
 import threading
 from typing import Dict, List, Optional
@@ -17,8 +16,9 @@ import torch
 
 from .partitioner import chunk_bounds
 from .types import TensorContext, make_key
+from .logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 
 class TensorRegistry:

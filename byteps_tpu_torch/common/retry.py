@@ -19,14 +19,14 @@ wall-clock waits.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import random
 import time
 from typing import Callable, Optional, Tuple, Type
 
 from .telemetry import counters
+from .logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 
 @dataclasses.dataclass

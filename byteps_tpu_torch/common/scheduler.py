@@ -8,18 +8,22 @@ far the dispatcher runs ahead of retirement.  ``native/`` holds the same
 queue in C++ (the engine's default); this is the Python heap both are
 held to.
 
-Not ported: the planner's compressor ladder (``COMPRESS_LADDER``,
-``plan_compression``, ``observe_compression``), which races codecs the
-port does not have yet.
+The planner's compressor ladder (``COMPRESS_LADDER``) races codecs for
+the gradient path, and :meth:`ChunkPlanner.plan_param_codec` picks the
+sharded update's parameter-leg codec from the same ladder, as a pure
+function of size.
 """
 
 from __future__ import annotations
 
 import heapq
 import threading
+import time
 from typing import List, Optional
 
 from .config import ALIGN_BYTES
+from .lock_witness import named_lock
+from .telemetry import attribution as _attribution
 from .types import ChunkTask
 
 
@@ -32,7 +36,8 @@ class ChunkScheduler:
         self._in_flight = 0
         self._heap: List[tuple] = []
         self._seq = 0
-        self._cv = threading.Condition(threading.RLock())
+        self._cv = threading.Condition(
+            named_lock("scheduler.cv", reentrant=True))
         self._interrupts = 0    # one-shot wakeups (pause handshake)
         self._shutdown = False  # latched wake (engine teardown)
 
@@ -59,10 +64,18 @@ class ChunkScheduler:
         by :meth:`interrupt` (once) or :meth:`wake` (for good)."""
         with self._cv:
             if block:
+                # tasks queued but the byte window full: the wait about
+                # to happen is a credit stall, the step's "credit"
+                # attribution component, not idleness
+                credit_gated = bool(self._heap) and not self._eligible_locked()
+                t0 = time.monotonic() if credit_gated else 0.0
                 self._cv.wait_for(
                     lambda: (self._eligible_locked() or self._shutdown
                              or self._interrupts > 0),
                     timeout=timeout)
+                if credit_gated:
+                    _attribution.add("credit",
+                                     (time.monotonic() - t0) * 1e3)
                 if self._interrupts > 0:
                     self._interrupts -= 1
             if not self._eligible_locked():
@@ -184,7 +197,7 @@ class ChunkPlanner:
         self._min_compress = cfg.min_compress_bytes
         self._cbuckets = {}         # bucket -> the compressor ladder's state
         self._buckets = {}          # bucket -> {"cands", "samples", "locked"}
-        self._lock = threading.Lock()
+        self._lock = named_lock("planner")
         self._credit = 0            # 0 = leave the scheduler's window
 
     @property
@@ -305,6 +318,27 @@ class ChunkPlanner:
                 key = min((k for k, _, _ in st["cands"]),
                           key=lambda k: len(st["samples"].get(k, ())))
             return next(kw for k, kw, _ in st["cands"] if k == key)
+
+    def plan_param_codec(self, nbytes: int):
+        """The parameter-leg codec kwargs of a sharded-update tensor of
+        ``nbytes`` under ``sharded_param_codec="auto"``, or None for full
+        precision (JAX ``scheduler.py:397-421``).  Deterministic, with no
+        race: the codec changes the values every replica integrates, so
+        the choice is a pure function of size and the quality gate.
+        Under 4 MiB the lowest-golden-error rung of the ceiling-filtered
+        ladder, from 4 MiB onebit when it clears the gate, else the
+        lowest-error rung."""
+        if nbytes < max(1, self._min_compress):
+            return None
+        cands = [(k, kw, err) for k, kw, err in self._compress_candidates()
+                 if kw is not None]
+        if not cands:
+            return None
+        if nbytes >= (4 << 20):
+            for k, kw, _ in cands:
+                if k == "onebit":
+                    return kw
+        return min(cands, key=lambda c: c[2])[1]
 
     def observe_compression(self, nbytes: int, codec: str,
                             seconds: float) -> None:

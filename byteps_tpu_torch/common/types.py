@@ -77,10 +77,12 @@ class ChunkTask:
     scale: Optional[float] = None
     pending: Any = None           # the _PendingTensor this chunk belongs to
     ready: Any = None             # CUDA event recorded at enqueue, or None
-    # perf_counter() seconds at enqueue (one stamp per push, which also
-    # opens the planner's sample) and at dispatch
+    # monotonic seconds at enqueue (one stamp per push) and at dispatch:
+    # the "queued" and "push_pull" spans and the queue attribution
     t_enqueue: float = 0.0
     t_dispatch: float = 0.0
+    step: int = 0                 # the tensor's push count (the tracer's)
+    trace_id: int = 0             # the push's captured trace, 0 = none
 
     # priority descending, then key ascending
     def sort_tuple(self):

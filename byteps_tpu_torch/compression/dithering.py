@@ -88,11 +88,13 @@ class DitheringCompressor(Compressor):
     def init_state(self, device) -> State:
         return {"counter": torch.zeros((), dtype=torch.int64, device=device)}
 
-    def compress(self, x: torch.Tensor, state: State):
-        xf = x.reshape(-1).to(torch.float32)
+    def quantize(self, xf: torch.Tensor, norm: torch.Tensor,
+                 r: torch.Tensor) -> torch.Tensor:
+        """int8 signed codes of the f32 ``xf`` under ``norm``, rounded up
+        where the uniform draw ``r`` (one per element) falls below the
+        remainder.  The sharded update's parameter leg calls it on one
+        block of a vector with the vector's norm and the block's draws."""
         mag = xf.abs()
-        norm = (mag.max() if self.normalize == "max"
-                else torch.sqrt(torch.sum(mag * mag)))
         safe = torch.where(norm > 0, norm, torch.ones_like(norm))
         u = torch.clamp(mag / safe, 0.0, 1.0)
         lv = self._levels_on(xf.device)
@@ -101,9 +103,16 @@ class DitheringCompressor(Compressor):
                         0, self.s - 1)
         lo, hi = lv[i], lv[i + 1]
         p = (u - lo) / (hi - lo)
-        r = prng.uniform(self.seed, state["counter"], self.numel)
         code = i + (r < p)
-        signed = torch.where(xf < 0, -code, code).to(torch.int8)
+        return torch.where(xf < 0, -code, code).to(torch.int8)
+
+    def compress(self, x: torch.Tensor, state: State):
+        xf = x.reshape(-1).to(torch.float32)
+        mag = xf.abs()
+        norm = (mag.max() if self.normalize == "max"
+                else torch.sqrt(torch.sum(mag * mag)))
+        r = prng.uniform(self.seed, state["counter"], self.numel)
+        signed = self.quantize(xf, norm, r)
         new_state = {"counter": (state["counter"] + self.numel) & prng._M32}
         if self.sparse_k:
             idx = stable_topk(signed.abs(), self.sparse_k)

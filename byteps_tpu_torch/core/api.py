@@ -22,20 +22,36 @@ re-padded to the new world: that re-import is the elastic re-shard.
 (``BYTEPS_FAULT_SPEC``, validated eagerly) and ``shutdown()`` disarms it,
 as in the JAX package.
 
-Not ported: the metrics, health and membership entry points of the
-planes not ported yet.
+``init()`` installs its config as the process-wide one
+(``common.config.set_config``) and starts the observability plane, as
+the JAX ``init`` does (``byteps_tpu/core/api.py:60-95``): the flight
+recorder's knobs and its crash, SIGTERM and exit hooks; the HTTP
+endpoint when ``obs_port`` asks for one; the health engine and the
+time-series sampler.  The endpoint, the sampler and the process tracer
+are process-lifetime: ``shutdown()`` leaves them, so an elastic
+suspend/resume keeps the window and the port.  :func:`metrics_snapshot`
+is this process's counters, gauges and last step.
+
+Not ported: the membership, serving and cluster-metrics entry points of
+the planes not ported yet (``cluster_metrics`` needs the membership
+bus).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..comm.mesh import bootstrap, resolve_device
-from ..common.config import Config
+from ..common import flight_recorder as _flight
+from ..common import health as _health
+from ..common import metrics as _metrics
+from ..common import obs_server as _obs
+from ..common import timeseries as _ts
+from ..common.config import Config, set_config
 from ..common.handles import Handle
 from ..fault import injector as _fault
 from .engine import PushPullEngine
@@ -65,6 +81,7 @@ def _start(config: Optional[Config], device, names: List[str]) -> None:
         if _engine is not None:
             return
         cfg = config or Config.from_env()
+        set_config(cfg)
         if cfg.fault_spec:
             # eager validation: a chaos-spec typo fails init() with the
             # valid kind/site lists instead of silently injecting nothing
@@ -78,6 +95,19 @@ def _start(config: Optional[Config], device, names: List[str]) -> None:
         except BaseException:
             comm.close()
             raise
+        # the observability plane: the flight recorder's knobs and dump
+        # hooks, then the endpoint (a bind failure fails init: the
+        # operator asked for it), then the health rules and the sampler
+        _flight.configure_from_config(cfg)
+        _flight.install_hooks()
+        try:
+            _obs.ensure_started(cfg)
+        except BaseException:
+            engine.shutdown(wait=False)
+            comm.close()
+            raise
+        _health.configure(cfg)
+        _ts.ensure_started(cfg)
         for name in names:
             engine.registry.declare(name)
         _engine = engine
@@ -153,6 +183,39 @@ def get_pushpull_speed() -> Tuple[float, float]:
     """(timestamp, MB/s) of push_pull wire traffic, pushed plus pulled
     (reference byteps_get_pushpull_speed)."""
     return _require().speed.speed()
+
+
+def metrics_snapshot(light: bool = False) -> Dict[str, Any]:
+    """This process's observability snapshot (JAX ``api.py:347-381``):
+    counters and gauges (one consistent registry view), the membership
+    epoch, push_pull speed and the last completed step.  ``light=True``
+    drops the histogram buckets and the planner.  The JAX snapshot's
+    ``slowness`` section waits for ``utils/slowness.py``."""
+    import time
+
+    from ..common.config import get_config
+    from ..fault import membership as _membership
+    reg = _metrics.registry.snapshot()
+    snap: Dict[str, Any] = {
+        "ts": time.time(),
+        "pid": os.getpid(),
+        "rank": get_config().host_id,
+        "epoch": _membership.current_epoch(),
+        "counters": reg["counters"],
+        "gauges": reg["gauges"],
+    }
+    if not light:
+        snap["histograms"] = reg["histograms"]
+    eng = _engine
+    if eng is not None:
+        snap["speed_mbps"] = round(eng.speed.speed()[1], 3)
+        snap["sched_pending"] = eng.scheduler.pending
+        snap["bytes_in_flight"] = eng.scheduler.bytes_in_flight
+        last = eng.step_stats.last()
+        snap["step"] = last.as_dict() if last is not None else None
+        if not light:
+            snap["planner"] = eng.planner.snapshot()
+    return snap
 
 
 def _require() -> PushPullEngine:

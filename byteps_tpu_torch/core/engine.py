@@ -57,24 +57,40 @@ block of the merged gradient.  ``stats`` counts the wire bytes of each
 leg (``wire_push``, ``wire_pull``): push N, and pull N/R on the buffer
 path, N on the fallback and for every other tensor.
 
+The quantized parameter leg (``Config.sharded_param_codec``) is the
+slot's (``core/sharded_update.py``, ``core/param_codec.py``): its pull
+leg is accounted at the codec's payload and counted again under
+``compression.param_wire_bytes``.
+
+Observability, at the JAX engine's sites: the process tracer decides at
+enqueue whether a push is captured (the step window or 1-in-N sampling;
+with tracing off the enqueue path takes no tracer lock), and the syncer
+records each captured chunk's ``queued`` (enqueue -> dispatch) and
+``push_pull`` (dispatch -> retirement) spans with the push's flow arc
+(``s`` at its first chunk's enqueue, ``f`` at its last chunk's
+retirement).  With ``telemetry_on`` the :class:`StepStatsTracker` takes
+every push, the syncer's blocked time (``sync``), each unit's queue wait
+(``queue``), the dispatch call (``dispatch``), the caller's staging
+(``enqueue``) and the retirement callbacks (``assemble``); the wire
+counters carry each leg (``wire_bytes{leg=}``).  The flight recorder
+gets ``engine.init``, ``engine.dispatch_failed`` and
+``engine.shutdown``, and shutdown flushes the last step, the trace and
+the exit dump.
+
 Not ported:
 - AOT warming: eager PyTorch compiles no program per shape, and the
   CUDA kernels are built once per process at their first launch, so
-  there is nothing to warm;
-- the quantized parameter leg of the sharded update
-  (``sharded_param_codec``; ``common/config.py`` says why),
-  ``export_shards`` (serving cuts) and ``sync_master`` (the async
-  parameter server);
-- membership epochs with the stale-epoch guard, and the
-  ``_deadline_loop`` watchdog: they need ``fault/membership.py`` and
-  ``utils/failure_detector.py``;
-- tracing and the telemetry beyond ``SpeedMonitor``.
+  there is nothing to warm (the ``compile`` attribution reads 0);
+- ``export_shards`` (serving cuts);
+- membership epochs with the stale-epoch guard (and its
+  ``engine.stale_chunk`` flight event), and the ``_deadline_loop``
+  watchdog: they need ``fault/membership.py`` and
+  ``utils/failure_detector.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import queue
 import threading
 import time
@@ -87,16 +103,21 @@ from ..comm.collectives import (push_pull_array, push_pull_arrays_batched,
                                 push_pull_chunk_scatter, scatter_layout)
 from ..comm.compressed import fused_compressed_push_pull
 from ..comm.mesh import CommContext
+from ..common import flight_recorder as _flight
+from ..common import tracing as _tracing
 from ..common.config import Config
 from ..common.handles import Handle, HandleManager
 from ..common.registry import TensorRegistry
 from ..common.scheduler import ChunkPlanner, ChunkScheduler
-from ..common.telemetry import SpeedMonitor
+from ..common.telemetry import (SpeedMonitor, StepStatsTracker, attribution,
+                                counters, gauges, histograms)
 from ..common.types import ChunkTask, Status, StatusCode, TensorContext
 from ..compression import registry as compression_registry
+from ..fault import membership as _membership
 from .sharded_update import ShardedUpdateSlot
+from ..common.logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 _SHUTDOWN = object()  # sync-queue sentinel
 _DRAIN_BUDGET_S = 60.0  # shutdown waits this long, in all, for handles
@@ -246,6 +267,11 @@ class _PendingTensor:
         self.buf = None           # the scatter accumulator block
         self.merged: Dict[int, torch.Tensor] = {}  # fallback, by offset
         self.result = None
+        # the push's captured trace (syncer-owned): its flow arc opens at
+        # the first retired chunk and closes at the last
+        self.trace = None
+        self.trace_started = False
+        self.trace_left = total
 
     def complete_part(self, part_idx: int, data) -> bool:
         """Keep a chunk's result; True for the chunk that completes the
@@ -304,6 +330,13 @@ class PushPullEngine:
         self.scheduler = self._make_scheduler(cfg)
         self.planner = ChunkPlanner(cfg, num_procs=comm.size)
         self.speed = SpeedMonitor()
+        # one tracer per process (common/tracing.py): the engine, the
+        # server engine, the store and the envelope's hops emit into one
+        # per-rank file, so a push's flow arc can cross components
+        self.tracer = _tracing.tracer()
+        # per-step stats and attribution: the step.* gauges, the flight
+        # recorder's step_stats events, a bounded history
+        self.step_stats = StepStatsTracker()
         # chunks popped per dispatch iteration: -1 drains the eligible
         # window; 1 at more than one rank (see the module docstring)
         self._group_size = (1 if comm.size > 1
@@ -330,6 +363,8 @@ class PushPullEngine:
             target=self._sync_loop, name="bps-sync", daemon=True)
         self._dispatcher.start()
         self._syncer.start()
+        _flight.record("engine.init", ranks=comm.size,
+                       epoch=_membership.current_epoch())
 
     @staticmethod
     def _make_scheduler(cfg: Config):
@@ -512,6 +547,18 @@ class PushPullEngine:
     def _enqueue(self, tensor, name, ctx, priority, op, bounds, keys, slots,
                  est_nbytes, part_used, codec_used, tuned, update_slot,
                  scatter, hyperparameters) -> Handle:
+        if self.tracer.active:
+            # windowed and/or sampled capture, decided here; None for a
+            # push that records nothing
+            step, tctx = self.tracer.start_push(name)
+        else:   # the hot enqueue path stays lock-free with tracing off
+            step, tctx = 0, None
+        telemetry = self.cfg.telemetry_on
+        # the caller's staging until the tasks enter the queue is the
+        # step's "enqueue" component
+        t_api0 = time.monotonic() if tctx is not None or telemetry else 0.0
+        if telemetry:
+            self.step_stats.on_push(name, est_nbytes)
         denom = self.comm.size if op == "average" else 1
         scale = None
         if denom != 1 and slots is None and tensor.is_floating_point():
@@ -547,7 +594,12 @@ class PushPullEngine:
                                  slot=update_slot, scatter=scatter,
                                  scale=scale,
                                  hyperparameters=hyperparameters)
+        pending.trace = tctx
         t_enq = time.perf_counter()
+        t_queued = time.monotonic()
+        if telemetry:
+            self.step_stats.add_component("enqueue",
+                                          (t_queued - t_api0) * 1e3)
         with self._enq_lock:
             self._enq_seq += 1
             if self.comm.size > 1:
@@ -563,7 +615,8 @@ class PushPullEngine:
                     nbytes=bounds[i][1] * tensor.element_size(), data=flat,
                     compression=slots[i] if slots else None,
                     scale=scale, pending=pending, ready=ready,
-                    t_enqueue=t_enq)
+                    t_enqueue=t_queued, step=step,
+                    trace_id=tctx.trace_id if tctx is not None else 0)
                 task.callback = self._make_chunk_callback(pending, i)
                 self.scheduler.add_task(task)
 
@@ -576,6 +629,14 @@ class PushPullEngine:
             if track_plan and h.status.code == StatusCode.OK:
                 self.planner.observe(est_nbytes, part_used,
                                      time.perf_counter() - t_enq)
+                if self.planner.locked(est_nbytes) and self.tracer.active:
+                    # the moment exploration ended, with the winning
+                    # chunk size, in the timeline
+                    t_now = time.monotonic()
+                    self.tracer.record_span(
+                        "engine.planner_locked", t_now, t_now, tensor=name,
+                        partition_bytes=self.planner.plan_partition(
+                            est_nbytes))
                 self._apply_planned_credit()
             self.handles.release(h.id)
 
@@ -616,7 +677,8 @@ class PushPullEngine:
         with self._caller_to_engine_stream():
             self.update_slots[name] = ShardedUpdateSlot(
                 self.comm, self.cfg, name, shape, dtype, optimizer,
-                init_value=init_value, restore=restore)
+                planner=self.planner, init_value=init_value,
+                restore=restore)
         return ctx
 
     def push_pull_update_async(self, tensor: torch.Tensor, name: str, *,
@@ -640,9 +702,9 @@ class PushPullEngine:
         if compression:
             raise ValueError(
                 "sharded update does not take gradient compression "
-                "kwargs: the gradient never leaves its owner, so there "
-                "is nothing to compress on the pull leg except the "
-                "parameter all-gather, whose codec is not ported")
+                "kwargs: the gradient never leaves its owner; the pull "
+                "leg's codec is a different knob, sharded_param_codec "
+                "(BYTEPS_SHARDED_PARAM_CODEC)")
         return self._push(tensor, name, None, op, None, slot=slot,
                           hyperparameters=hyperparameters)
 
@@ -748,8 +810,23 @@ class PushPullEngine:
                 if t2 is None:
                     break
                 batch.append(t2)
+            telemetry = self.cfg.telemetry_on
+            if telemetry:
+                gauges.set("engine.sched_pending", self.scheduler.pending)
+                gauges.set("engine.bytes_in_flight",
+                           self.scheduler.bytes_in_flight)
             for kind, unit in _plan_batch(batch):
+                if telemetry:
+                    histograms.observe("engine.dispatch_unit_width",
+                                       len(unit))
+                    t_d0 = time.perf_counter()
                 self._dispatch_unit(kind, unit)
+                if telemetry:
+                    # the dispatch call's wall: issuing the collective
+                    # (and a slot's step) is host work on the critical
+                    # path; eager PyTorch has no compile to tell apart
+                    attribution.add("dispatch",
+                                    (time.perf_counter() - t_d0) * 1e3)
             # a task holds its tensor (a gradient the caller frees at the
             # next step): hold none while blocked in the next pop
             task = t2 = batch = unit = None
@@ -758,7 +835,7 @@ class PushPullEngine:
         """Issue one unit's collective on the engine stream and hand the
         unit to the syncer: a run is a slice of one tensor, a group one
         buffer of k chunks, a single one chunk (compressed or not)."""
-        now = time.perf_counter()
+        now = time.monotonic()
         for t in unit:
             t.t_dispatch = now
         self.stats["dispatches"] += 1
@@ -805,6 +882,8 @@ class PushPullEngine:
             self._sync_q.put((unit, outs, done, rollback, None))
         except Exception as e:  # noqa: BLE001 — report on the handles
             _log.exception("dispatch failed for %s", t0.name)
+            _flight.record("engine.dispatch_failed", tensor=t0.name,
+                           error=str(e))
             self._restore(rollback)
             if t0.pending is not None and t0.pending.slot is not None:
                 t0.pending.dispatch_failed = True
@@ -878,30 +957,97 @@ class PushPullEngine:
                 err) -> None:
         """Retire one dispatch unit: one wait, one return of credits, then
         every task's callback (a failed unit fails every task in it)."""
+        telemetry = self.cfg.telemetry_on
         if err is None and done is not None:
+            t_blk = time.perf_counter()
             try:
                 done.synchronize()
             except Exception as e:  # noqa: BLE001 — device fault
                 err = e
                 self._restore(rollback)
+            if telemetry:
+                # this thread's time blocked on the card: the step's
+                # sync stall (the communication left un-overlapped)
+                self.step_stats.add_stall(
+                    (time.perf_counter() - t_blk) * 1e3)
         # credits back before the callbacks: the dispatcher can issue the
         # next window while this thread assembles
         self.scheduler.report_finish(sum(t.nbytes for t in tasks))
+        head = tasks[0]
+        if telemetry:
+            if head.t_dispatch:
+                histograms.observe(
+                    "engine.unit_sync_ms",
+                    (time.monotonic() - head.t_dispatch) * 1e3)
+                # queue attribution: how long the unit's head chunk sat
+                # in the priority queue
+                self.step_stats.add_component(
+                    "queue", (head.t_dispatch - head.t_enqueue) * 1e3)
+            # the last unit retired before a step finalizes names the
+            # chain the step waited on
+            self.step_stats.note_retire(tasks[-1].name)
         wire = 0
         for t in tasks:
             push = pull = _wire_nbytes(t)
             slot = t.pending.slot if t.pending is not None else None
+            buffered = slot is not None and t.pending.scatter is not None
             if slot is not None:
-                pull = slot.pull_share(t.nbytes, t.pending.scatter is not None)
+                pull = slot.pull_share(t.nbytes, buffered)
             self.stats["wire_push"] += push
             self.stats["wire_pull"] += pull
             wire += push + pull
+            if telemetry:
+                counters.inc("wire_bytes", push, leg="push")
+                counters.inc("wire_bytes", pull, leg="pull")
+                self.step_stats.add_wire(push + pull)
+                if err is None and buffered and slot.codec is not None:
+                    # the quantized parameter leg, apart from the
+                    # gradient codecs' compression.wire_bytes
+                    counters.inc("compression.param_wire_bytes", pull)
+                if err is None and t.compression is not None:
+                    counters.inc("compression.wire_bytes", push)
+                    counters.inc("compression.bytes_saved",
+                                 max(0, t.nbytes - push))
+                    counters.inc("compression.compressed_chunks")
+            if t.trace_id and self.tracer.active:
+                self._trace_chunk(t)
         self.speed.record(wire)
+        t_cb0 = time.perf_counter()
         for i, task in enumerate(tasks):
             if err is not None:
                 task.callback(None, Status.error(str(err)))
             else:
                 task.callback(outs[i], Status.ok())
+        if telemetry:
+            # assembly and the callbacks: the tail of a push's path
+            self.step_stats.add_component(
+                "assemble", (time.perf_counter() - t_cb0) * 1e3)
+
+    def _trace_chunk(self, task: ChunkTask) -> None:
+        """A captured chunk's two spans, ``queued`` and ``push_pull``,
+        against its trace id (not window-gated: the capture was decided
+        at enqueue), and the push's flow arc: ``s`` in the first retired
+        chunk's queued span, ``f`` at the last chunk's retirement.  Only
+        the syncer runs this, so the pending's bookkeeping needs no
+        lock."""
+        t_done = time.monotonic()
+        t_disp = task.t_dispatch or t_done
+        self.tracer.record_traced(task.trace_id, "queued", task.name,
+                                  task.t_enqueue, t_disp, key=task.key,
+                                  step=task.step, bytes=task.nbytes)
+        if task.t_dispatch:
+            self.tracer.record_traced(task.trace_id, "push_pull", task.name,
+                                      t_disp, t_done, key=task.key,
+                                      step=task.step, bytes=task.nbytes)
+        p = task.pending
+        if p is not None and p.trace is not None:
+            if not p.trace_started:
+                self.tracer.flow(task.trace_id, "s", task.name,
+                                 task.t_enqueue)
+                p.trace_started = True
+            p.trace_left -= 1
+            if p.trace_left == 0:
+                self.tracer.flow(task.trace_id, "f", task.name, t_done)
 
     # --------------------------------------------------------- lifecycle
     def drain(self) -> None:
@@ -930,3 +1076,11 @@ class PushPullEngine:
             task.callback(None, Status(StatusCode.ABORTED,
                                        "engine shut down"))
         self.handles.clear()
+        # the tail of a normal exit: the in-progress step's stats, the
+        # trace, and the exit dump when BYTEPS_FLIGHT_DUMP_ON_EXIT asks
+        self.step_stats.flush()
+        self.tracer.flush()
+        _flight.record("engine.shutdown",
+                       dispatches=self.stats["dispatches"],
+                       chunks=self.stats["chunks"])
+        _flight.maybe_exit_dump()

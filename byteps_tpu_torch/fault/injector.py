@@ -1,10 +1,11 @@
 """Deterministic, seeded fault injection at named sites; port of
 ``byteps_tpu/fault/injector.py``, whole: the same spec grammar, the same
 site names and the same string-seeded ``random.Random`` per rule, so one
-spec and seed give one schedule in both packages.  Differences: the
-flight-recorder events of the JAX module are left out (the port has no
-flight recorder yet), and ``kill:site=coordinator`` never fires (no
-membership coordinator yet).  Of the sites below the port weaves
+spec and seed give one schedule in both packages, with the JAX
+module's flight-recorder events (``fault.kill`` with a dump before the
+exit, ``fault.bitflip``, ``fault.slow_cleared``, ``fault.partition``,
+``fault.partition_healed``).  One difference: ``kill:site=coordinator``
+never fires (no membership coordinator yet).  Of the sites below the port weaves
 ``kv_push``, ``server_push`` and ``server_pull`` so far.
 
 The JAX package's description follows.  The subsystem exists so the
@@ -127,7 +128,6 @@ never in-graph).
 
 from __future__ import annotations
 
-import logging
 import os
 import random
 import threading
@@ -135,8 +135,9 @@ import time
 from typing import Dict, List, Optional
 
 from ..common.telemetry import counters
+from ..common.logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 # Module-level fast path: hot call sites guard with `if injector.ENABLED:`
 # — one attribute load + truth test when chaos is off.
@@ -490,6 +491,13 @@ class FaultInjector:
             _log.error(
                 "fault injector: kill at step %d (rank %d) — exiting %d",
                 matched, self.rank, r.code)
+            # black-box parity with a real crash: the flight recorder's
+            # tail hits disk BEFORE the hard exit (os._exit runs no
+            # atexit hooks)
+            from ..common import flight_recorder as _flight
+            _flight.record("fault.kill", step=matched, rank=self.rank,
+                           code=r.code)
+            _flight.dump("chaos_kill")
             _exit(r.code)
 
     def on_serve(self) -> None:
@@ -511,6 +519,10 @@ class FaultInjector:
             _log.error(
                 "fault injector: serve_host kill at pull %d (host %d) — "
                 "exiting %d", n, self.rank, r.code)
+            from ..common import flight_recorder as _flight
+            _flight.record("fault.kill", step=n, rank=self.rank,
+                           code=r.code, site="serve_host")
+            _flight.dump("chaos_kill")
             _exit(r.code)
 
     def on_serve_start(self) -> None:
@@ -533,6 +545,10 @@ class FaultInjector:
             _log.error(
                 "fault injector: serve_host_start kill at start %d "
                 "(host %d) — exiting %d", n, self.rank, r.code)
+            from ..common import flight_recorder as _flight
+            _flight.record("fault.kill", step=n, rank=self.rank,
+                           code=r.code, site="serve_host_start")
+            _flight.dump("chaos_kill")
             _exit(r.code)
 
     def fire(self, site: str) -> None:
@@ -571,6 +587,9 @@ class FaultInjector:
                 counters.inc("fault.slow")
                 if cleared:
                     counters.inc("fault.slow_cleared")
+                    from ..common import flight_recorder as _flight
+                    _flight.record("fault.slow_cleared", site=site,
+                                   rank=self.rank, n=r.n)
                     _log.warning(
                         "fault injector: slow fault at %s cleared after "
                         "%d visits (rank %d)", site, r.n, self.rank)
@@ -664,12 +683,21 @@ class FaultInjector:
                 if r.cut_t0 is None:
                     r.cut_t0 = now
                     counters.inc("fault.partition")
+                    from ..common import flight_recorder as _flight
+                    _flight.record("fault.partition", rank=self.rank,
+                                   side_a=sorted(a), side_b=sorted(b),
+                                   heal_ms=r.ms or None)
                     _log.warning(
                         "fault injector: partition %s|%s active "
                         "(rank %d)", sorted(a), sorted(b), self.rank)
                 if r.ms > 0 and (now - r.cut_t0) * 1000.0 >= r.ms:
                     r.healed = True
                     counters.inc("fault.partition_healed")
+                    from ..common import flight_recorder as _flight
+                    _flight.record(
+                        "fault.partition_healed", rank=self.rank,
+                        side_a=sorted(a), side_b=sorted(b),
+                        after_ms=round((now - r.cut_t0) * 1000.0, 1))
                     _log.warning(
                         "fault injector: partition %s|%s healed "
                         "(rank %d)", sorted(a), sorted(b), self.rank)
@@ -710,6 +738,8 @@ class FaultInjector:
             raw = a.view(np.uint8).reshape(-1)
             byte = r.rng.randrange(raw.size)
             raw[byte] ^= np.uint8(1 << r.rng.randrange(8))
+            from ..common import flight_recorder as _flight
+            _flight.record("fault.bitflip", site=site, byte=byte)
             _log.warning(
                 "fault injector: bit flipped at %s (byte %d)", site, byte)
             return a

@@ -35,10 +35,14 @@ blamed ROUND (its queued messages dropped, late same-round pushes
 one-shot-dropped, the previous merge republished), ``raise`` poisons the
 key until :meth:`ServerEngine.reset_key`.
 
-Not ported: the tracing spans, flow arcs and step attribution of the JAX
-engine and its flight-recorder dump on quarantine (the observability
-plane), and the transport's entry points ``receive_push`` /
-``receive_push_wire`` (ROADMAP Queue A item 3).
+Observability, as in the JAX engine: a push joins the caller's captured
+trace or samples one at ``server_push``; it records a ``server.push``
+span and opens a flow arc (``s``) that the merge thread closes (``f``)
+with its ``server.merge`` span, the envelope hop between them adding its
+own (``t``).  Every merge's wall time is the step's ``merge``
+attribution component, and a quarantined round records a flight event
+and dumps the flight recorder.  Not ported: the transport's entry points
+``receive_push`` / ``receive_push_wire`` (ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations
@@ -46,8 +50,8 @@ from __future__ import annotations
 from collections import deque
 import dataclasses
 import itertools
-import logging
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -58,13 +62,16 @@ from ..comm.mesh import resolve_device
 from ..common import integrity as _integrity
 from ..common import metrics as _metrics
 from ..common.retry import RetryPolicy
+from ..common import tracing as _tracing
+from ..common.telemetry import attribution as _attribution
 from ..common.telemetry import counters
 from ..fault import injector as _fault
 from ..fault import membership as _membership
 from ..native import inplace_add
 from .kv_store import decode, host_copy
+from ..common.logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 
 def _host_tensor(value) -> torch.Tensor:
@@ -95,6 +102,8 @@ class _Msg:
     #                     lets a quarantine drop exactly the blamed
     #                     round's queued messages, not earlier complete
     #                     rounds still waiting in the queue
+    trace_id: int = 0   # the push's captured trace (0 = not captured):
+    #                     the merge closes its flow arc
 
 
 class PriorityQueue:
@@ -359,6 +368,13 @@ class ServerEngine:
         if self._stale("push", key, mepoch):
             return
         arr = _host_tensor(value)
+        # join the caller's captured trace or sample here: the wire hop
+        # and the merge thread stamp their spans with the same id, one
+        # flow arc push (s) -> wire (t) -> merge (f)
+        tctx = _tracing.current()
+        if tctx is None:
+            tctx = _tracing.tracer().maybe_sample("server_push")
+        t_push0 = time.monotonic() if tctx is not None else 0.0
         if _integrity.enabled():
             if _integrity.loopback_fast() and not _fault.ENABLED:
                 # In-process hop with no chaos armed: seal -> CRC -> open
@@ -372,16 +388,32 @@ class ServerEngine:
                 # the loopback wire: seal -> (chaos corrupts the frame)
                 # -> verify-on-receive, with bounded NACK-driven
                 # retransmit from the sealed source copy
-                arr = self._wire_recv_array(key, arr, worker_id)
+                with _tracing.use(tctx):
+                    arr = self._wire_recv_array(key, arr, worker_id)
         elif _fault.ENABLED:
             # integrity off: the bitflip lands silently in this worker's
             # contribution — the unprotected baseline the envelope fixes
             arr = _host_tensor(_fault.corrupt("server_push", arr.numpy()))
             _fault.fire("server_push")
-        self._push_checked(key, arr, worker_id, num_workers)
+        enqueued = self._push_checked(key, arr, worker_id, num_workers,
+                                      trace_id=tctx.trace_id if tctx else 0)
+        if tctx is not None:
+            self._trace_push(tctx, key, t_push0, enqueued, worker=worker_id)
+
+    @staticmethod
+    def _trace_push(tctx, key: str, t0: float, enqueued: bool,
+                    **args) -> None:
+        tr = _tracing.tracer()
+        tr.record_traced(tctx.trace_id, "server.push", f"server/{key}", t0,
+                         time.monotonic(), **args)
+        if enqueued:
+            # only a push that reached a merge queue opens the arc: the
+            # merge thread closes it, and a dropped push must not leave
+            # an orphan "s"
+            tr.flow(tctx.trace_id, "s", f"server/{key}", t0)
 
     def _push_checked(self, key: str, arr: torch.Tensor, worker_id: int,
-                      num_workers: int) -> bool:
+                      num_workers: int, trace_id: int = 0) -> bool:
         """Post-wire half of push(): non-finite screen, shape/dtype
         validation, round accounting, enqueue.  Returns True when the
         message reached a merge queue (False = dropped/quarantined)."""
@@ -431,7 +463,7 @@ class ServerEngine:
         q = self.queues[self.thread_id(key, arr.numel() * arr.element_size())]
         q.push(_Msg(key=key, value=arr, worker_id=worker_id,
                     num_workers=num_workers, epoch=epoch,
-                    round_no=round_no))
+                    round_no=round_no, trace_id=trace_id))
         return True
 
     # -- the loopback wire (integrity envelopes) ---------------------------
@@ -520,6 +552,10 @@ class ServerEngine:
         _log.error(
             "server engine: round for key %r quarantined — previous merge "
             "version %d republished", key, version)
+        # the moment the flight recorder exists for: dump the black box
+        from ..common import flight_recorder as _flight
+        _flight.record("quarantine", key=key, republished_version=version)
+        _flight.dump("quarantine")
 
     def pull_versioned(self, key: str,
                        timeout: Optional[float] = None) -> tuple:
@@ -617,6 +653,10 @@ class ServerEngine:
             return
         comp = self._codec(key).comp
         if _integrity.enabled():
+            tctx = _tracing.current()
+            if tctx is None:
+                tctx = _tracing.tracer().maybe_sample("server_push")
+            t_c0 = time.monotonic() if tctx is not None else 0.0
             if _integrity.loopback_fast() and not _fault.ENABLED:
                 # same in-process fast path as push(): the wire bytes are
                 # already the caller's buffer, nothing to re-CRC
@@ -625,12 +665,17 @@ class ServerEngine:
                 seq = next(self._wire_seq)
                 frame = _integrity.seal_bytes(data, key=key, seq=seq,
                                               worker=worker_id)
-                data = _integrity.wire_transmit(
-                    frame, key=key, worker=worker_id, seq=seq,
-                    site="server_push", opener=_integrity.open_bytes,
-                    who="server engine")
+                with _tracing.use(tctx):
+                    data = _integrity.wire_transmit(
+                        frame, key=key, worker=worker_id, seq=seq,
+                        site="server_push", opener=_integrity.open_bytes,
+                        who="server engine")
             value = decode(comp, bytes(data), self.device)
-            self._push_checked(key, value, worker_id, num_workers)
+            enq = self._push_checked(key, value, worker_id, num_workers,
+                                     trace_id=tctx.trace_id if tctx else 0)
+            if tctx is not None:
+                self._trace_push(tctx, key, t_c0, enq, worker=worker_id,
+                                 compressed=True)
             return
         value = decode(comp, data, self.device)
         self.push(key, value, worker_id, num_workers)
@@ -702,6 +747,7 @@ class ServerEngine:
             msg = q.wait_and_pop()
             if msg.kind == "stop":
                 return
+            t_m0 = time.monotonic()
             try:
                 self._process(msg, q)
             except Exception:  # noqa: BLE001 — push() pre-validates
@@ -722,6 +768,17 @@ class ServerEngine:
                 q.clear_counter(msg.key)
                 for fulfill in parked:
                     fulfill(None)
+            # merge attribution and the arc's closing hop, on success and
+            # on the poison path (the push's journey ended either way)
+            _attribution.add("merge", (time.monotonic() - t_m0) * 1e3)
+            if msg.trace_id:
+                tr = _tracing.tracer()
+                if tr.active:
+                    now = time.monotonic()
+                    tr.record_traced(msg.trace_id, "server.merge",
+                                     f"server/{msg.key}", t_m0, now,
+                                     worker=msg.worker_id)
+                    tr.flow(msg.trace_id, "f", f"server/{msg.key}", now)
 
     def _process(self, msg: _Msg, q: PriorityQueue) -> None:
         st = self._state(msg.key)

@@ -40,8 +40,10 @@ Data integrity (common/integrity.py, BYTEPS_INTEGRITY):
 
 Single-process scope: several workers of one process share a store;
 workers in other processes reach one only through the TCP transport,
-which the port does not have yet (ROADMAP Queue A item 3).  Not ported:
-the tracing spans (item 3), the write subscription, ``write_batch``,
+which the port does not have yet (ROADMAP Queue A item 3).  A push joins
+the caller's captured trace or samples one at ``kv.push`` and records a
+``kv.push`` span (the envelope's wire hop adds its own).  Not ported:
+the write subscription, ``write_batch``,
 ``publish_key``, ``snapshot_refs`` and the WAL hooks (the serving and
 durability planes, item 4), and the transport-side ``apply_delta*``.
 """
@@ -49,8 +51,8 @@ durability planes, item 4), and the transport-side ``apply_delta*``.
 from __future__ import annotations
 
 import itertools
-import logging
 import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -59,12 +61,15 @@ import torch
 from ..comm.mesh import resolve_device
 from ..common import integrity as _integrity
 from ..common import metrics as _metrics
+from ..common import tracing as _tracing
+from ..common.lock_witness import named_lock
 from ..common.telemetry import counters
 from ..fault import injector as _fault
 from ..fault import membership as _membership
 from ..native import inplace_add, load as _native_load
+from ..common.logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 # debug_state clamp: dedup_floors lists at most this many (key, worker)
 # entries — the WORST (lowest-floor) ones, the laggards a postmortem
@@ -111,7 +116,7 @@ def _copy_outside_lock(ref: torch.Tensor) -> torch.Tensor:
 class KVStore:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
-        self._lock = threading.Lock()
+        self._lock = named_lock("kvstore")
         self._store: Dict[str, torch.Tensor] = {}
         self._versions: Dict[str, int] = {}
         self._codecs: Dict[str, tuple] = {}
@@ -303,6 +308,18 @@ class KVStore:
             frame, key=key, worker=worker_id, seq=seq, site="kv_push",
             opener=opener, who="kv store", on_reject=wasted)
 
+    def _traced(self, key: str, worker_id: int, push, **args) -> int:
+        """Run ``push()`` under the ``kv.push`` span of the caller's
+        captured trace, or of one sampled here."""
+        tctx, t0 = _tracing.begin_sample("kv.push")
+        try:
+            return push()
+        finally:
+            if tctx is not None:
+                _tracing.tracer().record_traced(
+                    tctx.trace_id, "kv.push", f"kv/{key}", t0,
+                    time.monotonic(), worker=worker_id, **args)
+
     def push_delta(self, key: str, delta, mepoch: Optional[int] = None,
                    worker_id: int = 0, seq: Optional[int] = None) -> int:
         """Sum a delta (a host tensor or array) into the store (async
@@ -311,6 +328,10 @@ class KVStore:
         integrity armed the delta crosses the envelope hop (chaos-visible,
         CRC verified); a ``(worker_id, seq)`` token makes the push
         idempotent (see :meth:`_dup`)."""
+        return self._traced(key, worker_id, lambda: self._push_delta(
+            key, delta, mepoch, worker_id, seq))
+
+    def _push_delta(self, key, delta, mepoch, worker_id, seq) -> int:
         with self._lock:
             if self._stale(key, mepoch):
                 return self._versions.get(key, -1)
@@ -381,6 +402,10 @@ class KVStore:
         stale ``mepoch`` is dropped before the decode runs; a corrupt
         frame is NACKed and retransmitted before the decode runs — the
         codec never sees unverified bytes."""
+        return self._traced(key, worker_id, lambda: self._push_delta_wire(
+            key, data, mepoch, worker_id, seq), compressed=True)
+
+    def _push_delta_wire(self, key, data, mepoch, worker_id, seq) -> int:
         with self._lock:
             if self._stale(key, mepoch):
                 return self._versions.get(key, -1)

@@ -37,7 +37,7 @@ __all__ = [
     "init", "shutdown", "rank", "size", "local_rank", "local_size",
     "declare", "push_pull", "push_pull_async", "poll", "synchronize",
     "declare_update", "push_pull_update", "push_pull_update_async",
-    "suspend", "resume", "get_pushpull_speed",
+    "suspend", "resume", "get_pushpull_speed", "metrics_snapshot",
     "BytePSPushPull", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "Compression", "DistributedDataParallel",
     "CrossBarrier", "HalfPrecisionDistributedOptimizer",
@@ -59,6 +59,7 @@ synchronize = _api.synchronize
 suspend = _api.suspend
 resume = _api.resume
 get_pushpull_speed = _api.get_pushpull_speed
+metrics_snapshot = _api.metrics_snapshot
 
 _anon_ids = itertools.count(1)
 

@@ -36,7 +36,6 @@ share one store.
 from __future__ import annotations
 
 import itertools
-import logging
 import threading
 import time
 from typing import Dict, Iterable, Optional, Tuple
@@ -50,8 +49,9 @@ from ..common.retry import RetryPolicy
 from ..core.sharded_update import ShardedUpdateSlot
 from ..fault import membership as _membership
 from ..server import KVStore
+from ..common.logging import get_logger
 
-_log = logging.getLogger("byteps_tpu_torch")
+_log = get_logger()
 
 # Default sender identities: the store dedups by (key, worker) sequence
 # floor, so two senders sharing a worker id would swallow each other's

@@ -213,8 +213,57 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    one profiled step, wire and store bytes and its peak memory, beside
    the card's name and power limit.
 
+10. observed sharded update: the quantized parameter leg with the whole
+   observability plane on.  First the onebit kernels at the Llama
+   embedding's size (525,336,576 floats, the block one rank holds): words
+   and values bit-exact against the plain versions on the card, the L1
+   sum within ONEBIT_SCALE_RTOL of the plain version's on the CPU.  Then
+   two arms through ``DistributedOptimizer(sharded_update=True)``, each
+   on an engine with tracing (the step window over one step, sampling),
+   the device profiler over the window (``trace_jax``), the endpoint on
+   port 0, the sampler every OBS_TS_INTERVAL_S, health on and the lock
+   witness armed:
+   - ``llama_param_onebit``: Llama-3-8B width, OBS_LLAMA_LAYERS layers,
+     2 x 4096, bf16 parameters, f32 masters, AdamW in the slots,
+     flash attention, ``sharded_param_codec="onebit"``;
+   - ``resnet_param_auto``: ResNet-50 at full width, f32, SGD with
+     momentum, batch 32, ``"auto"`` (onebit from 4 MiB, topk:0.25 from
+     64 KiB, full precision below).
+   Each: 1 warm-up, OBSERVED_STEPS timed steps in each tracing mode, off,
+   sampled at 1/4 and at 1/1, the modes in turns (off, 1/4, 1/1, then
+   back; median, min-max each), then the window step and the step that
+   closes it.  Checks: for the watched tensors (OBS_WATCH
+   and the first topk tensor) the warm-up and both window steps are
+   replayed from the slot's recorded update and state by the plain codec
+   chain on the CPU (onebit: signs exact, the scale to
+   ONEBIT_SCALE_RTOL, the residual to the scales' difference and a
+   rounding; topk bit for bit), the master is its previous value plus
+   the dequantized update and the emitted parameter that master in the
+   declared dtype, bit for bit, and the same tensor without the codec
+   (an f32 master with the same optimizer fed the raw gradients)
+   differs; the onebit launch counters (zeroed at the arm's start) show
+   one pack and one unpack per onebit slot and step, the flash counters
+   ``num_layers`` per step; ``compression.param_wire_bytes`` equals the
+   slots' payload bytes over the steps, less the per-chunk rounding of
+   the reference's formula; the flushed trace passes ``bps_trace``'s
+   validation, has a ``queued`` and a ``push_pull`` span (the JAX
+   engine's names for the enqueue -> dispatch and dispatch -> retirement
+   stages) for every chunk of the window step, and paired flows; the
+   device profile names the onebit kernels (and the three flash
+   kernels); the last step's ``other`` is its wall time less the
+   components, clamped at 0 (they overlap on this engine, ROADMAP Queue
+   C 17); ``/metrics`` serves ``step.attrib_*`` and the parameter-leg
+   counter, ``/healthz`` answers 200 (503 naming the rules if one
+   fires), ``/debug/state`` has its trace section and ``/timeseries``
+   points; a flight dump holds ``engine.init``, ``step_stats`` and
+   ``engine.shutdown``; no LockOrderError.  Each arm prints its steps,
+   peak memory and the parameter leg's host ms per stage (the slot's
+   step, quantize, gather, dequantize, apply), beside the card's name
+   and power limit.
+
 The run prints its total time.  The line before the last is a JSON
-object with one entry per kernel (flash launches: the two main paths');
+object with one entry per kernel (launches: the main paths' runs, phase
+4, the two LM slices' and phase 10's arms);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -229,6 +278,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
@@ -338,6 +388,13 @@ SERVER_SPEC = "bitflip:site=server_push:p=0.05"
 FAULT_SEED = 7
 ASYNC_DEVICE = "cuda"            # where the workers and codecs run
 ONEBIT_SCALE_RTOL = 1e-5         # an L1 sum in another order (Queue C 6)
+# the observed sharded update (10)
+OBS_DEVICE = "cuda"
+OBS_LLAMA_LAYERS = 4             # of Llama-3-8B's 32 (phase 8's cut)
+OBSERVED_STEPS = 3               # timed steps of each tracing mode
+OBS_TS_INTERVAL_S = 0.1          # the time-series sampler's cadence
+OBS_WATCH = {"llama": ("h.0.attn.k.kernel", "h.0.attn.q.kernel"),
+             "resnet": ("fc.weight", "blocks.13.convs.1.weight")}
 
 
 def log(msg):
@@ -2409,6 +2466,384 @@ def async_phase(torch, bps, ok, registry, resnet, smi):
             "server": server}
 
 
+# ------------------------------------------- 10. observed sharded update
+
+def large_pack_check(torch, ok, numel):
+    """The onebit kernels at the Llama embedding's block (one rank holds
+    all of it): pack's words and unpack's values against the plain
+    versions on the card, bit for bit; pack's f32 L1 sum against the
+    plain version's on the CPU to ONEBIT_SCALE_RTOL.  Run before the
+    arms, outside their counted launches."""
+    gen = torch.Generator(device=OBS_DEVICE).manual_seed(11)
+    x = torch.randn(numel, generator=gen, device=OBS_DEVICE)
+    words, sums = ok.onebit_pack(x)
+    w0, _ = ok.onebit_pack_plain(x)
+    check(torch.equal(words, w0), f"onebit_pack at {numel}: words differ "
+                                  f"from the plain version")
+    del w0
+    x_h = x.cpu()
+    L = ok.padded_lanes(numel)
+    cpu_sum = torch.nn.functional.pad(x_h, (0, 32 * L - numel)).view(
+        32, L).abs().sum()
+    err = abs(float(sums[0]) - float(cpu_sum)) / float(cpu_sum)
+    check(err <= ONEBIT_SCALE_RTOL,
+          f"onebit_pack at {numel}: L1 sum {float(sums[0])} against the "
+          f"CPU's {float(cpu_sum)} (rel {err:.2e})")
+    del x_h, x
+    scale = sums[1:]
+    out = ok.onebit_unpack(words, scale, numel)
+    check(same_bits(out, ok.onebit_unpack_plain(words, scale[0], numel)),
+          f"onebit_unpack at {numel}: values differ from the plain version")
+    del out, words
+    torch.cuda.empty_cache()
+    log(f"onebit at {numel} elements ({L} words, "
+        f"{ok.launch_geometry(L, 'onebit_pack')[1]} pack blocks): words and "
+        f"values bit-exact, L1 sum {float(sums[0]):.6e} within {err:.2e} of "
+        f"the CPU's")
+
+
+def _get(port, route):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _watch_codec(torch, registry, slot, name, rec):
+    """Wrap ``slot``'s block codec: each step is replayed by the plain
+    codec chain on the CPU from the same update and state, and held to
+    it (onebit: signs exact, the scale to ONEBIT_SCALE_RTOL, the
+    residual to the scales' difference plus a rounding of the
+    subtraction; the others bit for bit);
+    the parameters before the step and the dequantized update are kept
+    for the step's end (``_check_watched``).  Only while ``rec["on"]``:
+    the replay is host work that the timed steps must not carry."""
+    real = slot.codec.step
+    chain = registry.create(dict(slot.codec_kwargs), slot.n)
+
+    def checked(u, state):
+        if not rec["on"]:
+            return real(u, state)
+        u_h = u.detach().to("cpu", copy=True)
+        st_h = {"error": state["error"].to("cpu", copy=True),
+                "inner": {k: v.to("cpu", copy=True)
+                          for k, v in state["inner"].items()}}
+        rec["prev"] = slot.full.detach().to("cpu", copy=True)
+        d, new = real(u, state)
+        payload, ref_st = chain.compress(u_h, st_h)
+        d_ref = chain.decompress(payload)
+        d_h = d[:slot.n].cpu()
+        err_h = new["error"].cpu()[:slot.n]
+        if slot.codec.kind == "onebit":
+            sc, sr = float(d_h.abs().max()), float(d_ref.abs().max())
+            check(torch.equal(d_h > 0, d_ref > 0),
+                  f"{name}: onebit signs differ from the CPU chain")
+            check(abs(sc - sr) <= ONEBIT_SCALE_RTOL * sr,
+                  f"{name}: onebit scale {sc} against the CPU chain's {sr}")
+            # err = fl(x - d): the two residuals differ by the scales'
+            # difference and each subtraction's rounding
+            bound = abs(sc - sr) + 2.0**-22 * ref_st["error"].abs()
+            check(bool(((err_h - ref_st["error"]).abs() <= bound).all()),
+                  f"{name}: residual differs from the CPU chain's by more "
+                  f"than the scales' difference {abs(sc - sr)} and a "
+                  f"rounding")
+        else:
+            check(same_bits(d_h, d_ref) and same_bits(err_h,
+                                                      ref_st["error"]),
+                  f"{name}: {slot.codec.kind} update or residual differs "
+                  f"from the CPU chain's")
+        rec["d"] = d_h
+        rec["steps"] = rec.get("steps", 0) + 1
+        return d, new
+
+    slot.codec.step = checked
+
+
+def _check_watched(torch, slot, param, name, rec):
+    """At a step's end: the replica copy is its value before the step plus
+    the dequantized update, bit for bit, and the emitted parameter is that
+    copy in the declared dtype."""
+    full = slot.full[:slot.n].detach().cpu()
+    check(same_bits(full, rec["prev"][:slot.n] + rec["d"]),
+          f"{name}: the master is not its previous value plus the "
+          f"dequantized update")
+    check(same_bits(param.detach().reshape(-1).cpu(), full.to(slot.dtype)),
+          f"{name}: the emitted parameter is not the master in "
+          f"{slot.dtype}")
+
+
+def observed_arm(torch, bps, api, Config, ok, fa, registry, name, spec,
+                 build_model, watch, flash_layers, smi):
+    """One arm of phase 10: ``build_model(dev)`` -> (model, inner
+    optimizer, loss function, the optimizer's keywords), trained through DistributedOptimizer
+    (sharded_update, ``sharded_param_codec=spec``) with the
+    observability plane on; see the module docstring."""
+    from byteps_tpu_torch.common import flight_recorder as flight
+    from byteps_tpu_torch.common import (lock_witness, obs_server,
+                                         timeseries, tracing)
+    from byteps_tpu_torch.common.telemetry import counters
+    from byteps_tpu_torch.tools import bps_trace
+
+    tmp = tempfile.mkdtemp(prefix=f"bps_{name}_")
+    window = 2 * OBSERVED_STEPS + 1          # the tracer's step of the window
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracing.set_tracer(None)                 # a tracer of this arm's config
+    # the sampler is process-lifetime (an earlier phase's init started it
+    # at the default 2 s): restart it at this phase's cadence
+    timeseries.stop_for_tests()
+    cfg = Config(sharded_update=True, sharded_param_codec=spec,
+                 trace_on=True, trace_start_step=window,
+                 trace_end_step=window, trace_jax=True, trace_sample="1/1",
+                 trace_dir=os.path.join(tmp, "trace"), obs_port=0,
+                 ts_interval_s=OBS_TS_INTERVAL_S, health_on=True,
+                 lock_witness=True, flight_dir=os.path.join(tmp, "flight"))
+    bps.init(cfg, device=OBS_DEVICE)
+    eng, dev = api.engine(), api.device()
+    tr = eng.tracer
+    tr.enabled, tr.sample_n = False, 0       # warm-up and "off": no tracer
+    model, inner, step_fn, opt_kw = build_model(dev)
+    opt = bps.DistributedOptimizer(
+        inner, named_parameters=model.named_parameters(),
+        sharded_update=True)
+    params = dict(model.named_parameters())
+    slots = eng.update_slots
+    # the adapter's slot of each parameter (its push_pull name)
+    slot_of = {n: slots[f"torch.grad.{n}"] for n in params}
+    kinds = collections.Counter(
+        s.codec.kind if s.codec is not None else "none"
+        for s in slots.values())
+    watch = [n for n in watch if n in params] + [
+        next((n for n, s in slot_of.items() if s.codec is not None
+              and s.codec.kind == "topk"), None)]
+    watch = [n for n in watch if n is not None]
+    recs = {n: {"on": True} for n in watch}
+    for n in watch:
+        _watch_codec(torch, registry, slot_of[n], f"{name}: {n}", recs[n])
+    # the control: each watched tensor without the codec (an f32 master
+    # and the same optimizer, on the card, fed the raw gradients)
+    refs = {n: params[n].detach().float().clone() for n in watch}
+    ref_opts = {n: type(inner)([r], **opt_kw) for n, r in refs.items()}
+    stage = collections.defaultdict(list)
+    # Σ of the codec payloads this run's pushes put on the pull leg, and
+    # the per-chunk rounding of the JAX formula; per step, since the
+    # planner may re-carve a tensor between pushes
+    expect = {"payload": 0, "slack": 0}
+
+    def after(checked):
+        for n, s in slots.items():
+            ctx = eng.registry.get(n)
+            if s.codec is not None and ctx.scatter_layout != "ineligible":
+                expect["payload"] += s.payload_nbytes
+                expect["slack"] += len(ctx.chunk_bounds)
+        for n in watch:
+            if checked:
+                _check_watched(torch, slot_of[n], params[n],
+                               f"{name}: {n}", recs[n])
+            refs[n].grad = params[n].grad.float()
+            ref_opts[n].step()
+            refs[n].grad = None
+        legs = collections.Counter()
+        for s in slots.values():
+            for k, v in s.stage_ms.items():
+                legs[k] += v
+        for k, v in legs.items():
+            stage[k].append(v)
+
+    def run(i, checked=False):
+        for n in watch:
+            recs[n]["on"] = checked
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = step_fn(model)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        check(math.isfinite(loss.item()), f"{name}: loss {loss.item()} at "
+                                          f"step {i}")
+        after(checked)
+        return dt
+
+    ok.reset_launches()
+    fa.reset_launches()
+    pw0 = counters.get("compression.param_wire_bytes")
+    run(0, checked=True)                             # warm-up
+    # the tracing modes in turns (off, 1/4, 1/1, then back), so that a
+    # drift over the run does not read as the cost of a mode
+    modes = (("off", 0), ("1/4", 4), ("1/1", 1))
+    ms = {m: [] for m, _ in modes}
+    for r in range(OBSERVED_STEPS):
+        for mode, sample_n in (modes if r % 2 == 0 else modes[::-1]):
+            tr.sample_n = sample_n
+            ms[mode].append(run(1 + sum(map(len, ms.values()))))
+    log(f"{name}: step " + "; ".join(
+        f"tracing {m} {_median_line(v)}" for m, v in ms.items()))
+    # the window: from the first push of one step to the first push of the
+    # next (the device profiler opens and closes there), both replayed
+    tr.enabled = True
+    run(1 + 3 * OBSERVED_STEPS, checked=True)
+    run(2 + 3 * OBSERVED_STEPS, checked=True)
+    steps = 3 + 3 * OBSERVED_STEPS
+    launches = dict(ok.launches)
+    flash = dict(fa.launches)
+    param_wire = counters.get("compression.param_wire_bytes") - pw0
+    # the endpoint, before the engine stops
+    port = obs_server.get_server().port
+    status, metrics_text = _get(port, "/metrics")
+    for series in ("byteps_step_attrib_other_ms",
+                   "byteps_compression_param_wire_bytes_total"):
+        check(status == 200 and series in metrics_text,
+              f"{name}: /metrics ({status}) has no {series}")
+    hstatus, hbody = _get(port, "/healthz")
+    hdoc = json.loads(hbody)
+    check(hstatus == (200 if hdoc["ok"] else 503) and (
+        hdoc["ok"] or hdoc["alerts"]),
+        f"{name}: /healthz {hstatus} {hbody[:200]}")
+    dstatus, dbody = _get(port, "/debug/state")
+    check(dstatus == 200 and "trace" in json.loads(dbody),
+          f"{name}: /debug/state {dstatus} has no trace section")
+    tdoc = json.loads(_get(port, "/timeseries")[1])
+    check(tdoc.get("len", 0) >= 1, f"{name}: /timeseries has no points")
+    chunks = {n: len(eng.registry.get(n).chunk_bounds) for n in slots}
+    bps.shutdown()                    # flushes the trace, stops the profiler
+    last = eng.step_stats.last()
+    dump = flight.dump("chip_smoke")
+    # --- the parameter leg
+    onebit = kinds["onebit"]
+    check(launches["onebit_pack"] == onebit * steps
+          and launches["onebit_unpack"] == onebit * steps,
+          f"{name}: launches {launches}, expected {onebit} pack and unpack "
+          f"per step over {steps} steps")
+    for n in watch:
+        check(recs[n].get("steps") == 3, f"{name}: {n} was replayed "
+                                         f"{recs[n].get('steps')} times")
+        full = slot_of[n].full[:slot_of[n].n].view(refs[n].shape)
+        check(not same_bits(refs[n], full),
+              f"{name}: {n} without the codec (the control) equals the "
+              f"quantized leg's master")
+    payload, slack = expect["payload"], expect["slack"]
+    check(payload - slack <= param_wire <= payload,
+          f"{name}: compression.param_wire_bytes {param_wire}, Σ payload "
+          f"{payload} B (per-chunk rounding at most {slack} B)")
+    if flash_layers:
+        want = flash_layers * steps
+        check(all(v == want for v in flash.values()),
+              f"{name}: flash launches {flash}, expected {want} each")
+    # --- the trace
+    tdir = os.path.join(tmp, "trace")
+    merged = bps_trace.merge(bps_trace.load_trace_files(tdir))
+    errors = bps_trace.validate(merged)
+    check(not errors, f"{name}: bps_trace --validate: {errors[:3]}")
+    evs = merged["traceEvents"]
+    names = {(e["pid"], e["tid"]): e["args"]["name"] for e in evs
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    spans = collections.Counter(
+        (e["name"], names.get((e["pid"], e["tid"]))) for e in evs
+        if e.get("ph") == "X" and e.get("args", {}).get("step") == window)
+    for n, c in chunks.items():
+        for kind in ("queued", "push_pull"):
+            check(spans[(kind, n)] == c,
+                  f"{name}: {spans[(kind, n)]} {kind} spans of {n} at the "
+                  f"window step, {c} chunks")
+    flows = collections.defaultdict(list)
+    for e in evs:
+        if e.get("ph") in ("s", "f"):
+            flows[e["id"]].append(e["ph"])
+    check(flows and all(sorted(v) == ["f", "s"] for v in flows.values()),
+          f"{name}: unpaired flow arcs")
+    # --- the device profile
+    check(tr.profile_path is not None and os.path.exists(tr.profile_path),
+          f"{name}: no device profile")
+    with open(tr.profile_path) as f:
+        prof = json.load(f)["traceEvents"]
+    knames = {e.get("name", "") for e in prof if e.get("cat") == "kernel"}
+    want_k = ["pack_kernel", "unpack_kernel"] + (
+        ["fwd_kernel", "bwd_dkv_kernel", "bwd_dq_kernel"]
+        if flash_layers else [])
+    missing = [k for k in want_k if not any(k in n for n in knames)]
+    check(not missing, f"{name}: the device profile has no {missing}")
+    # --- attribution, flight recorder, witness
+    comps = sum(v for k, v in last.attrib.items() if k != "other")
+    check(abs(last.attrib["other"] - max(0.0, last.wall_ms - comps)) < 0.01
+          and sum(last.attrib.values()) >= last.wall_ms - 0.01,
+          f"{name}: attribution {last.attrib} against wall {last.wall_ms}")
+    with open(dump) as f:
+        fkinds = {e["kind"] for e in json.load(f)["events"]}
+    check({"engine.init", "step_stats", "engine.shutdown"} <= fkinds,
+          f"{name}: the flight dump holds {sorted(fkinds)}")
+    edges = len(lock_witness.witness_edges())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {m: statistics.median(v) for m, v in ms.items()}
+    log(f"{name}: {len(slots)} slots, codecs {dict(kinds)}, {steps} steps; "
+        f"step median (min-max) tracing off {_median_line(ms['off'])}, "
+        f"1/4 {_median_line(ms['1/4'])}, 1/1 {_median_line(ms['1/1'])}; "
+        f"peak {peak:.2f} GiB  [{smi}]")
+    log(f"{name}: parameter-leg host ms per step (mean over {steps} steps, "
+        f"summed over slots): " + ", ".join(
+            f"{k} {statistics.mean(v):.2f}" for k, v in stage.items()))
+    log(f"{name}: watched {watch} replayed by the CPU chain at the warm-up "
+        f"and the two window steps (after the timed ones); "
+        f"controls without the codec differ; launches {launches}, flash "
+        f"{flash}; compression.param_wire_bytes {param_wire} B of Σ "
+        f"payload {payload} B; trace {len(evs)} events, "
+        f"{len(flows)} paired flows, 0 validation errors; device profile "
+        f"{os.path.basename(tr.profile_path)} with {len(knames)} kernel "
+        f"names; last step {last.wall_ms} ms, components "
+        f"{round(comps, 3)} ms + other {last.attrib['other']} ms; "
+        f"/healthz {hstatus} {hdoc['alerts']}; /timeseries {tdoc['len']} "
+        f"points; flight dump {os.path.basename(dump)}; lock witness: "
+        f"{edges} orderings, no cycle")
+    del opt, inner, model, params, refs, ref_opts, slots, slot_of
+    tracing.set_tracer(None)
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"arm": name, "ms": ms, "median": med, "peak_gib": peak,
+            "launches": launches, "flash": flash,
+            "stages": {k: statistics.mean(v) for k, v in stage.items()}}
+
+
+def observed_phase(torch, bps, api, Config, ok, fa, registry, llama, resnet,
+                   smi):
+    """Phase 10: the quantized parameter leg and the observability plane,
+    at Llama-3-8B width (onebit) and ResNet-50 (auto)."""
+    from byteps_tpu_torch.models.gpt import lm_loss
+    from byteps_tpu_torch.parallel.long_context import synthetic_lm_batch
+
+    cfg = dataclasses.replace(llama.llama3_8b(), num_layers=OBS_LLAMA_LAYERS)
+    large_pack_check(torch, ok, cfg.vocab_size * cfg.hidden_size)
+
+    def llama_model(dev):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        model = llama.Llama(cfg, attn_fn=fa.flash_attention, device=dev,
+                            generator=gen).to(torch.bfloat16)
+        data = synthetic_lm_batch(gen, cfg, *SHARDED_LM_BATCH["llama"])
+        inner = torch.optim.AdamW(model.parameters(), **SHARDED_ADAMW)
+        return model, inner, lambda m: lm_loss(m(data["input_ids"]),
+                                               data["labels"]), SHARDED_ADAMW
+
+    def resnet_model(dev):
+        gen = torch.Generator().manual_seed(0)
+        model = resnet.resnet50(num_classes=CLASSES, generator=gen).to(dev)
+        batch = resnet.synthetic_images(gen, BATCH, IMAGE, CLASSES, dev)
+        inner = torch.optim.SGD(model.parameters(), **SHARDED_SGD)
+        return model, inner, lambda m: torch.nn.functional.cross_entropy(
+            m(batch["images"]), batch["labels"]), SHARDED_SGD
+
+    rows = [observed_arm(torch, bps, api, Config, ok, fa, registry,
+                         "llama_param_onebit", "onebit", llama_model,
+                         OBS_WATCH["llama"], cfg.num_layers, smi),
+            observed_arm(torch, bps, api, Config, ok, fa, registry,
+                         "resnet_param_auto", "auto", resnet_model,
+                         OBS_WATCH["resnet"], 0, smi)]
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2448,6 +2883,23 @@ def main():
                              cfg, batch, seq, shape_ms[shape])
         for k in flash_launches:
             flash_launches[k] += run[k]
+    t_phase = time.perf_counter()
+    sharded_phase(torch, bps, api, Config, llama, gpt, resnet)
+    log(f"sharded update phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    async_phase(torch, bps, ok, registry, resnet, smi)
+    log(f"async parameter-server phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    observed = observed_phase(torch, bps, api, Config, ok, fa, registry,
+                              llama, resnet, smi)
+    log(f"observed sharded update phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # the main paths' launches: phase 4's and the LM slices', and phase 10's
+    for row in observed:
+        for k in KERNELS:
+            launches[k] += row["launches"][k]
+        for k in FLASH_KERNELS:
+            flash_launches[k] += row["flash"][k]
     kernels = []
     for name, replaces in KERNELS.items():
         r = rows[name]
@@ -2467,12 +2919,6 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations", "library_ms": r["library_ms"]})
-    t_phase = time.perf_counter()
-    sharded_phase(torch, bps, api, Config, llama, gpt, resnet)
-    log(f"sharded update phase: {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    async_phase(torch, bps, ok, registry, resnet, smi)
-    log(f"async parameter-server phase: {time.perf_counter() - t_phase:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

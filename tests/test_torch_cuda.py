@@ -996,3 +996,87 @@ def test_async_step_on_card_matches_cpu(card):
     assert ok.launches["onebit_pack"] == 12       # 2 tensors x 2 x 3
     s_cpu, _ = _async_run("cpu", compression=ONEBIT_EF_KW)
     assert s_card.wire_bytes == s_cpu.wire_bytes > 0
+
+
+# ------------------------------------- the quantized parameter leg, tracing
+
+def _param_leg(device, spec, steps=4, n=300_000):
+    """A world of one: a slot under ``spec`` (SGD with momentum, foreach
+    off on both devices), the same seeded gradients; the emitted
+    parameters of every step, on the host, and the onebit launches."""
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.core import api
+
+    api.init(Config(sharded_update=True, sharded_param_codec=spec,
+                    min_compress_bytes=0), device=device)
+    try:
+        g = torch.Generator().manual_seed(0)
+        p0 = torch.randn(n, generator=g)
+        api.declare_update("w", (n,), torch.float32,
+                           optimizer=(torch.optim.SGD,
+                                      {"lr": 0.1, "momentum": 0.9,
+                                       "foreach": False}),
+                           init_value=p0.to(device))
+        ok.reset_launches()
+        outs = [api.push_pull_update(torch.randn(n, generator=g).to(device),
+                                     "w").cpu() for _ in range(steps)]
+        torch.cuda.synchronize()
+        return outs, dict(ok.launches)
+    finally:
+        api.shutdown()
+
+
+@pytest.mark.parametrize("spec", ["onebit", "topk:0.25", "randomk:0.25",
+                                  "dithering:16"])
+def test_param_leg_on_card_matches_cpu(card, spec):
+    """The parameter leg on the card against the same chain on the CPU:
+    topk, randomk and max-norm dithering bit for bit; onebit's scale is
+    an L1 sum in another order (ROADMAP Queue C 6), so its parameters
+    agree to 1e-6 after 4 steps, its signs exactly.  Onebit launches one
+    pack and one unpack per step at one rank."""
+    got, launches = _param_leg("cuda", spec)
+    want, _ = _param_leg("cpu", spec)
+    for a, b in zip(got, want):
+        if spec == "onebit":
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        else:
+            assert same_bits(a, b)
+    if spec == "onebit":
+        assert launches["onebit_pack"] == 4
+        assert launches["onebit_unpack"] == 4
+
+
+def test_traced_engine_run_on_card_validates(card, tmp_path):
+    """A sampled (1/1) engine run on the card: the flushed trace has a
+    ``queued`` and a ``push_pull`` span per chunk and paired flows, and
+    the port's bps_trace validates it with 0 errors."""
+    import json
+    import os
+
+    from byteps_tpu_torch.common import tracing
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.core import api
+    from byteps_tpu_torch.tools import bps_trace
+
+    tracing.set_tracer(None)
+    api.init(Config(trace_sample="1/1", trace_dir=str(tmp_path),
+                    partition_bytes=4096))
+    try:
+        for s in range(3):
+            hs = [api.push_pull_async(torch.full((3000,), float(s),
+                                                 device=card), "w"),
+                  api.push_pull_async(torch.ones(37, device=card), "b")]
+            for h in hs:
+                h.wait()
+    finally:
+        api.shutdown()
+        tracing.set_tracer(None)
+    files = [f for f in os.listdir(tmp_path)
+             if f.startswith("bps_trace_rank")]
+    with open(tmp_path / files[0]) as f:
+        doc = json.load(f)
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    assert sum(e["name"] == "queued" for e in spans) == 3 * (3 + 1)
+    assert sum(e["name"] == "push_pull" for e in spans) == 3 * (3 + 1)
+    merged = bps_trace.merge(bps_trace.load_trace_files(str(tmp_path)))
+    assert bps_trace.validate(merged) == []

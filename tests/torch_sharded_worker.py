@@ -11,7 +11,11 @@ average.  Imports neither jax nor byteps_tpu.
 
 Results are per part of the cases and rank
 (``OUT_DIR/<device>_<part>_<layout>_<rank>.npz``); the sharded part at
-1x4 ends with an elastic shrink to 2 ranks.
+1x4 ends with an elastic shrink to 2 ranks.  The "param_codec" part runs
+the quantized parameter leg (``Config.sharded_param_codec``) under each
+codec spec, then a suspend/resume round trip of every slot:
+
+    python -m tests.torch_sharded_worker --spawn cpu OUT_DIR --part param_codec node_of_2
 """
 
 import dataclasses
@@ -49,6 +53,12 @@ ZERO_IN, ZERO_HIDDEN, ZERO_OUT, ZERO_BATCH = 12, 16, 4, 4
 ZERO_STEPS = 3
 ZERO_ADAMW = {"lr": 1e-2, "weight_decay": 0.1}
 CLIP_SGD_LR, CLIP_MAX_NORM = 5e-2, 0.05
+# the quantized parameter leg: every codec spec the JAX package accepts,
+# on a multi-chunk tensor (the scatter accumulator), SGD with momentum
+PARAM_SPECS = ("onebit", "topk:0.25", "randomk:0.25", "dithering:16",
+               "powersgd:2")
+PC_N, PC_STEPS, PC_BEFORE = 3001, 4, 2
+PC_OPT = (torch.optim.SGD, {"lr": 0.1, "momentum": 0.9})
 
 
 def rows(seed, world, n):
@@ -109,6 +119,13 @@ def replicated_mlp(R, steps, opt_factory, clip=None):
         losses.append(np.mean(ls))
     return losses, {k: p.detach().numpy()
                     for k, p in model.named_parameters()}
+
+
+def pc_grads(spec, step, world, n=PC_N):
+    """Rank rows of the parameter-leg cases' gradients (any f32: at two
+    ranks every sum is one add)."""
+    seed = 5000 + 10 * PARAM_SPECS.index(spec) + step
+    return np.random.RandomState(seed).randn(world, n).astype(np.float32)
 
 
 def grad_seed(opt, tensor, step):
@@ -370,6 +387,61 @@ def elastic_case(res, R, rank, dev, port2, spec, shrink_to=None):
     return True
 
 
+def _pc_declare(spec, name, init):
+    api.engine().cfg.sharded_param_codec = spec
+    api.declare_update(name, (PC_N,), torch.float32, optimizer=PC_OPT,
+                       init_value=init)
+
+
+def param_codec_case(res, R, rank, dev, port2):
+    """Each spec of PARAM_SPECS for PC_STEPS steps: the emitted
+    parameters of every step, the slot's master block and its offset,
+    the wire of each leg and the param-leg counter, the exported residual;
+    then every spec again from the start with a suspend after PC_BEFORE
+    steps and a resume on a fresh rendezvous, the slots declared again
+    from the stash."""
+    from byteps_tpu_torch.common.telemetry import counters
+    eng = api.engine()
+    p0 = torch.from_numpy(init_param(11, PC_N)).to(dev)
+    for spec in PARAM_SPECS:
+        name = f"pc/{spec}"
+        _pc_declare(spec, name, p0)
+        slot = eng.update_slots[name]
+        base = counters.get("compression.param_wire_bytes")
+        before = dict(eng.stats)
+        for s in range(PC_STEPS):
+            g = torch.from_numpy(pc_grads(spec, s, R)[rank]).to(dev)
+            res[f"{name}/out/{s}"] = _np(api.push_pull_update(g, name))
+        res[f"{name}/wire"] = np.array(
+            [eng.stats[k] - before[k] for k in ("wire_push", "wire_pull")])
+        res[f"{name}/param_wire"] = np.array(
+            counters.get("compression.param_wire_bytes") - base)
+        res[f"{name}/payload"] = np.array(slot.payload_nbytes)
+        res[f"{name}/master"] = _np(slot.master)
+        res[f"{name}/lo"] = np.array(slot.block * slot.C)
+        res[f"{name}/kwargs"] = np.array(sorted(slot.codec_kwargs.items()))
+    snap = eng.export_update_slots()
+    for spec in PARAM_SPECS:
+        res[f"pc/{spec}/export_error"] = snap[f"pc/{spec}"]["cstate"][
+            "error"].numpy()
+    # the round trip, on slots of their own
+    for spec in PARAM_SPECS:
+        _pc_declare(spec, f"pcrt/{spec}", p0)
+        for s in range(PC_BEFORE):
+            g = torch.from_numpy(pc_grads(spec, s, R)[rank]).to(dev)
+            api.push_pull_update(g, f"pcrt/{spec}")
+    cfg = api.engine().cfg
+    api.suspend()
+    api.resume(config=dataclasses.replace(
+        cfg, coordinator_address=f"127.0.0.1:{port2}"))
+    for spec in PARAM_SPECS:
+        _pc_declare(spec, f"pcrt/{spec}", None)
+        for s in range(PC_BEFORE, PC_STEPS):
+            g = torch.from_numpy(pc_grads(spec, s, R)[rank]).to(dev)
+            out = api.push_pull_update(g, f"pcrt/{spec}")
+        res[f"pcrt/{spec}/params"] = _np(out)
+
+
 def record_threads():
     """Wrap the collectives the port issues, and the slot's step, to
     record the threads that call them: {what: set of thread names}."""
@@ -397,8 +469,9 @@ def record_threads():
 
 
 def main(out_path, device, layout, port2, part):
-    """``part``: "sharded" (the slots, the adapter, the elastic cases)
-    or "zero" (ZeRO-1, FSDP, the clip and the replicated step)."""
+    """``part``: "sharded" (the slots, the adapter, the elastic cases),
+    "zero" (ZeRO-1, FSDP, the clip and the replicated step) or
+    "param_codec" (the quantized parameter leg)."""
     threads = record_threads()
     cfg = Config.from_env()
     cfg.sharded_update = True
@@ -408,7 +481,12 @@ def main(out_path, device, layout, port2, part):
     dev, R, rank = comm.device, comm.size, comm.rank
     res = {}
     stayed = True
-    if part == "sharded":
+    if part == "param_codec":
+        cfg_pc = api.engine().cfg
+        cfg_pc.min_compress_bytes = 0
+        cfg_pc.compress_error_ceiling = 1.0     # PowerSGD's gate passes
+        param_codec_case(res, R, rank, dev, port2)
+    elif part == "sharded":
         slot_cases(res, "slot", list(OPTIMIZERS), TENSORS, R, rank, dev)
         bf16_case(res, R, rank, dev)
         adapter_case(res, R, rank, dev)
@@ -475,8 +553,11 @@ if __name__ == "__main__":
     if sys.argv[1] == "--spawn":
         device, out_dir = sys.argv[2], sys.argv[3]
         os.makedirs(out_dir, exist_ok=True)
-        for layout in sys.argv[4:]:
-            for part in ("sharded", "zero"):
+        layouts, parts = sys.argv[4:], ("sharded", "zero")
+        if layouts[:1] == ["--part"]:
+            parts, layouts = (layouts[1],), layouts[2:]
+        for layout in layouts:
+            for part in parts:
                 spawn(layout, device, out_dir, part)
             print(f"{device} {layout}: ok", flush=True)
     else:
