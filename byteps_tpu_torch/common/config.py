@@ -66,6 +66,22 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
                                             health_burn_rate /
                                             health_skew_ratio
   - BYTEPS_LOCK_WITNESS                  -> lock_witness
+  - BYTEPS_HEARTBEAT_ON / _INTERVAL / _TIMEOUT -> heartbeat_on /
+                                            heartbeat_interval_s /
+                                            heartbeat_timeout_s
+  - BYTEPS_FAILURE_EXIT_CODE             -> failure_exit_code
+  - BYTEPS_SYNC_DEADLINE_S               -> sync_deadline_s
+  - BYTEPS_SLOWNESS_PHI / _WINDOW        -> slowness_phi / slowness_window
+  - BYTEPS_TRANSPORT_HOSTS / _PORT_BASE / _CONNECT_TIMEOUT /
+    _SEND_DEADLINE / _KEEPALIVE / _MAX_INFLIGHT
+                                         -> transport_hosts /
+                                            transport_port_base /
+                                            transport_connect_timeout_s /
+                                            transport_send_deadline_s /
+                                            transport_keepalive_s /
+                                            transport_max_inflight
+  - BYTEPS_BUS_MAX_FRAME                 -> bus_max_frame (the
+                                            transport's frame clamp)
 
 ``partition_pinned`` / ``credit_pinned`` are set when the environment
 variable is present (whatever its value) or the field is given a value
@@ -85,8 +101,8 @@ directory under the system's temporary directory, never the working
 directory.
 
 Not ported: the knobs of the planes the port does not have yet
-(membership and the sync deadline, the clock-offset estimate, serving,
-durability, the transport).
+(membership, gossip and the straggler policy, the clock-offset estimate,
+serving, durability).
 """
 
 from __future__ import annotations
@@ -302,6 +318,36 @@ class Config:
     lock_witness: bool = dataclasses.field(
         default_factory=lambda: _env_bool("BYTEPS_LOCK_WITNESS", False))
 
+    # --- failure detection (utils/failure_detector.py) ---
+    heartbeat_on: bool = False       # arm the heartbeat at init (world > 1)
+    heartbeat_interval_s: float = 1.0
+    heartbeat_timeout_s: float = 30.0
+    # the detector's restartable exit: the launchers' --restart
+    # supervision restarts exactly this code (a crash exits 1)
+    failure_exit_code: int = 17
+    # per-unit deadline in the engine's sync loop (0 = off): a unit the
+    # syncer stays blocked on past it is reported as data-path failure
+    # evidence to the installed failure action; os._exit is the last
+    # resort when none is installed
+    sync_deadline_s: float = 0.0
+
+    # --- slowness scoring (utils/slowness.py) ---
+    slowness_phi: float = 8.0        # phi above which a peer is slow
+    slowness_window: int = 64        # samples kept per (site, peer)
+
+    # --- TCP transport (comm/transport.py) ---
+    transport_hosts: str = ""        # per-rank "host[:port]", by rank
+    transport_port_base: int = 0     # rank R listens on base + R; 0 = any
+    transport_connect_timeout_s: float = 5.0
+    # a request unanswered past it raises integrity.AckLost, never hangs
+    transport_send_deadline_s: float = 10.0
+    transport_keepalive_s: float = 5.0   # idle keepalive; 0 = none
+    # unacknowledged request bytes per connection before a sender blocks
+    transport_max_inflight: int = 64 << 20
+    # frame-size clamp on both ends of a connection: a corrupt length
+    # prefix fails the connection instead of parking a huge recv
+    bus_max_frame: int = 1 << 30
+
     # None: resolved in __post_init__ (pinned when not the default)
     partition_pinned: Optional[bool] = None
     credit_pinned: Optional[bool] = None
@@ -329,6 +375,42 @@ class Config:
                              f"[0, {self.local_size})")
         if self.scheduling_credit < 0:
             raise ValueError("scheduling_credit must be >= 0")
+        if not 0 < self.failure_exit_code < 256:
+            raise ValueError(
+                f"failure_exit_code {self.failure_exit_code} is not "
+                "restartable: it must survive a process exit status "
+                "(1..255)")
+        if self.failure_exit_code == 1:
+            # 1 is the generic Python-crash code: supervision could not
+            # tell a detector-requested restart from an ordinary crash
+            raise ValueError(
+                "failure_exit_code 1 is not restartable: it is "
+                "indistinguishable from a generic crash to the "
+                "launcher's --restart supervision; pick a code in "
+                "2..255")
+        if self.sync_deadline_s < 0:
+            raise ValueError("sync_deadline_s must be >= 0 (0 = off)")
+        if not 0 <= self.transport_port_base < 65536:
+            raise ValueError("transport_port_base must be in 0..65535 "
+                             "(0 = ephemeral)")
+        if self.transport_connect_timeout_s <= 0:
+            raise ValueError("transport_connect_timeout_s must be positive")
+        if self.transport_send_deadline_s <= 0:
+            raise ValueError(
+                "transport_send_deadline_s must be positive — the "
+                "per-send deadline is what turns a partitioned peer "
+                "into AckLost instead of a hang")
+        if self.transport_keepalive_s < 0:
+            raise ValueError("transport_keepalive_s must be >= 0 (0 = "
+                             "no keepalives)")
+        if self.transport_max_inflight <= 0:
+            raise ValueError("transport_max_inflight must be positive")
+        if self.bus_max_frame <= 0:
+            raise ValueError("bus_max_frame must be positive")
+        if self.slowness_phi <= 0:
+            raise ValueError("slowness_phi must be positive")
+        if self.slowness_window < 8:
+            raise ValueError("slowness_window must be >= 8")
         if self.min_compress_bytes < 0:
             raise ValueError("min_compress_bytes must be >= 0")
         if self.sharded_update_fused and not self.sharded_update:
@@ -474,6 +556,26 @@ class Config:
             health_burn_rate=_env_float("BYTEPS_HEALTH_BURN_RATE", 1.0),
             health_skew_ratio=_env_float("BYTEPS_HEALTH_SKEW_RATIO", 4.0),
             lock_witness=_env_bool("BYTEPS_LOCK_WITNESS", False),
+            heartbeat_on=_env_bool("BYTEPS_HEARTBEAT_ON", False),
+            heartbeat_interval_s=_env_float("BYTEPS_HEARTBEAT_INTERVAL",
+                                            1.0),
+            heartbeat_timeout_s=_env_float("BYTEPS_HEARTBEAT_TIMEOUT",
+                                           30.0),
+            failure_exit_code=_env_int("BYTEPS_FAILURE_EXIT_CODE", 17),
+            sync_deadline_s=_env_float("BYTEPS_SYNC_DEADLINE_S", 0.0),
+            slowness_phi=_env_float("BYTEPS_SLOWNESS_PHI", 8.0),
+            slowness_window=_env_int("BYTEPS_SLOWNESS_WINDOW", 64),
+            transport_hosts=_env_str("BYTEPS_TRANSPORT_HOSTS", ""),
+            transport_port_base=_env_int("BYTEPS_TRANSPORT_PORT_BASE", 0),
+            transport_connect_timeout_s=_env_float(
+                "BYTEPS_TRANSPORT_CONNECT_TIMEOUT", 5.0),
+            transport_send_deadline_s=_env_float(
+                "BYTEPS_TRANSPORT_SEND_DEADLINE", 10.0),
+            transport_keepalive_s=_env_float(
+                "BYTEPS_TRANSPORT_KEEPALIVE", 5.0),
+            transport_max_inflight=_env_int(
+                "BYTEPS_TRANSPORT_MAX_INFLIGHT", 64 << 20),
+            bus_max_frame=_env_int("BYTEPS_BUS_MAX_FRAME", 1 << 30),
             # the variable's presence is the pin, whatever its value
             partition_pinned=("BYTEPS_PARTITION_BYTES" in os.environ
                               or None),

@@ -11,10 +11,9 @@ flight-recorder ``alert`` event, sets ``health.alerts_active{rule=}`` to
 The cluster-history provider (the ``attrib_skew`` rule) and the quorum
 provider (``quorum_loss``) are ported as setters; nothing registers one
 until the membership bus and the gossip plane are ported, so those two
-rules never fire.  ``slow_peer`` reads the ``slowness.max_score`` gauge,
-which nothing in the port sets yet; its threshold is the JAX package's
-``slowness_phi`` default (8.0) while the port's config has no slowness
-knobs.
+rules never fire.  ``slow_peer`` reads the sampled ``slow_score`` (the
+``slowness.max_score`` gauge, which ``utils/slowness.py`` publishes) against
+``slowness_phi``.
 """
 
 from __future__ import annotations
@@ -46,8 +45,6 @@ _BURN_RULES = {
 
 # a component mean below this is noise, never skew (ms)
 _SKEW_FLOOR_MS = 5.0
-# the JAX package's BYTEPS_SLOWNESS_PHI default
-_SLOW_PHI = 8.0
 
 
 def attrib_skew_findings(history: Dict[int, dict], ratio: float,
@@ -102,7 +99,7 @@ class HealthEngine:
         self.overlap_floor = float(cfg.health_overlap_floor)
         self.burn_rate = float(cfg.health_burn_rate)
         self.skew_ratio = float(cfg.health_skew_ratio)
-        self.slow_phi = float(getattr(cfg, "slowness_phi", _SLOW_PHI))
+        self.slow_phi = float(cfg.slowness_phi)
         self._states = {rid: _RuleState() for rid in RULE_IDS}
         self._lock = threading.Lock()
 

@@ -57,8 +57,8 @@ each hop's wall time (retransmits included) is the step's ``wire``
 attribution component, a captured operation gets a ``wire:<site>`` span
 and a flow step on its arc, a retransmitted hop an
 ``integrity.retransmit`` span, and each NACK and non-finite screen a
-flight-recorder event.  Not ported: the slowness feed
-(``utils/slowness.py`` is not in the port yet).
+flight-recorder event, and its wall time is a slowness sample
+(``utils/slowness.py``) for the hop's worker at the hop's site.
 """
 
 from __future__ import annotations
@@ -78,6 +78,7 @@ __all__ = [
     "IntegrityError", "AckLost", "EnvelopeMeta", "enabled",
     "nonfinite_policy", "max_retransmits", "loopback_fast", "crc32c",
     "seal_array", "seal_bytes", "open_array", "open_bytes", "open_frame",
+    "is_frame",
     "wire_transmit", "screen_nonfinite", "record_span",
 ]
 
@@ -209,6 +210,12 @@ def seal_bytes(data: bytes, *, key: str, seq: int = 0,
                worker: int = -1) -> bytes:
     """Wrap an opaque byte payload (a codec's wire frame)."""
     return _seal(KIND_BYTES, key, worker, seq, "", (), bytes(data))
+
+
+def is_frame(data: bytes) -> bool:
+    """Cheap sniff: does this blob start like an envelope?  Lets
+    receivers accept both sealed and raw senders."""
+    return len(data) >= _FIXED.size + _CRC.size and data[:4] == MAGIC
 
 
 # -- opening (verify-on-receive) --------------------------------------------
@@ -354,6 +361,11 @@ def wire_transmit(frame: bytes, *, key: str, worker: int, seq: int,
     if attempts["n"] > 1:
         record_span("retransmit", t0, key=key, worker=worker, seq=seq,
                     attempts=attempts["n"])
+    # slowness feed: the hop's wall time, retransmit rounds included,
+    # attributed to the hop's worker, so a peer whose frames are
+    # chronically slow or corrupt scores as slow before it scores as dead
+    from ..utils import slowness as _slowness
+    _slowness.tracker().observe(worker, time.monotonic() - t0, site=site)
     return out
 
 

@@ -7,20 +7,21 @@
 - ``/metrics``: the whole metrics registry in Prometheus text (names
   ``byteps_<name>``), with the engine's live gauges (scheduler depth,
   bytes in flight, push_pull MB/s) refreshed at scrape time;
-- ``/healthz``: JSON liveness (membership epoch, engine run state,
+- ``/healthz``: JSON liveness (membership epoch, engine run state, the
+  age of the last heartbeat reply when ``init()`` armed the heartbeat,
   push_pull speed, current step); HTTP 503 with ``degraded: true`` and
   the firing rules while any ``common/health.py`` alert is active;
 - ``/debug/state``: JSON internals (scheduler, planner, last step, the
-  server engines' quarantined rounds, the stores' dedup floors, the
-  flight recorder's fill, the tracer, the time-series window, the
-  health alerts);
+  server engines' quarantined rounds, the stores' dedup floors, the TCP
+  transport's connections and servers, the slowness scores, the flight
+  recorder's fill, the tracer, the time-series window, the health
+  alerts);
 - ``/timeseries``: the raw time-series ring.
 
 Both documents carry an ``omitted`` list naming the sections of the JAX
 package's documents that the port leaves out until their planes exist:
 ``membership`` (the views and the bus; the epoch is served),
-``heartbeat``, ``slowness``, ``serving``, ``wal``, ``transport`` and
-``reconciler``.
+``serving``, ``wal`` and ``reconciler``.
 
 Started once per process by ``init()`` and not stopped by
 ``shutdown()``: an elastic suspend/resume keeps the endpoint and its
@@ -67,8 +68,7 @@ def _refresh_live_gauges() -> None:
 
 
 # sections of the JAX package's documents that wait for their planes
-OMITTED = ("membership", "heartbeat", "slowness", "serving", "wal",
-           "transport", "reconciler")
+OMITTED = ("membership", "serving", "wal", "reconciler")
 
 
 def healthz() -> dict:
@@ -81,6 +81,7 @@ def healthz() -> dict:
     from ..core import api
     from ..fault import membership as _membership
     eng = api._engine
+    hb = api._heartbeat
     alerts = _health.active_alerts()
     doc = {
         "ok": not alerts,
@@ -90,7 +91,8 @@ def healthz() -> dict:
         "ts": time.time(),
         "membership_epoch": _membership.current_epoch(),
         "engine_running": bool(eng is not None and eng._running),
-        "last_heartbeat_age_s": None,
+        "last_heartbeat_age_s": (round(hb.last_beat_age(), 3)
+                                 if hb is not None else None),
         "omitted": list(OMITTED),
     }
     if eng is not None:
@@ -118,6 +120,14 @@ def debug_state() -> dict:
                            for c in _metrics.components("server_engine")],
         "kv_stores": [c.debug_state()
                       for c in _metrics.components("kv_store")],
+        # the TCP transport (comm/transport.py): per-connection state
+        # machines and per-server attachment and peer views
+        "transport": {
+            "servers": [c.debug_state()
+                        for c in _metrics.components("transport_server")],
+            "connections": [c.debug_state()
+                            for c in _metrics.components("transport_conn")],
+        },
         "flight_recorder": {
             "enabled": _flight.recorder.enabled,
             "events": len(_flight.recorder),
@@ -133,6 +143,10 @@ def debug_state() -> dict:
                           "window": store.window,
                           "interval_s": store.interval_s})
     doc["health"] = {"active_alerts": _health.active_alerts()}
+    # per-(site, peer) latency medians and phi scores, the labeled gauges
+    # re-stamped so a /metrics scrape after this sees the same figures
+    from ..utils import slowness as _slowness
+    doc["slowness"] = _slowness.tracker().publish_gauges()
     if eng is not None:
         try:
             doc["engine"] = {

@@ -12,10 +12,9 @@ as per-window p99s.  The ring is served at the obs server's
 The sampler is process-lifetime: ``init()`` starts it
 (:func:`ensure_started`) and ``suspend()``/``resume()`` leave it running.
 
-Not ported: the slowness tracker's refresh before each sample
-(``utils/slowness.py`` is not in the port; ``slow_score`` is sampled
-whenever something sets its gauge) and the summary's ride on the
-membership bus (the bus is not ported either).
+Each sample first re-publishes the slowness tracker's gauges, so
+``slow_score`` is the live phi.  Not ported: the summary's ride on the
+membership bus (the bus is not ported yet).
 """
 
 from __future__ import annotations
@@ -110,6 +109,13 @@ class TimeSeriesStore:
         """Take one sample from the registry and append it to the ring.
         Returns the point (tests drive this directly; the background
         sampler calls it on the cadence)."""
+        try:
+            # slowness gauges are otherwise stamped only at scrape time
+            # (/debug/state): refresh here so "slow_score" is live phi
+            from ..utils import slowness as _slowness
+            _slowness.tracker().publish_gauges()
+        except Exception:  # noqa: BLE001 — never wedge a sampler tick
+            pass
         snap = registry.snapshot()
         point: Dict[str, float] = {"t": now if now is not None
                                    else time.time()}

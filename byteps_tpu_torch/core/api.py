@@ -32,9 +32,23 @@ are process-lifetime: ``shutdown()`` leaves them, so an elastic
 suspend/resume keeps the window and the port.  :func:`metrics_snapshot`
 is this process's counters, gauges and last step.
 
-Not ported: the membership, serving and cluster-metrics entry points of
-the planes not ported yet (``cluster_metrics`` needs the membership
-bus).
+``init()`` arms the heartbeat (``utils/failure_detector.py``
+``HeartbeatMonitor``, one beat per process) when ``heartbeat_on`` is set
+and the world has more than one process; the UDP bind runs under the
+``RetryPolicy`` (it can race the previous incarnation's socket teardown
+after a resume), and a bind that still fails fails ``init()``.
+``suspend()`` and ``shutdown()`` stop it.  A dead peer then reaches the
+default failure action: the installed one
+(``failure_detector.install_failure_action``, e.g. a
+``fault.recovery.RecoveryCoordinator``), else the restartable exit.
+
+Across processes, ``comm/transport.py`` carries the parameter server's
+hops over TCP (``TransportServer``, ``TcpEndpoint``): a worker reaches a
+``KVStore`` or ``ServerEngine`` in another process through the endpoint
+API, as the JAX package's transport workers do.  Not ported yet: the
+membership, serving and cluster-metrics entry points of the planes not
+ported yet (``cluster_metrics`` needs the membership bus), and elastic
+shrink and rejoin.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from ..fault import injector as _fault
 from .engine import PushPullEngine
 
 _engine: Optional[PushPullEngine] = None
+_heartbeat = None  # the HeartbeatMonitor init() arms (heartbeat_on)
 _lock = threading.Lock()
 # names declared before init, declared again in order at init
 _declared_order: List[str] = []
@@ -76,7 +91,7 @@ def init(config: Optional[Config] = None, device="cuda") -> None:
 
 def _start(config: Optional[Config], device, names: List[str]) -> None:
     """Start the engine with ``names`` declared first, in order."""
-    global _engine
+    global _engine, _heartbeat
     with _lock:
         if _engine is not None:
             return
@@ -95,6 +110,16 @@ def _start(config: Optional[Config], device, names: List[str]) -> None:
         except BaseException:
             comm.close()
             raise
+        if cfg.heartbeat_on and comm.size > 1:
+            # armed before the engine is published: a bind that fails
+            # fails init(), never a running engine that believes liveness
+            # is on
+            try:
+                _heartbeat = _arm_heartbeat(cfg, comm)
+            except BaseException:
+                engine.shutdown(wait=False)
+                comm.close()
+                raise
         # the observability plane: the flight recorder's knobs and dump
         # hooks, then the endpoint (a bind failure fails init: the
         # operator asked for it), then the health rules and the sampler
@@ -103,6 +128,7 @@ def _start(config: Optional[Config], device, names: List[str]) -> None:
         try:
             _obs.ensure_started(cfg)
         except BaseException:
+            _stop_heartbeat()
             engine.shutdown(wait=False)
             comm.close()
             raise
@@ -111,6 +137,30 @@ def _start(config: Optional[Config], device, names: List[str]) -> None:
         for name in names:
             engine.registry.declare(name)
         _engine = engine
+
+
+def _arm_heartbeat(cfg: Config, comm):
+    """One heartbeat monitor for this process, its UDP bind retried under
+    the config's RetryPolicy."""
+    from ..common.retry import RetryPolicy
+    from ..utils.failure_detector import HeartbeatMonitor
+
+    def arm():
+        # a fresh monitor per attempt: a failed bind leaves the old
+        # instance's socket unusable
+        return HeartbeatMonitor(rank=comm.rank, num_ranks=comm.size,
+                                interval=cfg.heartbeat_interval_s,
+                                timeout=cfg.heartbeat_timeout_s).start()
+
+    return RetryPolicy.from_config(cfg, retry_on=(OSError,)).call(
+        arm, describe="heartbeat UDP bind")
+
+
+def _stop_heartbeat() -> None:
+    global _heartbeat
+    if _heartbeat is not None:
+        _heartbeat.stop()
+        _heartbeat = None
 
 
 def initialized() -> bool:
@@ -123,6 +173,7 @@ def shutdown(wait: bool = True) -> None:
     with _lock:
         if _engine is None:
             return
+        _stop_heartbeat()
         try:
             _engine.shutdown(wait=wait)
         finally:
@@ -189,8 +240,7 @@ def metrics_snapshot(light: bool = False) -> Dict[str, Any]:
     """This process's observability snapshot (JAX ``api.py:347-381``):
     counters and gauges (one consistent registry view), the membership
     epoch, push_pull speed and the last completed step.  ``light=True``
-    drops the histogram buckets and the planner.  The JAX snapshot's
-    ``slowness`` section waits for ``utils/slowness.py``."""
+    drops the histogram buckets, the slowness scores and the planner."""
     import time
 
     from ..common.config import get_config
@@ -206,6 +256,8 @@ def metrics_snapshot(light: bool = False) -> Dict[str, Any]:
     }
     if not light:
         snap["histograms"] = reg["histograms"]
+        from ..utils import slowness as _slowness
+        snap["slowness"] = _slowness.tracker().snapshot()
     eng = _engine
     if eng is not None:
         snap["speed_mbps"] = round(eng.speed.speed()[1], 3)

@@ -77,15 +77,26 @@ gets ``engine.init``, ``engine.dispatch_failed`` and
 ``engine.shutdown``, and shutdown flushes the last step, the trace and
 the exit dump.
 
+Fault plane, at the JAX engine's sites: the injector's ``on_step`` (one
+step per enqueued tensor, which ``kill:step=N`` counts), ``dispatch``
+after each pop and ``sync`` inside the syncer's timed wait.  Each unit's
+blocked time (the chaos ``sync`` site included) feeds the slowness
+tracker at ``site="sync"`` under this process's host id.  With
+``sync_deadline_s > 0`` the syncer stamps the unit it waits on
+(``_sync_block``) and the ``bps-sync-deadline`` thread reports a unit
+blocked past the deadline, once, to
+``failure_detector.data_path_stalled`` (the installed failure action;
+the restartable exit only without one), counted in
+``engine.sync_deadline_trips``; shutdown's drain then waits at most
+``max(5, sync_deadline_s)`` seconds.
+
 Not ported:
 - AOT warming: eager PyTorch compiles no program per shape, and the
   CUDA kernels are built once per process at their first launch, so
   there is nothing to warm (the ``compile`` attribution reads 0);
 - ``export_shards`` (serving cuts);
 - membership epochs with the stale-epoch guard (and its
-  ``engine.stale_chunk`` flight event), and the ``_deadline_loop``
-  watchdog: they need ``fault/membership.py`` and
-  ``utils/failure_detector.py``.
+  ``engine.stale_chunk`` flight event): they need ``fault/membership.py``.
 """
 
 from __future__ import annotations
@@ -113,6 +124,8 @@ from ..common.telemetry import (SpeedMonitor, StepStatsTracker, attribution,
                                 counters, gauges, histograms)
 from ..common.types import ChunkTask, Status, StatusCode, TensorContext
 from ..compression import registry as compression_registry
+from ..utils import slowness as _slowness
+from ..fault import injector as _fault
 from ..fault import membership as _membership
 from .sharded_update import ShardedUpdateSlot
 from ..common.logging import get_logger
@@ -126,6 +139,13 @@ _DRAIN_BUDGET_S = 60.0  # shutdown waits this long, in all, for handles
 # buffer-mode rule, at the default of its BYTEPS_BUFFER_MIN_BYTES (not a
 # knob here).
 BUFFER_MIN_BYTES = 1 << 20
+
+
+def _wait_done(done) -> None:
+    """The syncer's blocking wait on one unit: its CUDA event (None on
+    the CPU, where the collective was synchronous)."""
+    if done is not None:
+        done.synchronize()
 
 
 def _plan_batch(batch: List[ChunkTask]):
@@ -357,12 +377,28 @@ class PushPullEngine:
         self._dispatch_enabled.set()
         self._parked = threading.Event()  # dispatcher pause handshake
         self._running = True
+        # the data-path sync deadline (sync_deadline_s, off by default):
+        # the syncer stamps the unit it blocks on, and a separate thread
+        # (the captive syncer cannot observe its own wedge) reports a
+        # unit blocked past the deadline.  _block is the patch point
+        # tests wedge.
+        self._block = _wait_done
+        self._deadline_on = cfg.sync_deadline_s > 0
+        self._sync_block_lock = threading.Lock()
+        self._sync_block: Optional[tuple] = None  # (t0, [tensor names])
+        self._deadline_stop = threading.Event()
+        self._deadline_thread: Optional[threading.Thread] = None
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, name="bps-dispatch", daemon=True)
         self._syncer = threading.Thread(
             target=self._sync_loop, name="bps-sync", daemon=True)
         self._dispatcher.start()
         self._syncer.start()
+        if self._deadline_on:
+            self._deadline_thread = threading.Thread(
+                target=self._deadline_loop, name="bps-sync-deadline",
+                daemon=True)
+            self._deadline_thread.start()
         _flight.record("engine.init", ranks=comm.size,
                        epoch=_membership.current_epoch())
 
@@ -462,6 +498,9 @@ class PushPullEngine:
                              f"the engine runs on {self.device}")
         if op not in ("average", "sum"):
             raise ValueError(f"op must be 'average' or 'sum', got {op!r}")
+        if _fault.ENABLED:
+            # one "step" per enqueued tensor: kill:step=N counts these
+            _fault.on_step()
         est_nbytes = tensor.numel() * tensor.element_size()
         plan_bytes = self._plan_bytes(est_nbytes, compression)
         ctx = self.declare_tensor(name, tensor.shape, tensor.dtype,
@@ -800,6 +839,9 @@ class PushPullEngine:
             task = self.scheduler.get_task(block=True)
             if task is None:    # interrupted (pause) or woken (shutdown)
                 continue
+            if _fault.ENABLED:
+                # chaos site "dispatch": delays stall the dispatch order
+                _fault.fire("dispatch")
             # drain bound: the queue depth at the start of the drain, so
             # tasks enqueued while popping wait for the next iteration
             limit = (self.scheduler.pending if self._group_size < 0
@@ -958,18 +1000,34 @@ class PushPullEngine:
         """Retire one dispatch unit: one wait, one return of credits, then
         every task's callback (a failed unit fails every task in it)."""
         telemetry = self.cfg.telemetry_on
-        if err is None and done is not None:
+        if err is None:
+            # stamp the unit for the deadline thread; the stamp covers the
+            # chaos "sync" site too, the test double of a wedged collective
+            if self._deadline_on:
+                with self._sync_block_lock:
+                    self._sync_block = (time.monotonic(),
+                                        [t.name for t in tasks])
             t_blk = time.perf_counter()
             try:
-                done.synchronize()
+                if _fault.ENABLED:
+                    _fault.fire("sync")
+                self._block(done)
             except Exception as e:  # noqa: BLE001 — device fault
                 err = e
                 self._restore(rollback)
+            finally:
+                if self._deadline_on:
+                    with self._sync_block_lock:
+                        self._sync_block = None
+            dt_blk = time.perf_counter() - t_blk
             if telemetry:
                 # this thread's time blocked on the card: the step's
                 # sync stall (the communication left un-overlapped)
-                self.step_stats.add_stall(
-                    (time.perf_counter() - t_blk) * 1e3)
+                self.step_stats.add_stall(dt_blk * 1e3)
+                # the self-reported half of gray-failure detection: this
+                # process's own data-path latency, per unit
+                _slowness.tracker().observe(self.cfg.host_id, dt_blk,
+                                            site="sync")
         # credits back before the callbacks: the dispatcher can issue the
         # next window while this thread assembles
         self.scheduler.report_finish(sum(t.nbytes for t in tasks))
@@ -1049,11 +1107,52 @@ class PushPullEngine:
             if p.trace_left == 0:
                 self.tracer.flow(task.trace_id, "f", task.name, t_done)
 
+    def _deadline_loop(self):
+        """The per-unit sync-deadline watchdog (``sync_deadline_s``): a
+        unit the syncer has been blocked on past the deadline becomes
+        data-path failure evidence for ``failure_detector.
+        data_path_stalled``, once per wedged unit."""
+        deadline = self.cfg.sync_deadline_s
+        period = max(0.05, min(1.0, deadline / 4.0))
+        reported = None
+        while not self._deadline_stop.wait(period):
+            if not self._running:
+                return
+            with self._sync_block_lock:
+                blk = self._sync_block
+            if blk is None:
+                reported = None
+                continue
+            t0, names = blk
+            gap = time.monotonic() - t0
+            if gap <= deadline or reported == t0:
+                continue
+            reported = t0
+            counters.inc("engine.sync_deadline_trips")
+            _flight.record("engine.sync_deadline", gap_s=round(gap, 3),
+                           deadline_s=deadline, tensors=names[:8])
+            _log.error(
+                "engine: sync unit %s blocked %.1fs > "
+                "BYTEPS_SYNC_DEADLINE_S=%.1f — reporting data-path "
+                "failure evidence", names[:4], gap, deadline)
+            try:
+                from ..utils.failure_detector import data_path_stalled
+                data_path_stalled(gap, detail=f"sync unit {names[:4]}")
+            except Exception:  # noqa: BLE001 — the failure action owns
+                # its own escalation
+                _log.error("sync-deadline failure action raised",
+                           exc_info=True)
+
     # --------------------------------------------------------- lifecycle
     def drain(self) -> None:
-        """Wait, within _DRAIN_BUDGET_S in all, for the outstanding
-        handles (their errors are the callers' to read)."""
-        deadline = time.monotonic() + _DRAIN_BUDGET_S
+        """Wait for the outstanding handles (their errors are the
+        callers' to read) within one budget in all: _DRAIN_BUDGET_S, or
+        with a sync deadline armed ``max(5, sync_deadline_s)`` — a unit
+        blocked past the deadline was declared dead, and the drain must
+        not stall a recovery behind it."""
+        budget = (_DRAIN_BUDGET_S if self.cfg.sync_deadline_s <= 0
+                  else max(5.0, self.cfg.sync_deadline_s))
+        deadline = time.monotonic() + budget
         for h in self.handles.outstanding():
             try:
                 h.wait(timeout=max(0.1, deadline - time.monotonic()))
@@ -1066,12 +1165,15 @@ class PushPullEngine:
         if wait:
             self.drain()
         self._running = False
+        self._deadline_stop.set()
         # wake a dispatcher blocked in the pop or parked on the pause gate
         self._dispatch_enabled.set()
         self.scheduler.wake()
         self._dispatcher.join(timeout=10)
         self._sync_q.put(_SHUTDOWN)
         self._syncer.join(timeout=10)
+        if self._deadline_thread is not None:
+            self._deadline_thread.join(timeout=5)
         for task in self.scheduler.drain():
             task.callback(None, Status(StatusCode.ABORTED,
                                        "engine shut down"))

@@ -41,8 +41,11 @@ span and opens a flow arc (``s``) that the merge thread closes (``f``)
 with its ``server.merge`` span, the envelope hop between them adding its
 own (``t``).  Every merge's wall time is the step's ``merge``
 attribution component, and a quarantined round records a flight event
-and dumps the flight recorder.  Not ported: the transport's entry points
-``receive_push`` / ``receive_push_wire`` (ROADMAP Queue A item 3).
+and dumps the flight recorder.  Pushes from other processes arrive
+through the TCP transport (``comm/transport.py``), which verifies each
+envelope at the socket and calls :meth:`ServerEngine.receive_push` /
+:meth:`ServerEngine.receive_push_wire`: the membership-epoch gate, then
+the post-wire half of :meth:`ServerEngine.push`.
 """
 
 from __future__ import annotations
@@ -465,6 +468,40 @@ class ServerEngine:
                     num_workers=num_workers, epoch=epoch,
                     round_no=round_no, trace_id=trace_id))
         return True
+
+    # -- transport receive side (comm/transport.py) ------------------------
+    #
+    # The TCP transport verifies the sealed envelope AT THE SOCKET (a
+    # corrupt frame was already NACKed back to the sender), so these
+    # entry points run no second wire hop: they gate on the membership
+    # epoch and hand the verified payload straight to the post-wire half
+    # of push() (non-finite screen, shape validation, round accounting,
+    # enqueue).
+
+    def receive_push(self, key: str, value, worker_id: int,
+                     num_workers: int,
+                     mepoch: Optional[int] = None) -> bool:
+        """A transport-delivered (already-verified) dense push.  Returns
+        True when the contribution reached a merge queue (False =
+        stale-epoch or quarantine drop; fate final either way, so the
+        transport's dedup floor advances regardless)."""
+        if self._stale("transport push", key, mepoch):
+            return False
+        return self._push_checked(key, _host_tensor(value), worker_id,
+                                  num_workers)
+
+    def receive_push_wire(self, key: str, data: bytes, worker_id: int,
+                          num_workers: int,
+                          mepoch: Optional[int] = None) -> bool:
+        """A transport-delivered (already-verified) compressed push: the
+        wire bytes are decoded with the key's registered server codec on
+        the engine's device and merged like any dense contribution.  A
+        stale ``mepoch`` is dropped before the decode runs."""
+        if self._stale("transport compressed push", key, mepoch):
+            return False
+        comp = self._codec(key).comp
+        value = decode(comp, bytes(data), self.device)
+        return self._push_checked(key, value, worker_id, num_workers)
 
     # -- the loopback wire (integrity envelopes) ---------------------------
 

@@ -38,14 +38,19 @@ Data integrity (common/integrity.py, BYTEPS_INTEGRITY):
   raw ``push_delta`` traffic never touches either (its rejects show up
   in ``integrity.crc_reject``/``integrity.retransmit``).
 
-Single-process scope: several workers of one process share a store;
-workers in other processes reach one only through the TCP transport,
-which the port does not have yet (ROADMAP Queue A item 3).  A push joins
-the caller's captured trace or samples one at ``kv.push`` and records a
-``kv.push`` span (the envelope's wire hop adds its own).  Not ported:
-the write subscription, ``write_batch``,
-``publish_key``, ``snapshot_refs`` and the WAL hooks (the serving and
-durability planes, item 4), and the transport-side ``apply_delta*``.
+Several workers of one process share a store directly; workers in
+other processes reach it through the TCP transport
+(``comm/transport.py``), whose server verifies each sealed frame at the
+socket and hands the verified delta to :meth:`KVStore.apply_delta` /
+:meth:`KVStore.apply_delta_wire`: every semantic but the store's own
+envelope hop (stale-epoch drop, seq-token dedup, the non-finite screen,
+the chaos ack-drop), the raw value summed on the host where
+``push_delta`` sums it, a wire frame decoded on the store's device.  A
+push joins the caller's captured trace or samples one at ``kv.push``
+and records a ``kv.push`` span (the envelope's wire hop adds its own).
+Not ported: the write subscription, ``write_batch``, ``publish_key``,
+``snapshot_refs`` and the WAL hooks (the serving and durability planes,
+ROADMAP Queue A item 4).
 """
 
 from __future__ import annotations
@@ -438,6 +443,66 @@ class KVStore:
                 if delta is None:  # skip policy: dropped, bytes wasted
                     self._account_wire(len(data), wasted=True)
                     self._mark_seen(key, worker_id, seq)  # fate final
+                    return self._versions.get(key, -1)
+            return self._land_delta_locked(key, delta, worker_id, seq,
+                                           wire_len=len(data))
+
+    # The TCP transport verifies the sealed envelope AT THE SOCKET and
+    # NACKs corruption back to the sender, so these entry points skip
+    # the store's own envelope hop (re-sealing a verified payload would
+    # CRC bytes against themselves AND double-fire an armed chaos site)
+    # while keeping every other semantic.
+
+    def apply_delta(self, key: str, delta, *,
+                    mepoch: Optional[int] = None, worker_id: int = 0,
+                    seq: Optional[int] = None) -> int:
+        """Sum a transport-delivered (already-verified) raw delta (a host
+        array); returns the new version.  Raises
+        :class:`integrity.AckLost` AFTER the sum applied when chaos drops
+        the ack (``drop:site=kv_push``): the transport server suppresses
+        its reply and the sender's same-token retry is dedup-absorbed."""
+        with self._lock:
+            if self._stale(key, mepoch):
+                return self._versions.get(key, -1)
+            if self._dup(key, worker_id, seq):
+                version = self._versions.get(key, -1)
+                self._maybe_drop_ack(key, version, seq)
+                return version
+            arr = host_view(delta)
+            if _integrity.enabled():
+                arr = _integrity.screen_nonfinite(
+                    arr, what="delta", key=key, worker=worker_id)
+                if arr is None:  # skip policy: fate final
+                    self._mark_seen(key, worker_id, seq)
+                    return self._versions.get(key, -1)
+            return self._land_delta_locked(key, arr, worker_id, seq)
+
+    def apply_delta_wire(self, key: str, data: bytes, *,
+                         mepoch: Optional[int] = None, worker_id: int = 0,
+                         seq: Optional[int] = None) -> int:
+        """Sum a transport-delivered (already-verified) wire-encoded
+        delta, decoded by the key's registered codec on the store's
+        device.  Wire accounting as :meth:`push_delta_wire`: landed bytes
+        in :attr:`wire_bytes`, duplicates and screened-out deltas in
+        :attr:`wire_bytes_wasted`."""
+        with self._lock:
+            if self._stale(key, mepoch):
+                return self._versions.get(key, -1)
+            codec = self._codecs.get(key)
+            if codec is None:
+                raise KeyError(f"key {key!r} has no registered compression")
+            if self._dup(key, worker_id, seq):
+                self._account_wire(len(data), wasted=True)
+                version = self._versions.get(key, -1)
+                self._maybe_drop_ack(key, version, seq)
+                return version
+            delta = decode(codec[1], bytes(data), self.device)
+            if _integrity.enabled():
+                delta = _integrity.screen_nonfinite(
+                    delta, what="delta", key=key, worker=worker_id)
+                if delta is None:  # skip policy: dropped, bytes wasted
+                    self._account_wire(len(data), wasted=True)
+                    self._mark_seen(key, worker_id, seq)
                     return self._versions.get(key, -1)
             return self._land_delta_locked(key, delta, worker_id, seq,
                                            wire_len=len(data))

@@ -28,9 +28,15 @@ device:
 ``stage_ms`` holds the host milliseconds of the last step's stages
 (``d2h``, ``push``, ``pull``, ``h2d``).
 
-Cross-process async training needs the TCP transport (ROADMAP Queue A
-item 3): here, as in the JAX tests, several workers of one process
-share one store.
+The optimizer talks to a ``KVStore`` in its own process (several
+workers of one process may share it).  Across processes the TCP
+transport (``comm/transport.py``) carries the same pushes and pulls: a
+``TransportServer`` in front of the store, and a ``TcpEndpoint`` per
+worker (``push_delta`` / ``push_delta_wire`` with the seq token,
+``kv_pull``).  The optimizer gains no endpoint mode: it also calls
+``init_key`` and ``register_compression``, which an endpoint lacks (in
+the JAX package too), so cross-process training is driven through the
+endpoint API, as ``byteps_tpu_torch/tools/fault_resnet.py`` does.
 """
 
 from __future__ import annotations

@@ -261,9 +261,69 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    step, quantize, gather, dequantize, apply), beside the card's name
    and power limit.
 
+11. the fault plane and the TCP transport (``fault_phase``): every child
+   a fresh interpreter (``python -m byteps_tpu_torch.tools.fault_resnet
+   ROLE``) on the card, ports free on 127.0.0.1, every child killed in a
+   ``finally``; a child that exits with another code than its expected
+   one (0; 1 for the killed trainer), runs past FAULT_TIMEOUT_S or prints
+   no result line fails the run.  Each arm's children start while the
+   parent checks the arm before (their start-up overlaps the check);
+   each arm prints its seconds.  ResNet-50
+   at full width (1000 classes, 224x224 NHWC, bf16 compute, f32
+   parameters, batch 32 a worker, weights and data from the seed), 1
+   warm-up and FAULT_STEPS timed worker steps an arm:
+   - (a) ``tcp_async_resnet``: a ``KVStore`` on the card behind a
+     ``TransportServer`` in one process, two worker processes each
+     running forward, backward and a local SGD(momentum=0.9) step, then
+     pushing ``p' - p`` per parameter with ``TcpEndpoint.push_delta``
+     (the step as seq token) and pulling every parameter with
+     ``kv_pull``.  The server records the order in which it applies the
+     deltas, ``(key, worker, seq)`` under the store's lock; the store
+     must equal a host replay of the workers' logged deltas in that
+     order, bit for bit, and a replay without one delta must differ.
+     Prints the median worker step (min-max) beside phase 9's in-process
+     ``async_resnet`` step of the same run, the host ms of each stage
+     (the local step, device to host, seal + CRC, send to ack, pull, host
+     to device), each worker's request round trip p50 and p99 and the
+     bytes on the wire a worker step;
+   - (b) ``tcp_async_resnet_onebit``: as (a) with onebit + EF packed on
+     the card by each worker (``push_delta_wire``) and decoded on the
+     card by the store; the store must equal the CPU replay of the
+     frames in the applied order, and each process's onebit launches
+     must be exactly a pack and an unpack per key and push in a worker,
+     an unpack per applied push in the server, and no merge;
+   - (c) ``tcp_async_resnet_chaos``: (a)'s gradients replayed under
+     FAULT_CHAOS_SPEC (``bitflip:site=kv_push`` in both workers,
+     ``conn_reset:site=transport`` in worker 1) and one deliberate
+     duplicate of a landed token per worker: every (worker, seq) of
+     every key applied exactly once, the store equal to the replay of
+     its own log, and CRC rejects, retransmits, connection resets,
+     reconnects and duplicates dropped all above 0;
+   - (d) ``kill_and_recover_resnet``: two trainers, each its own engine
+     at a world of one (NCCL) training through
+     ``DistributedOptimizer(SGD(momentum=0.9))``, sharing a heartbeat
+     server (0.2 s / 2 s) and a checkpoint directory; rank 0 saves
+     ``{model, optimizer, step}`` every 2 steps; rank 1 runs under
+     ``kill:rank=1:step=FAULT_KILL_STEP`` and must exit 1, its flight
+     recorder's dump holding the ``fault.kill`` event; rank 0's
+     ``RecoveryCoordinator`` must complete suspend, ``resume(
+     num_workers=1)`` and ``restore_latest`` once (``recovery.attempt ==
+     recovery.completed == 1``, no failure, exit 0), its restored
+     parameters and momenta must equal the saved ones bit for bit on the
+     card, and 2 more steps must have finite losses.  Prints the time
+     from the kill to the detection, the ms of suspend, resume and
+     restore, and the checkpoint's save ms and bytes;
+   - (e) ``sync_deadline``, in this process: an engine with
+     ``sync_deadline_s=SYNC_DEADLINE_S`` and an installed failure action;
+     a SYNC_DELAY_MS chaos delay at ``site=sync`` on one unit of four
+     small tensors must fire the action once with a gap above the
+     deadline, ``engine.sync_deadline_trips`` must read 1, the process
+     must not exit, and the next push_pull must complete.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
-4, the two LM slices' and phase 10's arms);
+4, the two LM slices', phase 10's arms and phase 11's child processes,
+which count their own);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -390,6 +450,15 @@ ASYNC_DEVICE = "cuda"            # where the workers and codecs run
 ONEBIT_SCALE_RTOL = 1e-5         # an L1 sum in another order (Queue C 6)
 # the observed sharded update (10)
 OBS_DEVICE = "cuda"
+FAULT_DEVICE = "cuda"             # where phase 11's children run
+FAULT_STEPS = 3                  # timed worker steps of each TCP arm
+FAULT_CHAOS_SPEC = {             # worker -> the faults it runs under (arm c)
+    0: "bitflip:site=kv_push:p=0.02",
+    1: "bitflip:site=kv_push:p=0.02;conn_reset:site=transport:p=0.005"}
+FAULT_KILL_STEP = 2 * 161 + 80   # rank 1's push_pull enqueues: mid step 3
+FAULT_TIMEOUT_S = 240            # each arm's children, in all
+SYNC_DEADLINE_S = 0.5            # arm (e)'s engine
+SYNC_DELAY_MS = 1500             # the chaos delay at site=sync in arm (e)
 OBS_LLAMA_LAYERS = 4             # of Llama-3-8B's 32 (phase 8's cut)
 OBSERVED_STEPS = 3               # timed steps of each tracing mode
 OBS_TS_INTERVAL_S = 0.1          # the time-series sampler's cadence
@@ -2844,6 +2913,421 @@ def observed_phase(torch, bps, api, Config, ok, fa, registry, llama, resnet,
     return rows
 
 
+# ------------------------------------ 11. the fault plane and the TCP transport
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_role(role, argv, env=None):
+    """One child of phase 11: a fresh interpreter running a role of
+    ``byteps_tpu_torch/tools/fault_resnet.py`` from the repo's root."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    full_env = dict(os.environ)
+    full_env["PYTHONPATH"] = root + os.pathsep + full_env.get(
+        "PYTHONPATH", "")
+    full_env.pop("BYTEPS_FAULT_SPEC", None)
+    full_env.update(env or {})
+    return subprocess.Popen(
+        [sys.executable, "-m", "byteps_tpu_torch.tools.fault_resnet", role,
+         "--device", FAULT_DEVICE, "--batch", str(BATCH), "--image",
+         str(IMAGE), "--steps", str(FAULT_STEPS)] + list(argv),
+        cwd=root, env=full_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _run_children(name, procs, expect=None):
+    """Wait for every child within FAULT_TIMEOUT_S in all; each must exit
+    with its expected code (0 unless ``expect`` names another) and, if
+    it exits 0, print its result line.  A child that exits with another
+    code fails the arm at once.  Every child still running when this
+    returns or raises is killed.  Returns {child: result or None}."""
+    import threading
+    expect = expect or {}
+    outs = {}
+
+    def drain(who, p):
+        outs[who] = p.communicate()[0]
+
+    readers = [threading.Thread(target=drain, args=item, daemon=True)
+               for item in procs.items()]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + FAULT_TIMEOUT_S
+    killed = set()
+    try:
+        while any(p.poll() is None for p in procs.values()):
+            bad = [who for who, p in procs.items() if p.poll() is not None
+                   and p.returncode != expect.get(who, 0)]
+            if bad or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for who, p in procs.items():
+            if p.poll() is None:
+                killed.add(who)
+                p.kill()
+        for t in readers:
+            t.join(timeout=30)
+    results = {}
+    # the children that ended on their own first: a killed one only says
+    # that another failed (or that the arm ran past its time)
+    for who in sorted(procs, key=lambda w: w in killed):
+        p, want = procs[who], expect.get(who, 0)
+        out = outs.get(who, "")
+        check(p.returncode == want,
+              f"{name}: {who} exited {p.returncode}, expected {want}"
+              + (f" (killed: another child failed, or the arm ran past "
+                 f"{FAULT_TIMEOUT_S} s)" if who in killed else "")
+              + ":\n" + out[-3000:])
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("FAULT_RESULT ")]
+        if want == 0:
+            check(len(lines) == 1, f"{name}: {who} printed no result:\n"
+                                   + out[-3000:])
+        results[who] = (json.loads(lines[0][len("FAULT_RESULT "):])
+                        if lines else None)
+    return results
+
+
+def _spawn_tcp(arm, out, worker_env=None, replay=""):
+    """Start the server and the two workers of one TCP arm."""
+    port = _free_port()
+    procs = {"server": _spawn_role("server", ["--port", str(port), "--arm",
+                                              arm, "--out", out])}
+    for w in (0, 1):
+        argv = ["--rank", str(w), "--port", str(port), "--arm", arm,
+                "--out", out]
+        if replay:
+            argv += ["--replay", replay]
+        procs[f"worker{w}"] = _spawn_role(
+            "worker", argv, env=(worker_env or {}).get(w))
+    return procs
+
+
+def _collect_tcp(torch, name, procs, out):
+    """Wait for a TCP arm's children; returns their results and what the
+    server and the workers wrote."""
+    res = _run_children(name, procs)
+    for w in (0, 1):
+        losses = res[f"worker{w}"]["losses"]
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: worker {w} losses {losses}")
+
+    def load(f):
+        return torch.load(os.path.join(out, f), weights_only=False)
+
+    pushed = {}
+    for w in (0, 1):
+        for key, wid, seq, payload in load(f"pushed_w{w}.pt"):
+            pushed[(key, wid, seq)] = payload
+    return {"res": res, "init": load("init.pt"), "store": load("store.pt"),
+            "order": load("order.pt"), "pushed": pushed}
+
+
+def _tcp_replay(torch, registry, rec, decode=False, drop=None):
+    """The store by the host: the initial values plus every pushed delta
+    (``decode``: each wire frame decoded by the server chain's plain
+    versions) in the order the server applied them (``drop``: the index
+    of one to leave out)."""
+    import numpy as np
+    acc = {k: v.numpy().copy() for k, v in rec["init"].items()}
+    codecs = {}
+    for j, tok in enumerate(rec["order"]):
+        if j == drop:
+            continue
+        key = tok[0]
+        payload = rec["pushed"][tuple(tok)]
+        if decode:
+            comp = codecs.get(key) or codecs.setdefault(
+                key, registry.create(ONEBIT_EF, acc[key].size, torch.float32,
+                                     for_server=True))
+            delta = comp.decompress(comp.wire_decode(payload)).numpy()
+        else:
+            delta = payload.numpy()
+        acc[key] += delta.reshape(acc[key].shape)
+    return acc
+
+
+def _exactly_once(rec, name):
+    """Every (key, worker, seq) pushed was applied once: no duplicate, no
+    gap."""
+    order = [tuple(t) for t in rec["order"]]
+    keys = rec["init"].keys()
+    want = {(k, w, s) for k in keys for w in (0, 1)
+            for s in range(1, 2 + FAULT_STEPS)}
+    check(len(order) == len(set(order)),
+          f"{name}: {len(order) - len(set(order))} tokens applied twice")
+    check(set(order) == want,
+          f"{name}: applied {len(set(order))} tokens, expected {len(want)}; "
+          f"missing {sorted(want - set(order))[:3]}")
+
+
+def _tcp_report(name, rec, smi, async_ms):
+    ws = [rec["res"][f"worker{w}"] for w in (0, 1)]
+    steps = [t for r in ws for t in r["step_ms"]]
+    stages = {k: statistics.mean(r["stages_ms"][k] for r in ws)
+              for k in ws[0]["stages_ms"]}
+    rtt = [(round(r["rtt_ms"]["p50"], 3), round(r["rtt_ms"]["p99"], 3))
+           for r in ws]
+    log(f"{name} [{smi}]: {_median_line(steps)} a worker step over "
+        f"{len(steps)} (phase 9's in-process async_resnet this run: "
+        f"{_median_line(async_ms)}); host ms a step, mean of the workers, "
+        f"{_fmt(stages)}; rtt ms p50/p99 per worker {rtt} over "
+        f"{ws[0]['rtt_ms']['n']} requests each; wire bytes a worker "
+        f"step {ws[0]['wire_bytes_per_step']:.0f}; server "
+        f"{rec['res']['server']['counters']}; workers "
+        f"{[r['counters'] for r in ws]}")
+    return statistics.median(steps)
+
+
+def _same_tcp_store(torch, rec, replay):
+    return [k for k, v in rec["store"].items()
+            if not same_bits(v, torch.from_numpy(replay[k]))]
+
+
+def sync_deadline_arm(torch, bps, api, Config):
+    """Arm (e): an engine with ``sync_deadline_s`` and an installed
+    failure action; a chaos delay at ``site=sync`` longer than the
+    deadline on one unit of four small tensors trips it once, the
+    process stays up and the next push_pull completes."""
+    from byteps_tpu_torch.common import flight_recorder as flight
+    from byteps_tpu_torch.common.telemetry import counters
+    from byteps_tpu_torch.fault import injector
+    from byteps_tpu_torch.utils import failure_detector as fd
+
+    calls = []
+    exits = []
+    real_exit = fd._exit
+    fd._exit = exits.append
+    prev = fd.install_failure_action(lambda stale: calls.append(
+        (set(stale), time.monotonic())))
+    bps.init(Config(sync_deadline_s=SYNC_DEADLINE_S, group_size=-1))
+    try:
+        eng = api.engine()
+        xs = [torch.full((1024,), float(i + 1), device=api.device())
+              for i in range(4)]
+        for i, x in enumerate(xs):
+            api.push_pull(x, f"deadline.{i}")
+        trips0 = counters.get("engine.sync_deadline_trips")
+        d0 = eng.stats["dispatches"]
+        injector.arm(f"delay:site=sync:p=1:ms={SYNC_DELAY_MS}", seed=1)
+        eng.pause_dispatch()
+        t0 = time.monotonic()
+        hs = [api.push_pull_async(x, f"deadline.{i}")
+              for i, x in enumerate(xs)]
+        eng.resume_dispatch()
+        outs = [h.wait(timeout=60) for h in hs]
+        injector.disarm()
+        torch.cuda.synchronize()
+        units = eng.stats["dispatches"] - d0
+        trips = counters.get("engine.sync_deadline_trips") - trips0
+        gaps = [e["gap_s"] for e in flight.recorder.snapshot()
+                if e.get("kind") == "engine.sync_deadline"]
+        check(units == 1, f"sync_deadline: the set took {units} units")
+        check(len(calls) == 1 and calls[0][0] == set() and trips == 1,
+              f"sync_deadline: action calls {calls}, trips {trips}")
+        # the flight event rounds the gap to the ms (the JAX format): a
+        # trip past the deadline by less than 0.5 ms reads as equal
+        fired_after = calls[0][1] - t0
+        check(gaps and gaps[-1] >= SYNC_DEADLINE_S
+              and fired_after > SYNC_DEADLINE_S,
+              f"sync_deadline: gap {gaps[-1:]} s, action {fired_after:.3f} "
+              f"s after the push, deadline {SYNC_DEADLINE_S} s")
+        check(not exits, f"sync_deadline: exit called {exits}")
+        check(all(same_bits(o, x) for o, x in zip(outs, xs)),
+              "sync_deadline: the delayed set's averages changed")
+        after = api.push_pull(xs[0] * 2, "deadline.after")
+        torch.cuda.synchronize()
+        check(same_bits(after, xs[0] * 2),
+              "sync_deadline: the next push_pull is wrong")
+        log(f"sync_deadline: a {SYNC_DELAY_MS} ms chaos delay at site=sync "
+            f"on one unit of 4 tensors tripped the {SYNC_DEADLINE_S} s "
+            f"deadline once (gap {gaps[-1]:.3f} s, action fired "
+            f"{fired_after:.3f} s after the push), no exit; the next "
+            f"push_pull completed")
+    finally:
+        injector.disarm()
+        fd.install_failure_action(prev)
+        fd._exit = real_exit
+        bps.shutdown()
+
+
+def _spawn_recover(out):
+    """Start arm (d)'s two trainers."""
+    hb_port = _free_port()
+    procs = {}
+    for rank in (0, 1):
+        env = {"DMLC_NUM_WORKER": "1", "DMLC_WORKER_ID": "0",
+               "BYTEPS_FLIGHT_DIR": os.path.join(out, f"flight{rank}")}
+        if rank == 1:
+            env.update(BYTEPS_FAULT_SPEC=f"kill:rank=1:step={FAULT_KILL_STEP}",
+                       BYTEPS_FAULT_SEED="7")
+        procs[f"rank{rank}"] = _spawn_role(
+            "recover", ["--rank", str(rank), "--hb-port", str(hb_port),
+                        "--out", out], env=env)
+    return procs
+
+
+def kill_recover_arm(torch, procs, out):
+    """Arm (d): two trainers, one killed mid-step by the injector, the
+    other detecting it by heartbeat and recovering from a checkpoint."""
+    res = _run_children("kill_and_recover_resnet", procs,
+                        expect={"rank1": 1})["rank0"]
+    kills = []
+    flight_dir = os.path.join(out, "flight1")
+    for f in sorted(os.listdir(flight_dir)) if os.path.isdir(
+            flight_dir) else ():
+        with open(os.path.join(flight_dir, f)) as fh:
+            kills += [e for e in json.load(fh)["events"]
+                      if e.get("kind") == "fault.kill"]
+    check(len(kills) == 1 and kills[0]["step"] == FAULT_KILL_STEP,
+          f"kill_and_recover_resnet: rank 1's kill events {kills}")
+    c = res["counters"]
+    check(c["recovery.attempt"] == c["recovery.completed"] == 1
+          and c["recovery.failed"] == 0,
+          f"kill_and_recover_resnet: counters {c}")
+    check(res["failed_ranks"] == [1] and res["num_workers"] == 1,
+          f"kill_and_recover_resnet: recovered {res['failed_ranks']} to "
+          f"{res['num_workers']} worker(s)")
+    check(res["n_differ"] == 0 and res["momenta"] == 161
+          and res["restored_on_card"],
+          f"kill_and_recover_resnet: {res['n_differ']} restored tensors "
+          f"differ from the saved ones ({res['differ']}), "
+          f"{res['momenta']} momenta, on the card {res['restored_on_card']}")
+    check(len(res["losses_after"]) == 2 and all(
+        math.isfinite(x) for x in res["losses_after"]),
+        f"kill_and_recover_resnet: losses after {res['losses_after']}")
+    detect_s = res["detected_at"] - kills[0]["t"]
+    log(f"kill_and_recover_resnet: rank 1 killed at enqueue "
+        f"{FAULT_KILL_STEP} (exit 1); rank 0 detected it after "
+        f"{detect_s:.3f} s (heartbeat 0.2 s / timeout 2 s), suspend "
+        f"{res['suspend_ms']:.1f} ms, resume {res['resume_ms']:.1f} ms, "
+        f"restore {res['restore_ms']:.1f} ms (recovery "
+        f"{res['recovery_s']:.3f} s), restored step {res['restored_step']} "
+        f"of {res['steps_before']} bit for bit (161 parameters' tensors and "
+        f"momenta on the card), 2 more steps with losses "
+        f"{[round(x, 4) for x in res['losses_after']]}; checkpoint save "
+        f"{_median_line(res['save_ms'])} for {res['save_bytes'][-1]} B")
+    return res
+
+
+def fault_phase(torch, bps, api, Config, registry, smi, async_ms):
+    """Phase 11: ResNet-50 workers push to a store in another process
+    over localhost TCP (raw, onebit, under chaos), a killed trainer's
+    peer recovers from a checkpoint, and the sync deadline trips.  Each
+    arm's children start while the parent checks the arm before (their
+    start-up overlaps the check).  Returns the onebit launches its
+    children counted."""
+    out = tempfile.mkdtemp(prefix="bps_fault_")
+    dirs = {a: os.path.join(out, a) for a in "abcd"}
+    launches = collections.Counter()
+    live = []               # every arm's children, killed in the finally
+    t_arm = time.perf_counter()
+
+    def arm_done(name):
+        nonlocal t_arm
+        log(f"{name}: {time.perf_counter() - t_arm:.1f} s")
+        t_arm = time.perf_counter()
+
+    try:
+        live.append(_spawn_tcp("raw", dirs["a"]))
+        raw = _collect_tcp(torch, "tcp_async_resnet", live[-1], dirs["a"])
+        live.append(_spawn_tcp("onebit", dirs["b"]))
+        _exactly_once(raw, "tcp_async_resnet")
+        bad = _same_tcp_store(torch, raw, _tcp_replay(torch, registry, raw))
+        check(not bad, f"tcp_async_resnet: {len(bad)} keys differ from the "
+                       f"replay in the applied order, first {bad[:3]}")
+        ctl = _tcp_replay(torch, registry, raw, drop=0)
+        check(bool(_same_tcp_store(torch, raw, ctl)),
+              "tcp_async_resnet: a replay without one delta matched")
+        log(f"tcp_async_resnet: the store equals the host replay of "
+            f"{len(raw['order'])} deltas in the server's applied order bit "
+            f"for bit; without one it differs")
+        raw_med = _tcp_report("tcp_async_resnet", raw, smi, async_ms)
+        for r in raw["res"].values():
+            launches.update(r["launches"])
+        del raw
+        arm_done("tcp_async_resnet")
+
+        onebit = _collect_tcp(torch, "tcp_async_resnet_onebit", live[-1],
+                              dirs["b"])
+        live.append(_spawn_tcp(
+            "chaos", dirs["c"], replay=dirs["a"],
+            worker_env={w: {"BYTEPS_FAULT_SPEC": spec,
+                            "BYTEPS_FAULT_SEED": str(7 + w)}
+                        for w, spec in FAULT_CHAOS_SPEC.items()}))
+        _exactly_once(onebit, "tcp_async_resnet_onebit")
+        bad = _same_tcp_store(torch, onebit, _tcp_replay(
+            torch, registry, onebit, decode=True))
+        check(not bad, f"tcp_async_resnet_onebit: {len(bad)} keys differ "
+                       f"from the CPU replay, first {bad[:3]}")
+        n = len(onebit["init"])
+        pushes = 1 + FAULT_STEPS
+        for w in (0, 1):
+            got = onebit["res"][f"worker{w}"]["launches"]
+            want = {"onebit_pack": n * pushes, "onebit_unpack": n * pushes,
+                    "onebit_unpack_sum": 0}
+            check(got == want, f"tcp_async_resnet_onebit: worker {w} "
+                               f"launches {got}, expected {want}")
+        got = onebit["res"]["server"]["launches"]
+        want = {"onebit_pack": 0, "onebit_unpack": len(onebit["order"]),
+                "onebit_unpack_sum": 0}
+        check(got == want, f"tcp_async_resnet_onebit: server launches "
+                           f"{got}, expected {want}")
+        for r in onebit["res"].values():
+            launches.update(r["launches"])
+        srv = onebit["res"]["server"]
+        log(f"tcp_async_resnet_onebit: the store equals the CPU replay of "
+            f"{len(onebit['order'])} frames bit for bit; launches: workers "
+            f"a pack and an unpack per key and push, server an unpack per "
+            f"applied push ({want['onebit_unpack']}); landed wire "
+            f"{srv['wire_bytes']} B")
+        _tcp_report("tcp_async_resnet_onebit", onebit, smi, async_ms)
+        del onebit
+        arm_done("tcp_async_resnet_onebit")
+
+        chaos = _collect_tcp(torch, "tcp_async_resnet_chaos", live[-1],
+                             dirs["c"])
+        live.append(_spawn_recover(dirs["d"]))
+        _exactly_once(chaos, "tcp_async_resnet_chaos")
+        bad = _same_tcp_store(torch, chaos, _tcp_replay(torch, registry,
+                                                        chaos))
+        check(not bad, f"tcp_async_resnet_chaos: {len(bad)} keys differ "
+                       f"from the replay of its own log, first {bad[:3]}")
+        sc = chaos["res"]["server"]["counters"]
+        wc = [chaos["res"][f"worker{w}"]["counters"] for w in (0, 1)]
+        check(sc["integrity.crc_reject"] > 0
+              and sc["integrity.dup_dropped"] > 0
+              and sum(c["integrity.retransmit"] for c in wc) > 0
+              and wc[1]["transport.conn_resets"] > 0
+              and wc[1]["transport.reconnects"] > 0,
+              f"tcp_async_resnet_chaos: server {sc}, workers {wc}")
+        log(f"tcp_async_resnet_chaos: every (worker, seq) of every key "
+            f"applied exactly once; the store equals the replay of its own "
+            f"log; server {sc}; workers {wc}")
+        med = _tcp_report("tcp_async_resnet_chaos", chaos, smi, async_ms)
+        log(f"tcp_async_resnet_chaos: median worker step {med:.2f} ms "
+            f"against tcp_async_resnet's {raw_med:.2f} ms")
+        del chaos
+        arm_done("tcp_async_resnet_chaos")
+
+        kill_recover_arm(torch, live[-1], dirs["d"])
+        arm_done("kill_and_recover_resnet")
+        sync_deadline_arm(torch, bps, api, Config)
+        arm_done("sync_deadline")
+    finally:
+        for procs in live:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        shutil.rmtree(out, ignore_errors=True)
+    return dict(launches)
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2887,14 +3371,24 @@ def main():
     sharded_phase(torch, bps, api, Config, llama, gpt, resnet)
     log(f"sharded update phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    async_phase(torch, bps, ok, registry, resnet, smi)
+    async_ms = async_phase(torch, bps, ok, registry, resnet,
+                           smi)["clean"]["step_ms"]
     log(f"async parameter-server phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     observed = observed_phase(torch, bps, api, Config, ok, fa, registry,
                               llama, resnet, smi)
     log(f"observed sharded update phase: "
         f"{time.perf_counter() - t_phase:.1f} s")
-    # the main paths' launches: phase 4's and the LM slices', and phase 10's
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fault_launches = fault_phase(torch, bps, api, Config, registry, smi,
+                                 async_ms)
+    log(f"fault plane and TCP transport phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # the main paths' launches: phase 4's and the LM slices', phase 10's,
+    # and those phase 11's child processes counted
+    for k in KERNELS:
+        launches[k] += fault_launches.get(k, 0)
     for row in observed:
         for k in KERNELS:
             launches[k] += row["launches"][k]

@@ -1080,3 +1080,58 @@ def test_traced_engine_run_on_card_validates(card, tmp_path):
     assert sum(e["name"] == "push_pull" for e in spans) == 3 * (3 + 1)
     merged = bps_trace.merge(bps_trace.load_trace_files(str(tmp_path)))
     assert bps_trace.validate(merged) == []
+
+
+def test_onebit_wire_push_over_tcp_decodes_on_card_like_cpu(card):
+    """Onebit frames pushed with ``push_delta_wire`` over a real localhost
+    socket into a store on the card (decoded there by the unpack kernel)
+    land the bits a store on the CPU lands from the same frames."""
+    from byteps_tpu_torch.comm import transport as tp
+    from byteps_tpu_torch.server import KVStore
+    numel = 50000
+    wires = _onebit_wires(numel, 3, 1)
+    values = {}
+    for dev in ("cuda", "cpu"):
+        s = KVStore(device=dev)
+        s.init_key("c", torch.zeros(numel))
+        s.register_compression("c", ONEBIT_EF_KW, numel)
+        srv = tp.TransportServer(rank=0, kv=s)
+        ep = tp.TcpEndpoint(srv.addr, peer=0)
+        ok.reset_launches()
+        try:
+            for i, w in enumerate(wires):
+                assert ep.push_delta_wire("c", w, worker_id=0,
+                                          seq=i + 1) == i + 1
+            assert ep.push_delta_wire("c", wires[-1], worker_id=0,
+                                      seq=3) == 3       # deduped
+            value, version = ep.kv_pull("c")
+        finally:
+            ep.close()
+            srv.close()
+        assert version == 3
+        if dev == "cuda":
+            assert ok.launches["onebit_unpack"] == 3   # not the duplicate
+        values[dev] = torch.from_numpy(value)
+    assert same_bits(values["cuda"], values["cpu"])
+
+
+def test_checkpoint_round_trip_of_card_tensors(card, tmp_path):
+    """A CheckpointManager round trip of tensors on the card returns the
+    same bits on the same device."""
+    from byteps_tpu_torch.utils.checkpoint import CheckpointManager
+    gen = torch.Generator().manual_seed(4)
+    state = {"w": torch.randn(1000, 37, generator=gen).to(card),
+             "h": torch.randn(513, generator=gen).to(card).half(),
+             "b": torch.randn(64, generator=gen).to(card).bfloat16(),
+             "n": torch.arange(9, device=card), "step": 3}
+    state["w"][0, 0] = -0.0
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
+    mgr.save(3, state)
+    template = {k: (torch.zeros_like(v) if torch.is_tensor(v) else 0)
+                for k, v in state.items()}
+    step, got = mgr.restore_latest(template)
+    assert step == 3 and got["step"] == 3
+    for k in ("w", "h", "b", "n"):
+        assert got[k].device == state[k].device
+        assert got[k].dtype == state[k].dtype
+        assert same_bits(got[k], state[k]), k

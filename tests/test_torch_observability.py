@@ -228,21 +228,11 @@ def sc_timeseries(ns):
     return pts, store.dump(), store.summary(), ns.ts.series_keys()
 
 
-def _drop_slow_score(obj):
-    """The JAX sampler refreshes the slowness tracker's gauge before each
-    sample (``slow_score`` 0.0 with no peers); the port has no slowness
-    tracker yet, so the key is absent there."""
-    if isinstance(obj, dict):
-        return {k: _drop_slow_score(v) for k, v in obj.items()
-                if k != "slow_score"}
-    if isinstance(obj, list):
-        return [_drop_slow_score(v) for v in obj]
-    return obj
-
-
 def test_timeseries_store_matches_reference():
     got = both(sc_timeseries)
-    assert got["port"] == _drop_slow_score(got["jax"])[:3] + [got["jax"][3]]
+    # both samplers refresh their slowness tracker's gauge before each
+    # sample, so every point carries slow_score (0.0: no peers)
+    assert got["port"] == got["jax"]
     assert len(got["port"][1]["points"]) == 8
 
 
@@ -545,8 +535,13 @@ def test_endpoint_routes_over_http(tmp_path):
             time.sleep(0.01)
         assert doc["len"] >= 2
         # a breaching series fires its rule at the sampler's next tick
-        # (health_windows=1) and degrades /healthz
-        ptel.gauges.set("slowness.max_score", 9.0)
+        # (health_windows=1) and degrades /healthz: the sampler refreshes
+        # slow_score from the slowness tracker, where peer 2 is a
+        # straggler beside two healthy peers
+        from byteps_tpu_torch.utils import slowness as pslowness
+        for _ in range(20):
+            for peer, lat in ((0, 0.010), (1, 0.011), (2, 0.350)):
+                pslowness.tracker().observe(peer, lat, site="probe")
         for _ in range(1000):
             status, body = _get(port, "/healthz")
             if status == 503:
@@ -566,11 +561,14 @@ def test_metrics_snapshot_keys_match_reference():
         light = api.metrics_snapshot(light=True)
     finally:
         api.shutdown()
-    # the JAX snapshot's keys, less its slowness section (not ported)
+    # the JAX snapshot's keys
     assert set(snap) == {"ts", "pid", "rank", "epoch", "counters", "gauges",
-                         "histograms", "speed_mbps", "sched_pending",
-                         "bytes_in_flight", "step", "planner"}
-    assert set(snap) - set(light) == {"histograms", "planner"}
+                         "histograms", "slowness", "speed_mbps",
+                         "sched_pending", "bytes_in_flight", "step",
+                         "planner"}
+    assert set(snap) - set(light) == {"histograms", "slowness", "planner"}
+    # the engine's sync loop fed this process's own rank at "sync"
+    assert snap["slowness"]["sync"][0]["n"] >= 2
     assert snap["step"]["step"] == 1 and snap["step"]["pushes"] == 1
 
 

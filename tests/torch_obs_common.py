@@ -1,9 +1,10 @@
 """Shared fixture of the port's observability tests: every process-wide
 singleton of both packages' observability planes is reset around each
 test (the port's config, metrics registry, flight recorder, tracer,
-attribution sink, health engine, time-series sampler and endpoint; the
-JAX package's tracer, flight recorder, registry and attribution), so no
-count or event leaks between tests or files."""
+attribution sink, health engine, time-series sampler, endpoint and
+slowness tracker; the JAX package's tracer, flight recorder, registry,
+attribution and slowness tracker), so no count or event leaks between
+tests or files."""
 
 import pytest
 
@@ -14,6 +15,7 @@ def reset_all():
     from byteps_tpu.common import tracing as jtracing
     from byteps_tpu.common.config import reset_config as jreset
     from byteps_tpu.common.telemetry import attribution as jattr
+    from byteps_tpu.utils import slowness as jslowness
 
     from byteps_tpu_torch.common import flight_recorder as pflight
     from byteps_tpu_torch.common import health as phealth
@@ -24,8 +26,10 @@ def reset_all():
     from byteps_tpu_torch.common import tracing as ptracing
     from byteps_tpu_torch.common.config import reset_config as preset
     from byteps_tpu_torch.common.telemetry import attribution as pattr
+    from byteps_tpu_torch.utils import slowness as pslowness
 
-    for mod in (jtracing, ptracing, jflight, pflight, phealth):
+    for mod in (jtracing, ptracing, jflight, pflight, phealth, jslowness,
+                pslowness):
         mod._reset_for_tests()
     for reg in (jmetrics.registry, pmetrics.registry):
         reg.reset()
