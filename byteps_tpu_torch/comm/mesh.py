@@ -84,6 +84,11 @@ def bootstrap(cfg: Config, device: torch.device) -> CommContext:
         raise RuntimeError("a torch.distributed process group is already "
                            "initialized in this process")
     world, rank = cfg.world_size, cfg.rank
+    if cfg.num_hosts == 1:
+        # one host is a group of one node whatever host_id says: the
+        # elastic topology runs each member at DMLC_NUM_WORKER=1 with its
+        # member rank in DMLC_WORKER_ID
+        rank = cfg.local_rank
     if world > 1:
         if cfg.coordinator_address is None:
             raise RuntimeError("a multi-process run needs DMLC_PS_ROOT_URI "

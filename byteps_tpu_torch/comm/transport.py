@@ -67,7 +67,10 @@ consults ``injector.socket_fault`` before every socket operation:
 ``conn_reset`` tears the socket down with a real RST (SO_LINGER 0),
 ``partial_write`` ships a truncated frame then RSTs, ``slow_socket``
 throttles sends; ``delay``/``drop`` at ``site=transport`` ride the same
-send gate.
+send gate.  In an elastic world a partitioned rank's sends end in
+``AckLost`` at the deadline, never a hang: the rank leaves restartably
+and the survivors' membership (``fault/membership.py``) shrinks past it
+(the JAX package's 4-process partition lane).
 
 Not ported yet: the serving plane's ops.  ``OP_SERVE_PULL`` and the
 ``serve_cut`` / ``serve_commit`` / ``serve_ctl`` hops of ``OP_PUSH`` keep

@@ -81,7 +81,28 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
                                             transport_keepalive_s /
                                             transport_max_inflight
   - BYTEPS_BUS_MAX_FRAME                 -> bus_max_frame (the
-                                            transport's frame clamp)
+                                            transport's and the membership
+                                            bus's frame clamp)
+  - BYTEPS_ELASTIC / BYTEPS_MEMBERSHIP_PORT / _HOSTS /
+    _RENDEZVOUS_TIMEOUT / _SYNC_TIMEOUT  -> elastic / membership_port /
+                                            membership_hosts /
+                                            membership_rendezvous_timeout_s /
+                                            membership_sync_timeout_s
+  - BYTEPS_BUS_RETRIES                   -> bus_retries
+  - BYTEPS_GOSSIP_ON / _INTERVAL_S / _FANOUT / _SUSPECT_S / _DEAD_S
+                                         -> gossip_on / gossip_interval_s /
+                                            gossip_fanout / gossip_suspect_s
+                                            / gossip_dead_s
+  - BYTEPS_STRAGGLER_POLICY / _DEMOTE_AFTER / _MIN_LAG
+                                         -> straggler_policy /
+                                            straggler_demote_after /
+                                            straggler_min_lag_s
+  - BYTEPS_CLOCK_SYNC_SAMPLES            -> clock_sync_samples
+
+``host_id`` is not bounded by ``num_hosts``, as in the JAX ``Config``:
+the elastic topology runs one process per member at ``DMLC_NUM_WORKER=1``
+with ``DMLC_WORKER_ID`` set to the member's rank, and a bootstrap at one
+host forms a group of one whatever ``host_id`` says.
 
 ``partition_pinned`` / ``credit_pinned`` are set when the environment
 variable is present (whatever its value) or the field is given a value
@@ -101,8 +122,7 @@ directory under the system's temporary directory, never the working
 directory.
 
 Not ported: the knobs of the planes the port does not have yet
-(membership, gossip and the straggler policy, the clock-offset estimate,
-serving, durability).
+(serving, durability).
 """
 
 from __future__ import annotations
@@ -334,6 +354,39 @@ class Config:
     # --- slowness scoring (utils/slowness.py) ---
     slowness_phi: float = 8.0        # phi above which a peer is slow
     slowness_window: int = 64        # samples kept per (site, peer)
+    # what the stack does about a slow-but-alive rank: wait (observe
+    # only) | hedge (serving pulls fire a backup) | demote (the membership
+    # bus moves a sustained straggler onto its probation list)
+    straggler_policy: str = "wait"
+    straggler_demote_after: int = 3  # consecutive slow barriers to demote
+    # absolute floor a step-barrier lag must clear to count as slow (phi
+    # self-calibrates, so an idle world's jitter must not score)
+    straggler_min_lag_s: float = 0.25
+
+    # --- elastic membership (fault/membership.py) ---
+    elastic: bool = False            # survivors shrink in place
+    membership_port: int = 0         # bus port; 0 = DMLC_PS_ROOT_PORT + 2
+    # per-rank "host[:port]" list making the bus address view-aware; empty
+    # = one fixed address (a single-host failover re-binds it)
+    membership_hosts: str = ""
+    # how long the shrink rendezvous waits for every proposed survivor
+    membership_rendezvous_timeout_s: float = 10.0
+    # the step barrier's quorum window: a member missing past it is
+    # failure evidence
+    membership_sync_timeout_s: float = 60.0
+    bus_retries: int = 64            # bus-client attempts (rides a failover)
+    # ping round trips of the clock-offset estimate against the bus host
+    # (min-RTT sample wins); 0 = off
+    clock_sync_samples: int = 5
+
+    # --- gossip membership (fault/gossip.py) ---
+    # SWIM table anti-entropy over the bus, and quorum-gated agreement: a
+    # shrink commits only with a strict majority of the last agreed world
+    gossip_on: bool = False
+    gossip_interval_s: float = 0.2   # exchange period
+    gossip_fanout: int = 3           # peers contacted per period
+    gossip_suspect_s: float = 1.0    # no progress this long -> suspect
+    gossip_dead_s: float = 3.0       # suspect this long -> dead
 
     # --- TCP transport (comm/transport.py) ---
     transport_hosts: str = ""        # per-rank "host[:port]", by rank
@@ -367,9 +420,8 @@ class Config:
             raise ValueError("num_hosts must be >= 1")
         if self.local_size < 1:
             raise ValueError("local_size must be >= 1")
-        if not 0 <= self.host_id < self.num_hosts:
-            raise ValueError(f"host_id {self.host_id} not in "
-                             f"[0, {self.num_hosts})")
+        if self.host_id < 0:
+            raise ValueError(f"host_id {self.host_id} must be >= 0")
         if not 0 <= self.local_rank < self.local_size:
             raise ValueError(f"local_rank {self.local_rank} not in "
                              f"[0, {self.local_size})")
@@ -411,6 +463,35 @@ class Config:
             raise ValueError("slowness_phi must be positive")
         if self.slowness_window < 8:
             raise ValueError("slowness_window must be >= 8")
+        if self.straggler_policy not in ("wait", "hedge", "demote"):
+            raise ValueError(
+                f"BYTEPS_STRAGGLER_POLICY must be wait, hedge, or demote "
+                f"— got {self.straggler_policy!r}")
+        if self.straggler_demote_after < 1:
+            raise ValueError("straggler_demote_after must be >= 1")
+        if self.straggler_min_lag_s < 0:
+            raise ValueError("straggler_min_lag_s must be >= 0")
+        if (self.membership_rendezvous_timeout_s <= 0
+                or self.membership_sync_timeout_s <= 0):
+            raise ValueError("membership timeouts must be positive")
+        if self.bus_retries < 1:
+            raise ValueError("bus_retries must be >= 1 (at least one "
+                             "attempt)")
+        if self.gossip_interval_s <= 0:
+            raise ValueError("gossip_interval_s must be positive")
+        if self.gossip_fanout < 1:
+            raise ValueError("gossip_fanout must be >= 1")
+        if self.gossip_suspect_s <= 0:
+            raise ValueError("gossip_suspect_s must be positive")
+        if self.gossip_dead_s <= self.gossip_suspect_s:
+            raise ValueError(
+                "gossip_dead_s must exceed gossip_suspect_s — a rank "
+                "must pass through suspect (the refutation window) "
+                "before it can be declared dead")
+        if not 0 <= self.membership_port < 65536:
+            raise ValueError("membership_port must be in 0..65535")
+        if self.clock_sync_samples < 0:
+            raise ValueError("clock_sync_samples must be >= 0 (0 = off)")
         if self.min_compress_bytes < 0:
             raise ValueError("min_compress_bytes must be >= 0")
         if self.sharded_update_fused and not self.sharded_update:
@@ -565,6 +646,26 @@ class Config:
             sync_deadline_s=_env_float("BYTEPS_SYNC_DEADLINE_S", 0.0),
             slowness_phi=_env_float("BYTEPS_SLOWNESS_PHI", 8.0),
             slowness_window=_env_int("BYTEPS_SLOWNESS_WINDOW", 64),
+            straggler_policy=_env_str("BYTEPS_STRAGGLER_POLICY",
+                                      "wait").strip().lower(),
+            straggler_demote_after=_env_int(
+                "BYTEPS_STRAGGLER_DEMOTE_AFTER", 3),
+            straggler_min_lag_s=_env_float("BYTEPS_STRAGGLER_MIN_LAG",
+                                           0.25),
+            elastic=_env_bool("BYTEPS_ELASTIC", False),
+            membership_port=_env_int("BYTEPS_MEMBERSHIP_PORT", 0),
+            membership_hosts=_env_str("BYTEPS_MEMBERSHIP_HOSTS", ""),
+            membership_rendezvous_timeout_s=_env_float(
+                "BYTEPS_MEMBERSHIP_RENDEZVOUS_TIMEOUT", 10.0),
+            membership_sync_timeout_s=_env_float(
+                "BYTEPS_MEMBERSHIP_SYNC_TIMEOUT", 60.0),
+            bus_retries=_env_int("BYTEPS_BUS_RETRIES", 64),
+            clock_sync_samples=_env_int("BYTEPS_CLOCK_SYNC_SAMPLES", 5),
+            gossip_on=_env_bool("BYTEPS_GOSSIP_ON", False),
+            gossip_interval_s=_env_float("BYTEPS_GOSSIP_INTERVAL_S", 0.2),
+            gossip_fanout=_env_int("BYTEPS_GOSSIP_FANOUT", 3),
+            gossip_suspect_s=_env_float("BYTEPS_GOSSIP_SUSPECT_S", 1.0),
+            gossip_dead_s=_env_float("BYTEPS_GOSSIP_DEAD_S", 3.0),
             transport_hosts=_env_str("BYTEPS_TRANSPORT_HOSTS", ""),
             transport_port_base=_env_int("BYTEPS_TRANSPORT_PORT_BASE", 0),
             transport_connect_timeout_s=_env_float(

@@ -8,10 +8,11 @@ and clears after as many clean ones.  On firing the engine records a
 flight-recorder ``alert`` event, sets ``health.alerts_active{rule=}`` to
 1, and ``/healthz`` answers 503 until every rule clears.
 
-The cluster-history provider (the ``attrib_skew`` rule) and the quorum
-provider (``quorum_loss``) are ported as setters; nothing registers one
-until the membership bus and the gossip plane are ported, so those two
-rules never fire.  ``slow_peer`` reads the sampled ``slow_score`` (the
+The cluster-history provider (the ``attrib_skew`` rule) is registered
+by the membership bus on the rank that hosts it
+(``fault/membership.py`` ``_BusServer``), and the quorum provider
+(``quorum_loss``) by the gossip agent (``fault/gossip.py``) under
+``BYTEPS_GOSSIP_ON``.  ``slow_peer`` reads the sampled ``slow_score`` (the
 ``slowness.max_score`` gauge, which ``utils/slowness.py`` publishes) against
 ``slowness_phi``.
 """

@@ -212,6 +212,13 @@ def seal_bytes(data: bytes, *, key: str, seq: int = 0,
     return _seal(KIND_BYTES, key, worker, seq, "", (), bytes(data))
 
 
+def envelope_overhead(key: str) -> int:
+    """Bytes :func:`seal_bytes` adds around a payload, so a sender can
+    budget a size clamp without paying the full CRC+copy of a seal that
+    the clamp would only throw away."""
+    return _FIXED.size + len(key.encode("utf-8")) + _CRC.size
+
+
 def is_frame(data: bytes) -> bool:
     """Cheap sniff: does this blob start like an envelope?  Lets
     receivers accept both sealed and raw senders."""
@@ -220,10 +227,12 @@ def is_frame(data: bytes) -> bool:
 
 # -- opening (verify-on-receive) --------------------------------------------
 
-def open_frame(frame: bytes) -> Tuple[Any, EnvelopeMeta]:
+def open_frame(frame: bytes, copy: bool = True) -> Tuple[Any, EnvelopeMeta]:
     """Verify and unwrap one frame; returns ``(payload, meta)`` where
     payload is a read-only ndarray over the frame (kind=1) or bytes
-    (kind=2).
+    (kind=2; with ``copy=False`` a memoryview over the frame, for a
+    receiver that only reads it once, such as the membership bus's
+    unpickle of a 300 MB reply).
 
     Raises :class:`IntegrityError` — magic/version mismatch, CRC32C
     mismatch, or any internal length inconsistency.  The CRC is checked
@@ -261,7 +270,8 @@ def open_frame(frame: bytes) -> Tuple[Any, EnvelopeMeta]:
     off += ndim * _DIM.size
     payload = body[off:off + payload_len]
     if kind == KIND_BYTES:
-        return bytes(payload), EnvelopeMeta(kind, key, worker, seq)
+        return (bytes(payload) if copy else payload,
+                EnvelopeMeta(kind, key, worker, seq))
     if kind != KIND_NDARRAY:
         raise IntegrityError(f"unknown payload kind {kind}")
     try:
@@ -287,8 +297,8 @@ def open_array(frame: bytes) -> Tuple[np.ndarray, EnvelopeMeta]:
     return payload, meta
 
 
-def open_bytes(frame: bytes) -> Tuple[bytes, EnvelopeMeta]:
-    payload, meta = open_frame(frame)
+def open_bytes(frame: bytes, copy: bool = True) -> Tuple[bytes, EnvelopeMeta]:
+    payload, meta = open_frame(frame, copy=copy)
     if meta.kind != KIND_BYTES:
         raise IntegrityError(f"expected a bytes frame, got kind {meta.kind}")
     return payload, meta

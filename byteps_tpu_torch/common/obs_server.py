@@ -8,19 +8,20 @@
   ``byteps_<name>``), with the engine's live gauges (scheduler depth,
   bytes in flight, push_pull MB/s) refreshed at scrape time;
 - ``/healthz``: JSON liveness (membership epoch, engine run state, the
-  age of the last heartbeat reply when ``init()`` armed the heartbeat,
-  push_pull speed, current step); HTTP 503 with ``degraded: true`` and
+  age of the last heartbeat reply when ``init()`` or the membership
+  armed the heartbeat, push_pull speed, current step, and under elastic
+  membership who hosts the control plane); HTTP 503 with
+  ``degraded: true`` and
   the firing rules while any ``common/health.py`` alert is active;
 - ``/debug/state``: JSON internals (scheduler, planner, last step, the
   server engines' quarantined rounds, the stores' dedup floors, the TCP
   transport's connections and servers, the slowness scores, the flight
   recorder's fill, the tracer, the time-series window, the health
-  alerts);
+  alerts, the membership view and its failover replica);
 - ``/timeseries``: the raw time-series ring.
 
 Both documents carry an ``omitted`` list naming the sections of the JAX
 package's documents that the port leaves out until their planes exist:
-``membership`` (the views and the bus; the epoch is served),
 ``serving``, ``wal`` and ``reconciler``.
 
 Started once per process by ``init()`` and not stopped by
@@ -68,7 +69,7 @@ def _refresh_live_gauges() -> None:
 
 
 # sections of the JAX package's documents that wait for their planes
-OMITTED = ("membership", "serving", "wal", "reconciler")
+OMITTED = ("serving", "wal", "reconciler")
 
 
 def healthz() -> dict:
@@ -82,6 +83,11 @@ def healthz() -> dict:
     from ..fault import membership as _membership
     eng = api._engine
     hb = api._heartbeat
+    m = _membership.active_membership()
+    if m is not None and m.heartbeat is not None:
+        # the membership-managed monitor (re-hosted per world change)
+        # supersedes the static auto-armed one
+        hb = m.heartbeat
     alerts = _health.active_alerts()
     doc = {
         "ok": not alerts,
@@ -95,6 +101,21 @@ def healthz() -> dict:
                                  if hb is not None else None),
         "omitted": list(OMITTED),
     }
+    if m is not None:
+        # who hosts the control plane right now (coordinator failover
+        # visibility: bps_top and operators read this)
+        v = m.view()
+        doc["membership"] = {
+            "rank": m.rank,
+            "world": list(v.world),
+            "coordinator": v.coordinator,
+            "standby": m.standby_rank,
+            "is_coordinator": m.is_coordinator,
+            "hosting_bus": m.hosting_bus,
+            "bus_addr": "%s:%d" % tuple(m.bus_addr),
+            "heartbeat_server_rank": (hb.server_rank
+                                      if hb is not None else None),
+        }
     if eng is not None:
         ts, mbps = eng.speed.speed()
         doc["pushpull_mbps"] = round(mbps, 3)
@@ -143,6 +164,21 @@ def debug_state() -> dict:
                           "window": store.window,
                           "interval_s": store.interval_s})
     doc["health"] = {"active_alerts": _health.active_alerts()}
+    m = _membership.active_membership()
+    if m is not None:
+        v = m.view()
+        doc["membership"] = {
+            "epoch": v.epoch,
+            "world": list(v.world),
+            "coordinator": v.coordinator,
+            "standby": m.standby_rank,
+            "hosting_bus": m.hosting_bus,
+            "bus_addr": "%s:%d" % tuple(m.bus_addr),
+            # failover readiness: does this rank hold a replica to seed
+            # a successor bus from, and how fresh is it?
+            "replica": {"held": m._replica is not None,
+                        "epoch": (m._replica or {}).get("epoch")},
+        }
     # per-(site, peer) latency medians and phi scores, the labeled gauges
     # re-stamped so a /metrics scrape after this sees the same figures
     from ..utils import slowness as _slowness

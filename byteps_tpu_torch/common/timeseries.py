@@ -13,8 +13,10 @@ The sampler is process-lifetime: ``init()`` starts it
 (:func:`ensure_started`) and ``suspend()``/``resume()`` leave it running.
 
 Each sample first re-publishes the slowness tracker's gauges, so
-``slow_score`` is the live phi.  Not ported: the summary's ride on the
-membership bus (the bus is not ported yet).
+``slow_score`` is the live phi.  :meth:`TimeSeriesStore.summary` rides
+every ``step_sync`` frame of the membership bus (and the gossip digests
+under ``BYTEPS_GOSSIP_ON``), so ``cluster_metrics()`` carries each live
+rank's window and the bus host's health engine judges cross-rank skew.
 """
 
 from __future__ import annotations

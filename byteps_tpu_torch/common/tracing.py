@@ -23,9 +23,11 @@ by the syncer).  On top of that:
 - **Clock alignment**: each file carries a ``(wall, monotonic)`` anchor
   and this process's offset against the cluster's reference clock
   (:func:`set_clock_offset`), so ``tools/bps_trace.py`` can merge
-  per-rank files onto one timeline.  The setter is ported; the estimate
-  that feeds it (the membership bus's ``ping``) is not, so the offset
-  stays unset in the port.
+  per-rank files onto one timeline.  The estimate that feeds it is
+  ``fault/membership.py`` ``estimate_clock_offset``: NTP-style ``ping``
+  round trips to the membership bus, run by a traced member at start,
+  after a coordinator change and (at most three times) after a step
+  barrier while the offset is still unset.
 
 File names, event names, ``ph``/``tid``/``args`` keys and the metadata
 layout are the JAX package's, so either package's ``bps_trace`` reads

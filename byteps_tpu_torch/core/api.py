@@ -45,10 +45,17 @@ default failure action: the installed one
 Across processes, ``comm/transport.py`` carries the parameter server's
 hops over TCP (``TransportServer``, ``TcpEndpoint``): a worker reaches a
 ``KVStore`` or ``ServerEngine`` in another process through the endpoint
-API, as the JAX package's transport workers do.  Not ported yet: the
-membership, serving and cluster-metrics entry points of the planes not
-ported yet (``cluster_metrics`` needs the membership bus), and elastic
-shrink and rejoin.
+API, as the JAX package's transport workers do.
+
+Elastic membership (``fault/membership.py``) drives this module:
+:func:`suspend` and :func:`resume` are the two halves of every shrink,
+rejoin and reconcile, and :func:`resume` with nothing suspended starts
+an engine, as the JAX one does, which is how a rejoining process comes
+up.  :func:`membership_epoch` reads the epoch and
+:func:`cluster_metrics` every live rank's snapshot in one bus round
+trip (or from the gossip table, bus-free).  Not ported: the serving
+entry points (``start_serving``, ``start_serving_tier``) and the
+durable store.
 """
 
 from __future__ import annotations
@@ -203,31 +210,48 @@ def suspend(wait: bool = True) -> None:
 
 def resume(config: Optional[Config] = None,
            num_workers: Optional[int] = None,
-           global_rank: Optional[int] = None) -> None:
-    """Start the engine again after :func:`suspend`, on the same device,
-    with the tensors declared again in their original order (reference
-    byteps_resume, operations.cc:107-119; JAX ``api.resume``).
+           global_rank: Optional[int] = None,
+           device=None) -> None:
+    """Start the engine again after :func:`suspend`, with the tensors
+    declared again in their original order (reference byteps_resume,
+    operations.cc:107-119; JAX ``api.resume``).  With nothing suspended
+    it starts an engine as :func:`init` does, with the names declared
+    before it, as the JAX ``resume`` does (a rejoining process declares
+    the survivors' names, then resumes).
 
     ``num_workers`` / ``global_rank`` update the DMLC environment as the
     reference's ``BytePSBasics.resume`` does, and the config is then read
     from the environment; with neither and no ``config`` the suspended
-    engine's config is used again."""
+    engine's config is used again (the environment's, when nothing was
+    suspended).  ``device`` defaults to the suspended engine's device,
+    else ``"cuda"``."""
     global _suspended
     if initialized():
         raise RuntimeError("resume() while the engine is running: call "
                            "suspend() first")
-    if _suspended is None:
-        raise RuntimeError("resume() without a suspend()")
-    cfg, dev, names = _suspended
     if num_workers is not None:
         os.environ["DMLC_NUM_WORKER"] = str(num_workers)
     if global_rank is not None:
         os.environ["DMLC_WORKER_ID"] = str(global_rank)
+    if _suspended is None:
+        _start(config or Config.from_env(),
+               "cuda" if device is None else device, _declared_order)
+        return
+    cfg, dev, names = _suspended
     if config is None:
         config = (Config.from_env() if num_workers is not None
                   or global_rank is not None else cfg)
-    _start(config, dev, names)
+    _start(config, dev if device is None else device, names)
     _suspended = None
+
+
+def membership_epoch() -> int:
+    """The current elastic-membership epoch (``fault/membership.py``): 0
+    for the static world every non-elastic run lives in; advanced by each
+    shrink, rejoin and reconcile.  Work stamped with a dead epoch is
+    dropped, not delivered."""
+    from ..fault import membership as _membership
+    return _membership.current_epoch()
 
 
 def get_pushpull_speed() -> Tuple[float, float]:
@@ -369,3 +393,128 @@ def poll(handle: Handle) -> bool:
 
 def synchronize(handle: Handle, timeout: Optional[float] = None):
     return handle.wait(timeout=timeout)
+
+
+def cluster_metrics(bus: Optional[str] = None,
+                    timeout: float = 10.0) -> Dict[str, Any]:
+    """Every live rank's metrics snapshot in ONE round-trip to the
+    membership bus (the ``metrics`` verb, fault/membership.py): returns
+    ``{"epoch", "world", "ranks": {rank: {"age_s", "metrics"}}}`` where
+    each rank's entry is the snapshot it last attached to a
+    ``step_sync`` (or pushed with ``metrics_put``), stamped with its
+    age.  ``bus`` is ``host:port`` of the membership bus; default is the
+    same resolution :class:`~byteps_tpu_torch.fault.membership.ElasticMembership`
+    uses (DMLC root + BYTEPS_MEMBERSHIP_PORT).
+
+    The bus address is re-resolved from the ACTIVE membership view
+    (``fault.membership.active_membership()``) so a coordinator change
+    re-points the query at the successor instead of the static
+    env-derived address.  While an elastic world's bus is not answering
+    (a failover in progress), the answer degrades gracefully to a
+    local-only view flagged ``failover_in_progress`` instead of
+    raising; a run with no bus at all (single process, non-elastic)
+    falls back to the plain local-only view — so ``tools/bps_top.py``
+    works against anything.  The JAX function, whole."""
+    import time
+
+    from ..fault import membership as _membership
+    m = _membership.active_membership()
+    view = m.view() if (bus is None and m is not None) else None
+    if view is not None and getattr(m, "gossip", None) is not None:
+        # gossip-local answer: the SWIM table already holds
+        # every rank's piggybacked metrics/history payloads, so the
+        # query needs NO bus round-trip — and keeps working on either
+        # side of a partition, where the bus may be unreachable
+        table = m.gossip
+        now = time.time()
+        out = {"epoch": _membership.current_epoch(),
+               "world": list(view.world), "gossip": True,
+               "states": table.snapshot(), "ranks": {}, "history": {}}
+        for kind, dest in (("metrics", out["ranks"]),
+                           ("history", out["history"])):
+            for r, v in table.payloads_of_kind(kind).items():
+                if not isinstance(v, dict) or "t" not in v:
+                    continue
+                age = max(0.0, now - float(v["t"]))
+                dest[int(r)] = (
+                    {"age_s": round(age, 3), "metrics": v.get("v")}
+                    if kind == "metrics"
+                    else {"age_s": round(age, 3), "summary": v.get("v")})
+        sd = table.payloads_of_kind("serve_dir")
+        if sd:
+            newest = max(sd.values(),
+                         key=lambda p: p.get("t", 0)
+                         if isinstance(p, dict) else 0)
+            if isinstance(newest, dict):
+                d = newest.get("v") or {}
+                out["serve_hosts"] = {int(h): v for h, v in
+                                      (d.get("hosts") or {}).items()}
+                out["serve_gen"] = d.get("gen", 0)
+        return out
+    if view is not None:
+        # the live membership already tracks the bus through failovers
+        # (including explicitly-constructed addresses no env resolution
+        # could re-derive)
+        addr = m.bus_addr
+    else:
+        addr = _membership.resolve_bus_addr(bus, view)
+    try:
+        reply = _membership.bus_request(
+            addr, {"op": "metrics"}, timeout=timeout)
+    except ConnectionError:
+        snap = metrics_snapshot()
+        out: Dict[str, Any] = {
+            "epoch": _membership.current_epoch(),
+            "world": (list(view.world) if view is not None
+                      else [snap["rank"]]),
+            "ranks": {snap["rank"]: {"age_s": 0.0, "metrics": snap}},
+            "local_only": True}
+        from ..common import timeseries as _ts
+        store = _ts.get_store()
+        out["history"] = (
+            {snap["rank"]: {"age_s": 0.0, "summary": store.summary()}}
+            if store is not None and store.points() else {})
+        if view is not None and view.num_workers > 1:
+            # an elastic world exists but its bus is not answering: the
+            # standby is (or should be) rebinding right now
+            out["failover_in_progress"] = True
+            out["coordinator"] = view.coordinator
+            out["standby"] = m.standby_rank
+        return out
+    if not reply.get("ok"):
+        raise RuntimeError(f"cluster_metrics failed: {reply!r}")
+    # serving hosts publish at SERVE_RANK_BASE + host_id (one metrics
+    # cache, two id spaces): split them into their own section so
+    # bps_top renders trainer ranks and tier rows as what they are
+    base = _membership.SERVE_RANK_BASE
+    all_ranks = {int(r): v for r, v in reply["ranks"].items()}
+    out = {"epoch": reply["epoch"], "world": reply["world"],
+           "ranks": {r: v for r, v in all_ranks.items() if r < base},
+           "serve_ranks": {r - base: v for r, v in all_ranks.items()
+                           if r >= base},
+           "serve_hosts": {int(h): v for h, v in
+                           (reply.get("serve_hosts") or {}).items()},
+           "serve_gen": reply.get("serve_gen", 0),
+           # fleet reconciliation view: the autoscaler's
+           # target and the DRAINING set — bps_top's fleet banner
+           # (target=N actual=M) and per-host DRAINING state read these
+           "serve_target": reply.get("serve_target"),
+           "serve_draining": [int(h) for h in
+                              (reply.get("serve_draining") or ())]}
+    for k in ("coordinator", "standby", "bus_rank"):
+        if reply.get(k) is not None:
+            out[k] = reply[k]
+    # gray-failure columns: per-rank step-barrier slowness
+    # scores and the probation list — bps_top renders SLOW/STATE from
+    # these, and empty is meaningful ("nobody is slow")
+    out["slow"] = {int(r): v for r, v in (reply.get("slow") or {}).items()}
+    out["probation"] = [int(r) for r in (reply.get("probation") or ())]
+    # the history view: each rank's piggybacked time-series
+    # window summary — bps_top's TREND column and bps_doctor's live
+    # diagnosis read these, again with no extra round-trip
+    out["history"] = {int(r): v
+                      for r, v in (reply.get("history") or {}).items()}
+    if reply.get("states") is not None:
+        # the hosting rank's gossip table (BYTEPS_GOSSIP_ON)
+        out["states"] = {int(r): v for r, v in reply["states"].items()}
+    return out

@@ -90,13 +90,22 @@ the restartable exit only without one), counted in
 ``engine.sync_deadline_trips``; shutdown's drain then waits at most
 ``max(5, sync_deadline_s)`` seconds.
 
+Membership epochs (``fault/membership.py``), as in the JAX engine: each
+push is stamped with the epoch at enqueue (``_PendingTensor.mepoch``); a
+push is refused while this process is parked on the minority side of a
+partition; a chunk whose epoch is no longer the current one is dropped,
+not delivered, at dispatch (it leaves its batch before the batch is
+planned into units, so a group's other chunks still complete) and at
+retirement (issued before a world change, finished after).  Its handle
+fails with ``ABORTED: stale membership epoch`` (:class:`StaleEpochError`),
+counted in ``membership.stale_chunks_dropped`` with an
+``engine.stale_chunk`` flight event.
+
 Not ported:
 - AOT warming: eager PyTorch compiles no program per shape, and the
   CUDA kernels are built once per process at their first launch, so
   there is nothing to warm (the ``compile`` attribution reads 0);
-- ``export_shards`` (serving cuts);
-- membership epochs with the stale-epoch guard (and its
-  ``engine.stale_chunk`` flight event): they need ``fault/membership.py``.
+- ``export_shards`` (serving cuts).
 """
 
 from __future__ import annotations
@@ -139,6 +148,28 @@ _DRAIN_BUDGET_S = 60.0  # shutdown waits this long, in all, for handles
 # buffer-mode rule, at the default of its BYTEPS_BUFFER_MIN_BYTES (not a
 # knob here).
 BUFFER_MIN_BYTES = 1 << 20
+
+
+class StaleEpochError(RuntimeError):
+    """A chunk from a dead membership epoch was dropped (not delivered):
+    the world changed between enqueue and completion."""
+
+
+def _is_stale(task: ChunkTask, epoch: int) -> bool:
+    return task.pending is not None and task.pending.mepoch != epoch
+
+
+def _drop_stale(task: ChunkTask, epoch: int, where: str) -> Status:
+    """Count and record one stale chunk; the ABORTED status (a
+    :class:`StaleEpochError`'s message) its handle fails with."""
+    counters.inc("membership.stale_chunks_dropped")
+    _flight.record("engine.stale_chunk", tensor=task.name, key=task.key,
+                   enq_epoch=task.pending.mepoch, epoch=epoch, at=where)
+    err = StaleEpochError(
+        f"stale membership epoch: chunk {task.name!r} key={task.key} was "
+        f"enqueued at epoch {task.pending.mepoch}, the world is now at "
+        f"epoch {epoch}; chunk dropped, re-push under the new epoch")
+    return Status(StatusCode.ABORTED, str(err))
 
 
 def _wait_done(done) -> None:
@@ -292,6 +323,9 @@ class _PendingTensor:
         self.trace = None
         self.trace_started = False
         self.trace_left = total
+        # the membership epoch at enqueue: a chunk that still carries it
+        # after a world change is dropped, not delivered
+        self.mepoch = _membership.current_epoch()
 
     def complete_part(self, part_idx: int, data) -> bool:
         """Keep a chunk's result; True for the chunk that completes the
@@ -498,6 +532,14 @@ class PushPullEngine:
                              f"the engine runs on {self.device}")
         if op not in ("average", "sum"):
             raise ValueError(f"op must be 'average' or 'sum', got {op!r}")
+        if _membership.is_parked():
+            # minority side of a partition: no epoch can be agreed from
+            # here, so fail the enqueue loudly instead of queueing work
+            # a suspended engine will never complete
+            raise RuntimeError(
+                "membership is parked on the minority side of a "
+                "partition (membership.partition_minority): wait for "
+                "the partition to heal, then rejoin()")
         if _fault.ENABLED:
             # one "step" per enqueued tensor: kill:step=N counts these
             _fault.on_step()
@@ -852,6 +894,24 @@ class PushPullEngine:
                 if t2 is None:
                     break
                 batch.append(t2)
+            # membership-epoch guard: chunks enqueued before a world
+            # change must not be issued into a group that no longer
+            # exists; each leaves the batch as a failed unit of its own
+            ep = _membership.current_epoch()
+            if any(_is_stale(t, ep) for t in batch):
+                fresh = []
+                for t in batch:
+                    if _is_stale(t, ep):
+                        if t.pending.slot is not None:
+                            t.pending.dispatch_failed = True
+                        self._sync_q.put(([t], None, None, None,
+                                          _drop_stale(t, ep, "dispatch")))
+                    else:
+                        fresh.append(t)
+                batch = fresh
+                if not batch:
+                    task = t2 = None
+                    continue
             telemetry = self.cfg.telemetry_on
             if telemetry:
                 gauges.set("engine.sched_pending", self.scheduler.pending)
@@ -1071,9 +1131,16 @@ class PushPullEngine:
                 self._trace_chunk(t)
         self.speed.record(wire)
         t_cb0 = time.perf_counter()
+        ep = _membership.current_epoch()
         for i, task in enumerate(tasks):
-            if err is not None:
+            if isinstance(err, Status):    # dropped stale at dispatch
+                task.callback(None, err)
+            elif err is not None:
                 task.callback(None, Status.error(str(err)))
+            elif _is_stale(task, ep):
+                # issued before a world change, finished after: the
+                # result was computed over a group that no longer exists
+                task.callback(None, _drop_stale(task, ep, "retire"))
             else:
                 task.callback(outs[i], Status.ok())
         if telemetry:
@@ -1172,7 +1239,10 @@ class PushPullEngine:
         self._dispatcher.join(timeout=10)
         self._sync_q.put(_SHUTDOWN)
         self._syncer.join(timeout=10)
-        if self._deadline_thread is not None:
+        if (self._deadline_thread is not None
+                and self._deadline_thread is not threading.current_thread()):
+            # the deadline thread itself shuts the engine down when its
+            # failure action reconciles the world (suspend -> resume)
             self._deadline_thread.join(timeout=5)
         for task in self.scheduler.drain():
             task.callback(None, Status(StatusCode.ABORTED,

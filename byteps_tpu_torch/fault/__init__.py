@@ -1,7 +1,9 @@
-"""Fault injection, the membership epoch and supervised recovery; port of
-the ``byteps_tpu/fault`` parts ported so far (``injector.py``, whole;
-``membership.py``'s epoch; ``recovery.py``).  The views, the bus, shrink
-and rejoin, and gossip are not ported yet."""
+"""Fault injection, elastic membership, gossip and supervised recovery;
+port of ``byteps_tpu/fault`` (``injector.py``, ``membership.py``,
+``gossip.py`` whole; ``recovery.py``)."""
 
-from . import injector, membership  # noqa: F401
+from . import gossip, injector, membership  # noqa: F401
+from .membership import (Demoted, ElasticMembership, Evicted,  # noqa: F401
+                         MembershipTimeout, MembershipView,
+                         PartitionMinority, WorldChanged)
 from .recovery import RecoveryCoordinator, RecoveryResult  # noqa: F401

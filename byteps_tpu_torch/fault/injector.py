@@ -4,9 +4,8 @@ site names and the same string-seeded ``random.Random`` per rule, so one
 spec and seed give one schedule in both packages, with the JAX
 module's flight-recorder events (``fault.kill`` with a dump before the
 exit, ``fault.bitflip``, ``fault.slow_cleared``, ``fault.partition``,
-``fault.partition_healed``).  One difference: ``kill:site=coordinator``
-never fires (no membership coordinator yet).  Of the sites below the port weaves
-``kv_push``, ``server_push`` and ``server_pull`` so far.
+``fault.partition_healed``).  ``kill:site=coordinator`` fires only in
+the process that hosts the membership bus (``fault/membership.py``).
 
 The JAX package's description follows.  The subsystem exists so the
 recovery path (detector → suspend → resume → restore) can be *proved*
@@ -263,11 +262,17 @@ class FaultRule:
 
 def _is_coordinator() -> bool:
     """The ``kill:site=coordinator`` predicate: does THIS process
-    currently host the membership control plane?  The port has no
-    elastic membership yet (ROADMAP Queue A item 3), so no process
-    does and the rule never fires, matching "kill the coordinator"
-    semantics for worlds that have none."""
-    return False
+    currently host the membership control plane (the coordinator of the
+    active :class:`~byteps_tpu_torch.fault.membership.ElasticMembership`'s
+    view)?  False when no elastic membership is running: the rule then
+    never fires, matching "kill the coordinator" semantics for worlds
+    that have none."""
+    try:
+        from .membership import active_membership
+        m = active_membership()
+        return m is not None and m.is_coordinator
+    except Exception:  # noqa: BLE001 — the injector must never crash
+        return False
 
 
 def _fail(spec: str, clause: str, msg: str) -> ValueError:

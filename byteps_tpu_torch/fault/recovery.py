@@ -26,9 +26,12 @@ outcome lands in the ``recovery.attempt`` / ``recovery.completed`` /
 ``recovery`` span in the resumed engine's tracer.  Concurrent detections
 run the recovery once: later callers get the first outcome.
 
-This coordinator recovers ONE process against a checkpoint; agreeing on
-a shrunk world among several survivors and rejoining a restarted rank
-is the membership plane's (not ported yet).  A survivor stuck *inside* a
+This coordinator recovers ONE process against a checkpoint.  The
+multi-survivor story (every survivor agreeing on the shrunk world and
+continuing from *in-memory* state, plus in-place rejoin of a restarted
+rank) is :mod:`byteps_tpu_torch.fault.membership`, which composes the
+same drain/suspend/resume primitives under an epoch-tagged rendezvous.
+A survivor stuck *inside* a
 collective cannot run this path (its thread is captive in NCCL): that
 case stays with the step watchdog's exit.
 

@@ -17,6 +17,7 @@ merge engine (both from ``server/``).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 from typing import Dict, Iterable, Optional, Tuple
@@ -38,6 +39,7 @@ __all__ = [
     "declare", "push_pull", "push_pull_async", "poll", "synchronize",
     "declare_update", "push_pull_update", "push_pull_update_async",
     "suspend", "resume", "get_pushpull_speed", "metrics_snapshot",
+    "membership_epoch", "cluster_metrics",
     "BytePSPushPull", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "Compression", "DistributedDataParallel",
     "CrossBarrier", "HalfPrecisionDistributedOptimizer",
@@ -60,6 +62,8 @@ suspend = _api.suspend
 resume = _api.resume
 get_pushpull_speed = _api.get_pushpull_speed
 metrics_snapshot = _api.metrics_snapshot
+membership_epoch = _api.membership_epoch
+cluster_metrics = _api.cluster_metrics
 
 _anon_ids = itertools.count(1)
 
@@ -171,6 +175,13 @@ class DistributedOptimizer(torch.optim.Optimizer):
     gradient is the accumulated one divided by the count, as the JAX
     adapter does before its push.  After a suspend/resume the slots are
     declared again on the new engine at the next push, from the stash.
+
+    ``synchronize()`` waits for the pushes and writes the averaged
+    gradients without stepping, and ``step()`` inside
+    ``skip_synchronize()`` then only runs the inner optimizer (the
+    reference's ``byteps.torch`` API): room to work on the averaged
+    gradients between the two, as an elastic member does when it
+    all-gathers them over the membership bus.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
@@ -189,6 +200,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self._handles: Dict[torch.nn.Parameter, Handle] = {}
         self._hooks = []
         self._lock = threading.Lock()
+        self._skip_sync = False
         if named_parameters is not None:
             named = [(n, p) for n, p in named_parameters if p.requires_grad]
         else:
@@ -261,6 +273,31 @@ class DistributedOptimizer(torch.optim.Optimizer):
     def zero_grad(self, set_to_none: bool = True):
         return self._inner.zero_grad(set_to_none=set_to_none)
 
+    def synchronize(self) -> None:
+        """Wait for every outstanding push_pull and write the averaged
+        gradients into ``p.grad``."""
+        if self._sharded:
+            raise ValueError("synchronize() has no gradient to write under "
+                             "sharded_update: the engine steps")
+        with self._lock:
+            handles, self._handles = self._handles, {}
+        with torch.no_grad():
+            for p, h in handles.items():
+                avg = h.wait()
+                if self._bpps > 1:
+                    avg = avg / self._bpps
+                p.grad.copy_(avg)
+
+    @contextlib.contextmanager
+    def skip_synchronize(self):
+        """``step()`` in this block runs the inner optimizer on the
+        gradients as they are (after :meth:`synchronize`)."""
+        self._skip_sync = True
+        try:
+            yield
+        finally:
+            self._skip_sync = False
+
     def step(self, closure=None):
         if self._sharded:
             loss = None
@@ -276,16 +313,12 @@ class DistributedOptimizer(torch.optim.Optimizer):
             # lr_scheduler attached to it that it did
             self._inner._opt_called = True
             return loss
+        if self._skip_sync:
+            return self._inner.step(closure)
         with self._lock:
-            handles, self._handles = self._handles, {}
-        if not handles and self._bpps > 1:
-            return None  # micro-step: nothing was communicated
-        with torch.no_grad():
-            for p, h in handles.items():
-                avg = h.wait()
-                if self._bpps > 1:
-                    avg = avg / self._bpps
-                p.grad.copy_(avg)
+            if not self._handles and self._bpps > 1:
+                return None  # micro-step: nothing was communicated
+        self.synchronize()
         return self._inner.step(closure)
 
     def state_dict(self):

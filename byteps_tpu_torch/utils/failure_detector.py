@@ -39,10 +39,13 @@ itself (which covers the monitor ``init()`` arms under
 ``BYTEPS_HEARTBEAT_ON``).
 
 Both are host-side Python (sockets and threads), independent of CUDA,
-so they keep working when the device does not.  Not ported yet: the
-membership plane's reconcile route for an empty stale set (the JAX
-``ElasticMembership.on_failure``), which waits for ``fault/membership.py``;
-until then an installed action receives the evidence as it is.
+so they keep working when the device does not.  Under elastic
+membership the installed action is ``ElasticMembership.on_failure``
+(``fault/membership.py``): a named stale set shrinks the world, and the
+empty set of a data-path stall becomes a *reconcile* rendezvous over the
+current world, whose timeout names exactly who is gone.  Its monitors
+are rebuilt at every world change with ``server_rank`` set to the new
+coordinator (``ElasticMembership.host_heartbeat``).
 """
 
 from __future__ import annotations
@@ -63,8 +66,8 @@ _MAGIC = b"bpshb1 "
 _exit = os._exit
 
 # Process-wide pluggable default action (install_failure_action below):
-# lets a recovery layer (fault.recovery.RecoveryCoordinator.on_failure;
-# in the JAX package also ElasticMembership) take over the DEFAULT escalation
+# lets elastic layers (fault.membership.ElasticMembership.on_failure,
+# fault.recovery.RecoveryCoordinator.on_failure) take over the DEFAULT escalation
 # path — including the auto-armed monitor bps.init() starts — without
 # every construction site having to thread a callback through.
 _installed_action: Optional[Callable[[Set[int]], None]] = None
@@ -128,9 +131,10 @@ def data_path_stalled(gap_s: float, detail: str = "") -> None:
     collective without erroring them.
 
     Routed to the installed failure action with an EMPTY stale set
-    ("something is wedged; no named suspect"; the JAX
-    ``ElasticMembership.on_failure`` turns that into a reconcile
-    rendezvous, which waits for the port's membership plane).  Without
+    ("something is wedged; no named suspect") —
+    ``ElasticMembership.on_failure`` turns that into a *reconcile*
+    rendezvous whose timeout identifies exactly who is gone
+    (fault/membership.py).  Without
     an installed action the restartable ``os._exit`` remains the
     escalation of last resort: a wedged collective cannot be cancelled
     in-process.

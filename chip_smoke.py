@@ -320,10 +320,52 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      deadline, ``engine.sync_deadline_trips`` must read 1, the process
      must not exit, and the next push_pull must complete.
 
+12. elastic membership and gossip (``elastic_phase``): three members,
+   each a fresh ``python -m byteps_tpu_torch.tools.elastic_resnet`` on
+   the card with its own engine at a world of one (NCCL), sharing one
+   membership bus and one membership-managed heartbeat server (0.2 s /
+   2 s) on free 127.0.0.1 ports; each trains ResNet-50 at full width
+   (batch 32, weights from the seed, data from the seed and its rank)
+   through ``DistributedOptimizer(SGD(momentum=0.9), compression=
+   onebit)`` for ELASTIC_STEPS steps, all-gathering its averaged
+   gradient (host f32) with CRC32Cs of its parameters and momenta over
+   ``step_sync``, and applying the rank-order mean.  A member that exits
+   with an unexpected code, runs past ELASTIC_TIMEOUT_S or prints no
+   result line fails the run; every member is killed in a ``finally``.
+   The members of arms (b) and (c) start with arm (a)'s and wait at a go
+   file until their arm begins (their start-up overlaps arm (a)).  At
+   every step of every arm the members' CRCs must agree.
+   - (a) ``elastic_resnet_shrink_rejoin``: member 2 under
+     ``kill:rank=2:step=ELASTIC_KILL_STEP`` must exit 1; members 0 and 1
+     shrink in place to epoch 1, world (0, 1) and go on; a restarted
+     member 2 (started at once, parked once the bus shows epoch 1) is
+     admitted at a step boundary at epoch 2, world (0, 1, 2), with the
+     survivors' parameters and momenta equal to the received bytes on
+     the card; every member ends at epoch 2; member 0's stale probes
+     (dispatch and retirement drops, stale KVStore and ServerEngine
+     pushes) must all be dropped and counted;
+   - (b) ``elastic_resnet_coordinator_kill``: ``BYTEPS_GOSSIP_ON=1`` and
+     ``kill:site=coordinator:step=ELASTIC_KILL_STEP`` in every member:
+     only member 0 dies; member 1 re-binds the bus from its replica
+     (``membership.coordinator_failover`` 1) and the heartbeat server
+     follows it; members 1 and 2 end at epoch 1, world (1, 2); the
+     parent's ``cluster_metrics()`` from the new bus names coordinator 1
+     and carries the gossip states, and ``bps_top`` renders a frame;
+   - (c) ``elastic_resnet_wedge``: ``BYTEPS_SYNC_DEADLINE_S=
+     ELASTIC_DEADLINE_S`` and a one-visit ELASTIC_WEDGE_MS slow fault at
+     ``site=sync`` on member 1 at step ELASTIC_WEDGE_STEP: the deadline
+     trips, the installed action reconciles the current world (epoch 1,
+     world (0, 1, 2)), no member exits.
+   Each arm prints, beside the card's name and power limit, the median
+   member step (min-max), the ``step_sync`` round trip p50 / p99 and the
+   bytes a member sends, the kill -> detection, detection -> resumed,
+   rejoin, failover and reconcile times, each member's onebit launches
+   and resume ms, and its seconds.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
-4, the two LM slices', phase 10's arms and phase 11's child processes,
-which count their own);
+4, the two LM slices', phase 10's arms and phase 11's and phase 12's
+child processes, which count their own);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -442,7 +484,8 @@ SHARDED_LM_BATCH = {"llama": (2, 4096), "gpt": (1, 8192)}   # the LM slices'
 LLAMA_WATCH = ("wte.embedding", "h.0.attn.q.kernel", "h.0.mlp.up.kernel")
 # the async parameter-server phase (9)
 ASYNC_SGD = {"lr": 0.1, "momentum": 0.9}
-ASYNC_STEPS = 3                  # timed steps per worker, after 1 warm-up
+ASYNC_STEPS = 2                  # timed steps per worker, after 1 warm-up
+#                                  (3 before phase 12 lengthened the run)
 ASYNC_SPEC = "bitflip:site=kv_push:p=0.05;drop:site=kv_push:p=0.1"
 SERVER_SPEC = "bitflip:site=server_push:p=0.05"
 FAULT_SEED = 7
@@ -451,7 +494,8 @@ ONEBIT_SCALE_RTOL = 1e-5         # an L1 sum in another order (Queue C 6)
 # the observed sharded update (10)
 OBS_DEVICE = "cuda"
 FAULT_DEVICE = "cuda"             # where phase 11's children run
-FAULT_STEPS = 3                  # timed worker steps of each TCP arm
+FAULT_STEPS = 2                  # timed worker steps of each TCP arm
+#                                  (3 before phase 12 lengthened the run)
 FAULT_CHAOS_SPEC = {             # worker -> the faults it runs under (arm c)
     0: "bitflip:site=kv_push:p=0.02",
     1: "bitflip:site=kv_push:p=0.02;conn_reset:site=transport:p=0.005"}
@@ -464,6 +508,14 @@ OBSERVED_STEPS = 3               # timed steps of each tracing mode
 OBS_TS_INTERVAL_S = 0.1          # the time-series sampler's cadence
 OBS_WATCH = {"llama": ("h.0.attn.k.kernel", "h.0.attn.q.kernel"),
              "resnet": ("fc.weight", "blocks.13.convs.1.weight")}
+# elastic membership (12)
+ELASTIC_DEVICE = "cuda"          # where phase 12's members run
+ELASTIC_STEPS = 8                # steps a member
+ELASTIC_KILL_STEP = 2 * 161 + 80  # a member's push_pull enqueues: mid step 3
+ELASTIC_DEADLINE_S = 2.0         # arm (c)'s BYTEPS_SYNC_DEADLINE_S
+ELASTIC_WEDGE_MS = 5000          # arm (c)'s one-visit slow fault at site=sync
+ELASTIC_WEDGE_STEP = 3
+ELASTIC_TIMEOUT_S = 150          # each arm's children, in all
 
 
 def log(msg):
@@ -3328,6 +3380,333 @@ def fault_phase(torch, bps, api, Config, registry, smi, async_ms):
         shutil.rmtree(out, ignore_errors=True)
     return dict(launches)
 
+def _spawn_member(who, rank, out, bus, hb, argv=(), env=None):
+    """One member of phase 12: a fresh interpreter running
+    ``byteps_tpu_torch/tools/elastic_resnet.py`` from the repo's root, its
+    output in ``out/<who>.log`` (a file, so no pipe can fill while the
+    parent waits on the bus)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    full_env = dict(os.environ)
+    full_env["PYTHONPATH"] = root + os.pathsep + full_env.get(
+        "PYTHONPATH", "")
+    for k in ("BYTEPS_FAULT_SPEC", "BYTEPS_GOSSIP_ON",
+              "BYTEPS_SYNC_DEADLINE_S"):
+        full_env.pop(k, None)
+    full_env.update(DMLC_NUM_WORKER="1", DMLC_WORKER_ID=str(rank),
+                    BYTEPS_FLIGHT_DIR=os.path.join(out, f"flight_{who}"))
+    full_env.update(env or {})
+    path = os.path.join(out, f"{who}.log")
+    with open(path, "w") as logf:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "byteps_tpu_torch.tools.elastic_resnet",
+             "--rank", str(rank), "--bus", f"127.0.0.1:{bus}", "--hb-port",
+             str(hb), "--steps", str(ELASTIC_STEPS), "--device",
+             ELASTIC_DEVICE, "--batch", str(BATCH), "--image", str(IMAGE),
+             "--out", out] + list(argv),
+            cwd=root, env=full_env, stdout=logf, stderr=subprocess.STDOUT)
+    p.log_path = path
+    return p
+
+
+def _member_log(p):
+    with open(p.log_path) as f:
+        return f.read()
+
+
+def _members_wait(name, procs, until, expect, deadline):
+    """Poll until ``until()``; a member that exits with another code than
+    its expected one (``expect``, default 0) or the arm's deadline fails
+    the run."""
+    while not until():
+        for who, p in procs.items():
+            rc = p.poll()
+            want = expect.get(who, 0)
+            if rc is not None and rc != want:
+                check(False, f"{name}: {who} exited {rc}, expected {want}:\n"
+                             + _member_log(p)[-3000:])
+        check(time.monotonic() < deadline,
+              f"{name}: past its {ELASTIC_TIMEOUT_S} s; logs:\n" + "\n".join(
+                  f"--- {who}\n{_member_log(p)[-1500:]}"
+                  for who, p in procs.items()))
+        time.sleep(0.05)
+
+
+def _members_results(name, procs, expect, deadline):
+    """Wait for every member to end; each with its expected code, and
+    one result line from each that exits 0.  Returns {who: result}."""
+    _members_wait(name, procs,
+                  lambda: all(p.poll() is not None for p in procs.values()),
+                  expect, deadline)
+    out = {}
+    for who, p in procs.items():
+        text = _member_log(p)
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("ELASTIC_RESULT ")]
+        if expect.get(who, 0) == 0:
+            check(len(lines) == 1, f"{name}: {who} printed no result:\n"
+                                   + text[-3000:])
+            check("FINAL " in text, f"{name}: {who} has no FINAL line")
+        out[who] = (json.loads(lines[0][len("ELASTIC_RESULT "):])
+                    if lines else None)
+    return out
+
+
+def _flight_events(out, who, kind):
+    found = []
+    d = os.path.join(out, f"flight_{who}")
+    for f in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+        with open(os.path.join(d, f)) as fh:
+            found += [e for e in json.load(fh)["events"]
+                      if e.get("kind") == kind]
+    return found
+
+
+def _bus_view(bus):
+    from byteps_tpu_torch.fault.membership import bus_request
+    try:
+        pong = bus_request(("127.0.0.1", bus), {"op": "ping"}, timeout=2.0)
+    except (ConnectionError, TimeoutError):
+        return None
+    return (pong.get("epoch"), sorted(pong.get("world") or ())) \
+        if pong.get("ok") else None
+
+
+def _check_steps(name, res):
+    """Every member's every step: finite loss, and the parameter and
+    momentum CRC32Cs of the epoch's members equal."""
+    for who, r in res.items():
+        if r is None:
+            continue
+        check(r["steps"], f"{name}: {who} took no step")
+        for s in r["steps"]:
+            check(s["crc_agree"] and s["mcrc_agree"],
+                  f"{name}: {who} step {s['step']} (epoch {s['epoch']}, "
+                  f"world {s['world']}): the members' parameter or momentum "
+                  f"CRCs differ")
+            check(math.isfinite(s["loss"]),
+                  f"{name}: {who} step {s['step']} loss {s['loss']}")
+
+
+def _elastic_report(name, res, smi, t0, extra):
+    steps = [s["ms"] for r in res.values() if r for s in r["steps"]]
+    sync = sorted(s["sync_ms"] for r in res.values() if r
+                  for s in r["steps"])
+    frame = max(r["frame_bytes"] or 0 for r in res.values() if r)
+    reply = max(s["reply_bytes"] for r in res.values() if r
+                for s in r["steps"])
+    p99 = sync[min(len(sync) - 1, int(0.99 * len(sync)))]
+    log(f"{name} [{smi}]: member step {_median_line(steps)}; step_sync "
+        f"round trip p50 {sync[len(sync) // 2]:.1f} ms p99 {p99:.1f} ms, "
+        f"{frame} B up a member a step (pickled payload), up to {reply} B "
+        f"of gradients down")
+    for k, v in extra.items():
+        log(f"{name}: {k} {v}")
+    for who, r in sorted(res.items()):
+        if r:
+            # the first step at each new epoch pays the fresh engine's
+            # first collectives (NCCL opens its communicator lazily)
+            first = [round(b["ms"], 1) for a, b in zip(r["steps"],
+                                                       r["steps"][1:])
+                     if b["epoch"] != a["epoch"]]
+            log(f"{name}: {who} onebit launches {r['launches']}, suspend "
+                f"{[round(x, 1) for x in r['events']['suspend_ms']]} ms, "
+                f"resume "
+                f"{[round(x, 1) for x in r['events']['resume_ms']]} ms, "
+                f"first step at a new epoch {first} ms, epochs "
+                f"{sorted({s['epoch'] for s in r['steps']})}")
+    log(f"{name}: {time.perf_counter() - t0:.1f} s")
+
+
+def elastic_phase(torch, smi):
+    """Phase 12: three ResNet-50 members on the card shrink past a killed
+    peer and readmit it in place, fail over a dead coordinator, and
+    reconcile a wedged step.  Returns the onebit launches its members
+    counted."""
+    from byteps_tpu_torch.core import api
+    from byteps_tpu_torch.tools import bps_top
+    root = tempfile.mkdtemp(prefix="bps_elastic_")
+    launches = collections.Counter()
+    live = []
+
+    def spawn(who, rank, out, bus, hb, argv=(), env=None):
+        p = _spawn_member(who, rank, out, bus, hb, argv, env)
+        live.append(p)
+        return p
+
+    def count(res):
+        for r in res.values():
+            if r:
+                launches.update(r["launches"])
+                check(all(r["launches"][k] > 0 for k in KERNELS),
+                      f"elastic: a member launched no onebit kernel of "
+                      f"some kind: {r['launches']}")
+
+    try:
+        # arms (b) and (c) start with (a) and wait at their go file, so
+        # their interpreters and CUDA contexts come up while (a) runs
+        outs = {arm: os.path.join(root, arm) for arm in "abc"}
+        for d in outs.values():
+            os.makedirs(d)
+        ports = {arm: (_free_port(), _free_port()) for arm in "abc"}
+        env_b = {"BYTEPS_GOSSIP_ON": "1", "BYTEPS_FAULT_SEED": "7",
+                 "BYTEPS_FAULT_SPEC":
+                     f"kill:site=coordinator:step={ELASTIC_KILL_STEP}"}
+        env_c = {"BYTEPS_SYNC_DEADLINE_S": str(ELASTIC_DEADLINE_S)}
+        wedge = ["--wedge-step", str(ELASTIC_WEDGE_STEP), "--wedge-ms",
+                 str(ELASTIC_WEDGE_MS)]
+        later = {}
+        for arm, env in (("b", env_b), ("c", env_c)):
+            go = ["--go", os.path.join(outs[arm], "go")]
+            later[arm] = {f"m{r}": spawn(
+                f"m{r}", r, outs[arm], *ports[arm],
+                go + (["--linger"] if arm == "b" and r else [])
+                + (wedge if arm == "c" and r == 1 else []), env)
+                for r in (0, 1, 2)}
+
+        # (a) kill member 2, shrink, readmit a restarted member 2
+        name, t0 = "elastic_resnet_shrink_rejoin", time.perf_counter()
+        out = outs["a"]
+        bus, hb = ports["a"]
+        kill = {"BYTEPS_FAULT_SPEC": f"kill:rank=2:step={ELASTIC_KILL_STEP}",
+                "BYTEPS_FAULT_SEED": "7"}
+        procs = {"m0": spawn("m0", 0, out, bus, hb, ["--hold-for-rejoin",
+                                                      "--stale-probe"]),
+                 "m1": spawn("m1", 1, out, bus, hb),
+                 "m2": spawn("m2", 2, out, bus, hb, env=kill),
+                 "rejoin2": spawn("rejoin2", 2, out, bus, hb,
+                                  ["--rejoin", "--go",
+                                   os.path.join(out, "go")])}
+        expect = {"m2": 1}
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        _members_wait(name, procs, lambda: procs["m2"].poll() is not None,
+                      expect, deadline)
+        _members_wait(name, procs, lambda: _bus_view(bus) == (1, [0, 1]),
+                      expect, deadline)
+        open(os.path.join(out, "go"), "w").close()
+        res = _members_results(name, procs, expect, deadline)
+        kills = _flight_events(out, "m2", "fault.kill")
+        check(len(kills) == 1 and kills[0]["step"] == ELASTIC_KILL_STEP,
+              f"{name}: member 2's kill events {kills}")
+        for who in ("m0", "m1"):
+            r = res[who]
+            worlds = [(w["epoch"], w["world"]) for w in r["events"]["world"]]
+            check(worlds == [(1, [0, 1]), (2, [0, 1, 2])],
+                  f"{name}: {who} went through {worlds}")
+            check(any(s["world"] == [0, 1] for s in r["steps"]),
+                  f"{name}: {who} took no step in the world (0, 1)")
+        rj = res["rejoin2"]
+        check(rj["rejoined"] and rj["admitted_epoch"] == 2
+              and rj["admitted_world"] == [0, 1, 2]
+              and rj["state_bits_equal"],
+              f"{name}: the rejoiner was admitted at epoch "
+              f"{rj['admitted_epoch']}, world {rj['admitted_world']}, state "
+              f"bits equal {rj['state_bits_equal']}")
+        for who in ("m0", "m1", "rejoin2"):
+            r = res[who]
+            check(r["final_epoch"] == 2 and r["final_world"] == [0, 1, 2],
+                  f"{name}: {who} ended at epoch {r['final_epoch']}, world "
+                  f"{r['final_world']}")
+        _check_steps(name, res)
+        pr = res["m0"]["probes"]
+        check(pr["dispatch"] == "StaleEpochError"
+              and pr["retire"] == "StaleEpochError"
+              and pr["chunks_dropped"] == 2 and pr["kv_value"] == 1.0
+              and pr["server_value"] == 2.0 and pr["pushes_dropped"] >= 2,
+              f"{name}: stale probes {pr}")
+        detect = min(e["t"] for e in res["m0"]["events"]["detect"])
+        shrunk = res["m0"]["events"]["world"][0]["t"]
+        count(res)
+        _elastic_report(name, res, smi, t0, {
+            "kill -> detection ms": round((detect - kills[0]["t"]) * 1e3, 1),
+            "detection -> resumed (shrink) ms": round(
+                (shrunk - detect) * 1e3, 1),
+            "rejoin request -> admitted ms": round(
+                (rj["t_admitted"] - rj["t_request"]) * 1e3, 1),
+            "rejoiner state step": rj["state_step"],
+            "stale probes": pr})
+
+        # (b) kill whoever coordinates: member 0; member 1 takes the bus
+        name, t0 = "elastic_resnet_coordinator_kill", time.perf_counter()
+        out = outs["b"]
+        bus, hb = ports["b"]
+        procs = later["b"]
+        open(os.path.join(out, "go"), "w").close()
+        expect = {"m0": 1}
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        _members_wait(name, procs, lambda: all(
+            os.path.exists(os.path.join(out, f"member{r}.json"))
+            for r in (1, 2)), expect, deadline)
+        cluster = api.cluster_metrics(bus=f"127.0.0.1:{bus}")
+        check(cluster.get("coordinator") == 1
+              and cluster.get("bus_rank") == 1
+              and cluster.get("world") == [1, 2]
+              and set(cluster.get("states") or ()) == {0, 1, 2},
+              f"{name}: cluster_metrics from the new bus: coordinator "
+              f"{cluster.get('coordinator')}, bus rank "
+              f"{cluster.get('bus_rank')}, world {cluster.get('world')}, "
+              f"gossip states {cluster.get('states')}")
+        log(bps_top.render(cluster))
+        open(os.path.join(out, "release"), "w").close()
+        res = _members_results(name, procs, expect, deadline)
+        kills = _flight_events(out, "m0", "fault.kill")
+        check(len(kills) == 1 and kills[0]["step"] == ELASTIC_KILL_STEP,
+              f"{name}: member 0's kill events {kills}")
+        for who in ("m1", "m2"):
+            r = res[who]
+            check(r["final_epoch"] == 1 and r["final_world"] == [1, 2],
+                  f"{name}: {who} ended at epoch {r['final_epoch']}, world "
+                  f"{r['final_world']}")
+            check([e["stale"] for e in r["events"]["detect"]] == [[0]],
+                  f"{name}: {who} detected {r['events']['detect']}")
+            check(r["counters"]["membership.heartbeat_rehosted"] >= 2,
+                  f"{name}: {who} re-hosted its heartbeat "
+                  f"{r['counters']['membership.heartbeat_rehosted']} times")
+        c1 = res["m1"]["counters"]
+        check(c1["membership.coordinator_failover"] == 1
+              and res["m2"]["counters"]["membership.coordinator_failover"]
+              == 0, f"{name}: failovers {c1}")
+        _check_steps(name, res)
+        detect = res["m1"]["events"]["detect"][0]["t"]
+        moved = res["m1"]["events"]["world"][0]["t"]
+        count(res)
+        _elastic_report(name, res, smi, t0, {
+            "kill -> detection ms": round((detect - kills[0]["t"]) * 1e3, 1),
+            "failover (detection -> resumed on member 1's bus) ms": round(
+                (moved - detect) * 1e3, 1),
+            "gossip states": {r: e["state"]
+                              for r, e in cluster["states"].items()}})
+
+        # (c) a wedged step on member 1: the deadline trips, reconcile
+        name, t0 = "elastic_resnet_wedge", time.perf_counter()
+        procs = later["c"]
+        open(os.path.join(outs["c"], "go"), "w").close()
+        res = _members_results(name, procs, {},
+                               time.monotonic() + ELASTIC_TIMEOUT_S)
+        for who, r in res.items():
+            check(r["final_epoch"] == 1 and r["final_world"] == [0, 1, 2],
+                  f"{name}: {who} ended at epoch {r['final_epoch']}, world "
+                  f"{r['final_world']}")
+        c1 = res["m1"]["counters"]
+        check(c1["engine.sync_deadline_trips"] >= 1
+              and c1["membership.reconcile_started"] >= 1
+              and res["m1"]["events"]["reconcile"],
+              f"{name}: member 1's counters {c1}")
+        _check_steps(name, res)
+        count(res)
+        _elastic_report(name, res, smi, t0, {
+            "reconcile (trip -> resumed on member 1) ms": [
+                round(e["ms"], 1) for e in res["m1"]["events"]["reconcile"]],
+            "deadline trips": c1["engine.sync_deadline_trips"],
+            "reconciles started": c1["membership.reconcile_started"]})
+    finally:
+        for p in live:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3385,10 +3764,14 @@ def main():
                                  async_ms)
     log(f"fault plane and TCP transport phase: "
         f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    elastic_launches = elastic_phase(torch, smi)
+    log(f"elastic membership phase: {time.perf_counter() - t_phase:.1f} s")
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
-    # and those phase 11's child processes counted
+    # and those phase 11's and phase 12's child processes counted
     for k in KERNELS:
-        launches[k] += fault_launches.get(k, 0)
+        launches[k] += (fault_launches.get(k, 0)
+                        + elastic_launches.get(k, 0))
     for row in observed:
         for k in KERNELS:
             launches[k] += row["launches"][k]

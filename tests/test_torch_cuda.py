@@ -1135,3 +1135,79 @@ def test_checkpoint_round_trip_of_card_tensors(card, tmp_path):
         assert got[k].device == state[k].device
         assert got[k].dtype == state[k].dtype
         assert same_bits(got[k], state[k]), k
+
+
+def _held_syncer(eng):
+    """Hold the engine's syncer inside its wait for the next unit: returns
+    (inside, go) events."""
+    import threading
+    inside, go = threading.Event(), threading.Event()
+    real = eng._block
+
+    def held(done):
+        eng._block = real
+        inside.set()
+        go.wait(30)
+        return real(done)
+    eng._block = held
+    return inside, go
+
+
+def test_stale_epoch_guard_on_card(card):
+    """On a card engine, a chunk enqueued under epoch e and dispatched
+    under e + 1 fails at dispatch, one issued under e and retired under
+    e + 1 fails at retirement (``StaleEpochError``, ABORTED), both are
+    counted, and a group's other chunk still completes."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.common.telemetry import counters
+    from byteps_tpu_torch.core import api
+    from byteps_tpu_torch.fault import membership as mm
+
+    mm._reset_epoch_for_tests()
+    bps.init(Config(group_size=-1))
+    try:
+        eng = api.engine()
+        before = counters.get("membership.stale_chunks_dropped")
+        x = torch.ones(1024, device=card)
+        eng.pause_dispatch()
+        h = eng.push_pull_async(x, "stale", op="sum")
+        mm.advance_epoch()
+        fresh = eng.push_pull_async(x * 2, "fresh", op="sum")
+        eng.resume_dispatch()
+        with pytest.raises(RuntimeError, match="ABORTED: stale membership"):
+            h.wait(timeout=30)
+        assert same_bits(fresh.wait(timeout=30), x * 2)
+        inside, go = _held_syncer(eng)
+        h = eng.push_pull_async(x, "stale2", op="sum")
+        assert inside.wait(30)
+        mm.advance_epoch()
+        go.set()
+        with pytest.raises(RuntimeError, match="stale membership epoch"):
+            h.wait(timeout=30)
+        assert counters.get("membership.stale_chunks_dropped") \
+            == before + 2
+        assert same_bits(eng.push_pull(x, "after", op="sum"), x)
+    finally:
+        bps.shutdown()
+        mm._reset_epoch_for_tests()
+
+
+def test_resume_without_suspend_starts_a_card_engine(card):
+    """``resume()`` with nothing suspended starts an engine, on the card
+    by default, with the names declared before it (as the JAX
+    ``resume`` does; a rejoining member comes up this way)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core import api
+
+    assert not api.initialized()
+    try:
+        bps.declare("before.resume")
+        bps.resume()
+        assert api.initialized() and api.device().type == "cuda"
+        assert api.engine().registry.get("before.resume") is not None
+        x = torch.arange(8.0, device=card)
+        assert same_bits(api.push_pull(x, "r", op="sum"), x)
+    finally:
+        bps.shutdown()
+        api._declared_order.clear()

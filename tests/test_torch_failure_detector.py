@@ -1,10 +1,12 @@
 """The port's failure detection (``byteps_tpu_torch/utils/
 failure_detector.py``) and the engine's sync deadline: the JAX package's
-cases (``tests/test_failure_detector.py``; ``tests/test_sync_deadline.py``
-but the two that need ``ElasticMembership``), the heartbeat datagrams
-against the JAX monitor both ways (a port client keeps a JAX server
-quiet, and the reverse), the heartbeat ``init()`` arms under the retry
-policy, and a real 2-process worker death."""
+cases (``tests/test_failure_detector.py``; ``tests/test_sync_deadline.py``,
+its two ``ElasticMembership`` cases among them: a deadline trip becomes a
+reconcile, and a stall during a shrink follows it; and the JAX package's
+3-process wedge lane of ``tests/test_coordinator_failover.py``), the
+heartbeat datagrams against the JAX monitor both ways (a port client
+keeps a JAX server quiet, and the reverse), the heartbeat ``init()``
+arms under the retry policy, and a real 2-process worker death."""
 
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from byteps_tpu_torch.utils.failure_detector import (HeartbeatMonitor,
 
 from .torch_fault_common import (REPO, child_env, free_port,  # noqa: F401
                                  fresh_fault_state, thread_count, wait_for)
+from .torch_member_common import communicate, final, spawn
+from .test_elastic import _simulate
 
 
 @pytest.fixture
@@ -454,3 +458,115 @@ def test_drain_budget_follows_the_deadline():
     finally:
         api.shutdown(wait=False)
     assert not api.initialized()
+
+
+# -- the reconcile route (the JAX package's two membership cases of
+#    tests/test_sync_deadline.py) ---------------------------------------------
+
+
+@pytest.fixture
+def member_exits(monkeypatch, exits):
+    """``exits`` plus the membership's own escalation alias, and no
+    membership left active after the test."""
+    from byteps_tpu_torch.fault import membership as mm
+    monkeypatch.setattr(mm, "_exit", exits.append)
+    yield exits
+    m = mm.active_membership()
+    if m is not None:
+        m.stop()
+    mm._active_ref = None
+
+
+def test_sync_deadline_routes_through_reconcile_not_exit(member_exits):
+    """Deadline trip -> the installed ``ElasticMembership.on_failure`` ->
+    reconcile (epoch + 1, same world) -> the engine suspended and resumed;
+    the wedged unit's late result is dropped as stale."""
+    from byteps_tpu_torch.fault import membership as mm
+    port = free_port()
+    api.init(pcfg.Config(sync_deadline_s=0.3,
+                         membership_rendezvous_timeout_s=3.0,
+                         membership_sync_timeout_s=10.0), device="cpu")
+    m = mm.ElasticMembership(0, [0], f"127.0.0.1:{port}").start()
+    try:
+        install_failure_action(m.on_failure)
+        eng = api.engine()
+        _wedge_next_unit(eng, 1.5)
+        h = eng.push_pull_async(torch.ones(8), "g", op="sum")
+        wait_for(lambda: mm.current_epoch() >= 1, what="reconcile epoch")
+        assert counters.get("membership.reconcile_started") >= 1
+        with pytest.raises(RuntimeError, match="stale membership epoch"):
+            h.wait(timeout=30)
+        wait_for(lambda: api.initialized() and api.engine()._running,
+                 what="resumed engine")
+        wait_for(lambda: m.view() == mm.MembershipView(1, (0,)),
+                 what="reconciled view applied")
+        assert api.engine() is not eng and api.device().type == "cpu"
+        out = api.engine().push_pull(torch.ones(8), "g2", op="sum")
+        torch.testing.assert_close(out, torch.ones(8))
+        assert member_exits == []
+    finally:
+        install_failure_action(None)
+        m.stop()
+
+
+def test_stall_during_inflight_shrink_does_not_double_exit(member_exits):
+    """A stall report landing while another thread applies a world
+    change follows that change (``wait_ready``): no second transition,
+    no exit."""
+    from byteps_tpu_torch.fault import membership as mm
+    port = free_port()
+    # the applied view resumes an engine (as the JAX one does): on the
+    # host here
+    m = mm.ElasticMembership(0, [0], f"127.0.0.1:{port}",
+                             rendezvous_timeout_s=2.0, sync_timeout_s=5.0,
+                             device="cpu").start()
+    try:
+        install_failure_action(m.on_failure)
+        applier = threading.Thread(
+            target=lambda: m._maybe_apply(mm.MembershipView(1, (0,))))
+        mm.set_epoch(1)          # the shrink's guard is already up
+        applier.start()
+        fd_mod.data_path_stalled(3.0, "watchdog during shrink")
+        applier.join(timeout=30)
+        assert m.view().epoch == 1
+        assert counters.get("membership.reconcile_started") == 0
+        assert member_exits == []
+    finally:
+        install_failure_action(None)
+        m.stop()
+
+
+def test_sync_deadline_wedge_reconciles_world_no_exit():
+    """The second acceptance lane: rank 1's engine wedges for 4s at step
+    5 with BYTEPS_SYNC_DEADLINE_S=1.  The deadline fires, the installed
+    action runs a membership reconcile (epoch +1, world unchanged — the
+    wedge resolves, nobody is actually dead), members parked in the step
+    sync JOIN the rendezvous, and the run finishes on the FULL world
+    with the exact fault-free result.  No process exits."""
+    n, wedge_at = 9, 5
+    bus = free_port()
+    procs = {
+        r: spawn(r, (0, 1, 2), bus, None, n, extra={
+            "BYTEPS_SYNC_DEADLINE_S": "1.0",
+            "BYTEPS_MEMBERSHIP_RENDEZVOUS_TIMEOUT": "8",
+            **({"BYTEPS_ELASTIC_WEDGE_STEP": str(wedge_at),
+                "BYTEPS_ELASTIC_WEDGE_S": "4"} if r == 1 else {})})
+        for r in (0, 1, 2)}
+    outs = communicate(procs)
+
+    assert "WEDGING 1" in outs[1], outs[1][-3000:]
+    trips = next(line for line in outs[1].splitlines()
+                 if line.startswith("DEADLINE-TRIPS "))
+    assert int(trips.split()[1]) >= 1, trips        # the deadline fired
+    assert int(trips.split()[3]) >= 1, trips        # ...into a reconcile
+    finals = {}
+    for r in (0, 1, 2):
+        # rc 0 everywhere IS the os._exit proof: the old escalation (17)
+        # would show up as a nonzero exit
+        assert procs[r].returncode == 0, outs[r][-3000:]
+        finals[r] = final(outs[r])
+        assert finals[r][0] >= 1 and finals[r][1] == "0,1,2", finals[r]
+    expected = _simulate(0.0, (0, 1, 2), n)         # world never changed
+    for r in (0, 1, 2):
+        assert finals[r][2] == pytest.approx(expected, abs=1e-5), (
+            finals, expected)

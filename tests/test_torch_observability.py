@@ -512,7 +512,8 @@ def test_endpoint_routes_over_http(tmp_path):
     """An engine with telemetry, sampling and the endpoint on port 0:
     ``/metrics`` carries the attribution gauges, ``/healthz`` answers 200
     and then 503 while a rule fires, ``/debug/state`` has its ``trace``
-    section and the omitted list, ``/timeseries`` has points."""
+    section and the omitted list (which no longer names ``membership``:
+    the plane is ported), ``/timeseries`` has points."""
     cfg = pcfg.Config(obs_port=0, ts_interval_s=0.01, health_windows=1,
                       trace_sample="1/1", trace_dir=str(tmp_path))
     api.init(cfg, device="cpu")
@@ -526,7 +527,8 @@ def test_endpoint_routes_over_http(tmp_path):
         assert status == 200 and json.loads(body)["engine_running"]
         dbg = json.loads(_get(port, "/debug/state")[1])
         assert dbg["trace"]["sample_n"] == 1
-        assert "membership" in dbg["omitted"]
+        assert "membership" not in dbg["omitted"]
+        assert dbg["omitted"] == ["serving", "wal", "reconciler"]
         assert dbg["engine"]["step"]["step"] >= 1
         for _ in range(500):
             doc = json.loads(_get(port, "/timeseries")[1])

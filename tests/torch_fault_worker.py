@@ -28,7 +28,18 @@ on the CPU.  One mode per run, from ``BPS_FW_MODE``:
   seq-tokened unit deltas each, retrying on ``AckLost``, rank 2 under
   ``conn_reset:site=transport``; each also re-sends its first (landed)
   token once.  The server polls the store to exactly ``2 * STEPS`` and
-  prints ``SUM``/``DUP``; rank 2 prints ``RESETS``/``RECONNECTS``.
+  prints ``SUM``/``DUP``; rank 2 prints ``RESETS``/``RECONNECTS``;
+- **partition**: the JAX package's ``tests/transport_worker.py``
+  partition mode.  A 4-rank elastic world (``ElasticMembership`` on
+  ``BPS_FW_BUS``, membership-managed heartbeats on ``BPS_FW_HB_PORT``)
+  whose data plane pushes seq-tokened unit deltas to rank 0's
+  ``KVStore`` over the transport (rank 0 through the
+  ``LoopbackEndpoint``).  ``partition:rank=2:site=transport`` blackholes
+  rank 2's sockets: its pushes surface as ``AckLost`` at the send
+  deadline, and after two in a row it prints ``PARTITIONED <deadline
+  trips>`` and exits with the restartable code; the survivors' detector
+  shrinks the world and they finish every step, each printing ``FINAL
+  <epoch> <world> <w[0]>`` (and rank 0 the store's ``SUM``).
 """
 
 from __future__ import annotations
@@ -73,6 +84,8 @@ def main() -> int:
         return _run_bitflip(tp, counters, rank, port, steps, nworkers=2)
     if mode == "kvreset":
         return _run_kvreset(tp, counters, rank, port, steps, nworkers=2)
+    if mode == "partition":
+        return _run_partition(tp, counters, rank, port, steps)
     raise SystemExit(f"unknown BPS_FW_MODE {mode!r}")
 
 
@@ -255,6 +268,90 @@ def _run_kvreset(tp, counters, rank, port, steps, nworkers) -> int:
             push_tok(1)   # a deliberate duplicate of a landed token
     print("RESETS", rank, counters.get("transport.conn_resets"), flush=True)
     print("RECONNECTS", rank, ep.connection.reconnects, flush=True)
+    ep.close()
+    return 0
+
+
+def _elastic_grad(rank: int) -> np.ndarray:
+    return np.full(4, float((rank + 1) ** 2), np.float32)
+
+
+def _run_partition(tp, counters, rank, port, steps) -> int:
+    world = [int(r) for r in os.environ["BPS_FW_WORLD"].split(",")]
+    bus = os.environ["BPS_FW_BUS"]
+    hb_port = os.environ.get("BPS_FW_HB_PORT", "")
+    fail_code = int(os.environ.get("BYTEPS_FAILURE_EXIT_CODE", "17"))
+    # single-host engines; the world lives in the membership layer
+    os.environ["DMLC_NUM_WORKER"] = "1"
+    os.environ["DMLC_WORKER_ID"] = str(rank)
+
+    from byteps_tpu_torch.common import integrity
+    from byteps_tpu_torch.fault.membership import (ElasticMembership,
+                                                   MembershipTimeout,
+                                                   WorldChanged)
+    from byteps_tpu_torch.utils.failure_detector import install_failure_action
+
+    kv = None
+    if rank == 0:
+        from byteps_tpu_torch.server.kv_store import KVStore
+        kv = KVStore(device="cpu")
+        kv.init_key("acc", np.zeros(1, np.float32))
+        tp.serve(rank=0, host="127.0.0.1", port=port, kv=kv)
+        ep = tp.LoopbackEndpoint(kv=kv)
+    else:
+        ep = tp.TcpEndpoint(("127.0.0.1", port), peer=0, rank=rank,
+                            send_deadline_s=1.5, keepalive_s=0.0)
+    # a shrink resumes an engine: on the host here
+    m = ElasticMembership(rank, world, bus, device="cpu").start()
+    install_failure_action(m.on_failure)
+    if hb_port:
+        m.host_heartbeat(interval=0.08, timeout=0.7, grace=60.0,
+                         addr="127.0.0.1:" + hb_port,
+                         on_failure=m.on_failure)
+    print("START", rank, flush=True)
+    w = np.zeros(4, np.float32)
+    step, streak, retries = 1, 0, 0
+    while step <= steps:
+        if retries > 200:
+            print("RETRY-BUDGET-EXHAUSTED at", step, flush=True)
+            return 6
+        try:
+            ep.push_delta("acc", np.ones(1, np.float32), worker_id=rank,
+                          seq=step)
+            streak = 0
+        except integrity.AckLost:
+            # the partition evidence: per-send deadlines, never a hang
+            streak += 1
+            if streak >= 2:
+                print("PARTITIONED",
+                      counters.get("transport.send_deadline_trips"),
+                      flush=True)
+                m.stop()
+                return fail_code
+            continue
+        try:
+            _, payloads = m.step_sync(step, payload=_elastic_grad(rank))
+        except WorldChanged as e:
+            print("WORLD", e.view.epoch, ",".join(map(str, e.view.world)),
+                  "at", step, flush=True)
+            continue  # the re-push is same-token: the dedup absorbs it
+        except MembershipTimeout:
+            retries += 1
+            continue
+        retries = 0
+        grads = [np.asarray(p) for p in payloads.values()]
+        w = w - LR * (np.sum(grads, axis=0, dtype=np.float32)
+                      / np.float32(len(grads)))
+        step += 1
+        time.sleep(0.03)
+    view = m.view()
+    if rank == 0:
+        time.sleep(1.0)  # the other survivors' last deltas land
+        print("SUM", repr(float(kv.pull("acc")[0])), flush=True)
+    print("FINAL", view.epoch, ",".join(map(str, view.world)),
+          repr(float(w[0])), flush=True)
+    install_failure_action(None)
+    m.stop()
     ep.close()
     return 0
 
