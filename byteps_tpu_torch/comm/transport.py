@@ -72,12 +72,15 @@ send gate.  In an elastic world a partitioned rank's sends end in
 and the survivors' membership (``fault/membership.py``) shrinks past it
 (the JAX package's 4-process partition lane).
 
-Not ported yet: the serving plane's ops.  ``OP_SERVE_PULL`` and the
-``serve_cut`` / ``serve_commit`` / ``serve_ctl`` hops of ``OP_PUSH`` keep
-their codes, and the server answers them as the JAX server does with no
-serving endpoint or tier attached (``TransportRemoteError`` "no serving
-endpoint attached" / "no serving tier attached"); the endpoints'
-serving calls and ``RemoteServing`` wait for ``server/serving.py``.
+The serving plane's ops are the JAX package's: ``OP_SERVE_PULL``
+answers a delta or full pull from an attached serving endpoint (a
+``ServingPlane``, a ``SnapshotServer`` or a serving host's
+``ServingHostCore``), each item in its own sealed envelope; the
+``serve_cut`` / ``serve_commit`` / ``serve_ctl`` hops of ``OP_PUSH``
+feed a serving host (``server/serving_tier.py``).  With nothing
+attached the server answers "no serving endpoint attached" / "no
+serving tier attached", as the JAX server does.  :class:`RemoteServing`
+gives an endpoint the plane's ``pull`` shape for a ``PullClient``.
 """
 
 from __future__ import annotations
@@ -104,7 +107,8 @@ from ..fault import injector as _fault
 __all__ = [
     "TransportError", "TransportClosed", "TransportConnectionLost",
     "TransportRemoteError", "Endpoint", "LoopbackEndpoint", "TcpEndpoint",
-    "Connection", "TransportServer", "ShardedClient", "serve",
+    "Connection", "TransportServer", "ShardedClient", "RemoteServing",
+    "serve",
     "local_server", "transport_addr", "transport_host_map", "endpoint_to",
     "CONNECTING", "READY", "DRAINING", "DEAD",
 ]
@@ -117,9 +121,7 @@ OP_HELLO = 1
 OP_PUSH = 2          # meta.hop selects server_push / server_push_wire /
 #                      kv / kv_wire; payload = one sealed envelope
 OP_SERVER_PULL = 3   # blocking ServerEngine.pull
-OP_SERVE_PULL = 4    # serving-plane delta/full pull (the plane is not
-#                      ported: the server answers "no serving endpoint
-#                      attached")
+OP_SERVE_PULL = 4    # serving-plane delta/full pull
 OP_KV_PULL = 5       # KVStore.pull_versioned
 OP_STATE = 6         # rejoin-state blob (utils/checkpoint.pack_state)
 OP_KEEPALIVE = 7
@@ -668,7 +670,9 @@ class TransportServer:
     """One rank's transport listener: accepts peer connections and
     dispatches their frames into the LOCAL receivers — the
     :class:`~byteps_tpu_torch.server.engine.ServerEngine` merge engine,
-    the :class:`~byteps_tpu_torch.server.kv_store.KVStore` and a
+    the :class:`~byteps_tpu_torch.server.kv_store.KVStore`, a serving
+    endpoint (``serving``: a plane, a bare ``SnapshotServer`` or a
+    serving host's core), a serving-tier receiver (``tier``) and a
     rejoin-state provider.  Verification happens HERE, on receive: a
     frame that fails its CRC is answered ``OP_NACK`` and the sender
     retransmits from its sealed source copy — the loopback NACK machine,
@@ -680,11 +684,16 @@ class TransportServer:
     sync merge round can never count one worker twice."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
-                 rank: int = 0, engine=None, kv=None,
+                 rank: int = 0, engine=None, kv=None, serving=None,
+                 tier=None,
                  state_provider: Optional[Callable[[], bytes]] = None):
         self.rank = int(rank)
         self.engine = engine
         self.kv = kv
+        self.serving = serving
+        # serving-tier receiver (server/serving_tier.py ServingHostCore):
+        # the serve_cut / serve_commit / serve_ctl hops land here
+        self.tier = tier
         self.state_provider = state_provider
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -708,7 +717,7 @@ class TransportServer:
     def addr(self) -> Tuple[str, int]:
         return (self.host, self.port)
 
-    def attach(self, *, engine=None, kv=None,
+    def attach(self, *, engine=None, kv=None, serving=None, tier=None,
                state_provider=None) -> "TransportServer":
         """Attach/replace local receivers (idempotent; None leaves the
         existing attachment)."""
@@ -716,6 +725,10 @@ class TransportServer:
             self.engine = engine
         if kv is not None:
             self.kv = kv
+        if serving is not None:
+            self.serving = serving
+        if tier is not None:
+            self.tier = tier
         if state_provider is not None:
             self.state_provider = state_provider
         return self
@@ -731,8 +744,8 @@ class TransportServer:
                     "attached": {
                         "engine": self.engine is not None,
                         "kv": self.kv is not None,
-                        "serving": False,
-                        "tier": False,
+                        "serving": self.serving is not None,
+                        "tier": self.tier is not None,
                         "state": self.state_provider is not None}}
 
     # -- accept / dispatch --------------------------------------------------
@@ -921,9 +934,17 @@ class TransportServer:
             return _pack_frame(OP_REPLY, req_id, {"version": version},
                                frame)
         if op == OP_SERVE_PULL:
-            # the serving plane is not ported: answered as the JAX
-            # server answers with no serving endpoint attached
-            raise TransportRemoteError("no serving endpoint attached")
+            if self.serving is None:
+                raise TransportRemoteError("no serving endpoint attached")
+            kw = {"since_id": meta.get("since_id"),
+                  "keys": meta.get("keys")}
+            if getattr(self.serving, "supports_shed", False):
+                # admission-controlled endpoints (serving_tier.py) also
+                # receive the client's staleness bound — shedding is
+                # legal only while it keeps the client inside that bound
+                kw["max_stale_s"] = meta.get("max_stale_s")
+            reply = self.serving.pull(**kw)
+            return _pack_frame(OP_REPLY, req_id, *_seal_serve_reply(reply))
         if op == OP_STATE:
             if self.state_provider is None:
                 raise TransportRemoteError("no rejoin-state provider "
@@ -995,11 +1016,24 @@ class TransportServer:
                                                worker_id=env.worker,
                                                seq=env.seq)
             return _pack_frame(OP_ACK, req_id, {"version": version})
-        if hop in ("serve_cut", "serve_commit", "serve_ctl"):
-            # serving-tier publication hops: the tier is not ported, so
-            # they are answered as the JAX server answers with none
-            # attached
-            raise TransportRemoteError("no serving tier attached")
+        # serving-tier publication hops (server/serving_tier.py): the
+        # CRC above already verified the frame; staging is idempotent
+        # (same key+version re-stages identical bytes) and commit dedups
+        # by snapshot id, so transport retransmits need no claim floors
+        if hop == "serve_cut":
+            if self.tier is None:
+                raise TransportRemoteError("no serving tier attached")
+            self.tier.receive_key(
+                env.key, arr if meta.get("codec") is None else data, meta)
+            return _pack_frame(OP_ACK, req_id, {})
+        if hop == "serve_commit":
+            if self.tier is None:
+                raise TransportRemoteError("no serving tier attached")
+            return _pack_frame(OP_ACK, req_id, self.tier.commit(meta))
+        if hop == "serve_ctl":
+            if self.tier is None:
+                raise TransportRemoteError("no serving tier attached")
+            return _pack_frame(OP_ACK, req_id, self.tier.control(meta))
         raise TransportRemoteError(f"unknown push hop {hop!r}")
 
     def close(self) -> None:
@@ -1032,15 +1066,57 @@ class TransportServer:
             t.join(timeout=5)
 
 
+# -- serve-reply (de)serialization ------------------------------------------
+
+
+def _seal_serve_reply(reply) -> Tuple[dict, bytes]:
+    """ServeReply → (meta, payload): each item's payload rides its OWN
+    sealed envelope (ndarray or codec wire bytes — what the serving hop
+    already ships), so the client verifies per key on receive."""
+    items = {}
+    for k, it in reply.items.items():
+        if isinstance(it.payload, (bytes, bytearray, memoryview)):
+            frame = _integrity.seal_bytes(bytes(it.payload), key=k,
+                                          seq=reply.snapshot_id)
+            kind = "b"
+        else:
+            frame = _integrity.seal_array(_host(it.payload), key=k,
+                                          seq=reply.snapshot_id)
+            kind = "a"
+        items[k] = (kind, frame, it.version, it.wire_nbytes, it.codec)
+    meta = {"snapshot_id": reply.snapshot_id, "full": reply.full,
+            "server_id": reply.server_id, "wire_bytes": reply.wire_bytes,
+            "shed": getattr(reply, "shed", False)}
+    return meta, pickle.dumps(items, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def _open_serve_reply(meta: dict, payload: bytes):
+    """(meta, payload) → ServeReply with every item VERIFIED; raises
+    IntegrityError on any corrupt item (the caller's bounded-retry
+    NACK)."""
+    from ..server.serving import ServeItem, ServeReply
+    items = {}
+    for k, (kind, frame, version, wire_nbytes, codec) in \
+            pickle.loads(payload).items():
+        if kind == "b":
+            value, _env = _integrity.open_bytes(frame)
+        else:
+            value, _env = _integrity.open_array(frame)
+        items[k] = ServeItem(value, version, wire_nbytes, codec)
+    return ServeReply(snapshot_id=meta["snapshot_id"], full=meta["full"],
+                      items=items, wire_bytes=meta["wire_bytes"],
+                      server_id=meta["server_id"],
+                      shed=bool(meta.get("shed", False)))
+
+
 # -- endpoints --------------------------------------------------------------
 
 
 class Endpoint:
     """ONE interface in front of the in-process loopback and the real
-    wire, covering the data-plane hops: training pushes
+    wire, covering the three data-plane hops: training pushes
     (``push``/``push_compressed``/``push_delta``/``push_delta_wire``),
-    pulls, and rejoin state (``pull_state``).  The serving pulls of the
-    JAX interface wait for the serving plane."""
+    serving pulls (``serve_pull``), and rejoin state (``pull_state``)."""
 
     def push(self, key: str, value, worker_id: int, num_workers: int,
              mepoch: Optional[int] = None) -> None:
@@ -1070,6 +1146,26 @@ class Endpoint:
     def kv_pull(self, key: str) -> Tuple[np.ndarray, int]:
         raise NotImplementedError
 
+    def serve_pull(self, since_id: Optional[int] = None,
+                   keys: Optional[List[str]] = None,
+                   max_stale_s: Optional[float] = None,
+                   deadline_s: Optional[float] = None):
+        raise NotImplementedError
+
+    def serve_cut(self, key: str, payload, *, snapshot_id: int,
+                  version: int, codec=None,
+                  deadline_s: Optional[float] = None) -> None:
+        """Ship one key of a snapshot cut to a serving host
+        (serving-tier publication, server/serving_tier.py)."""
+        raise NotImplementedError
+
+    def serve_commit(self, *, snapshot_id: int, gen: int, versions: dict,
+                     deadline_s: Optional[float] = None) -> dict:
+        raise NotImplementedError
+
+    def serve_ctl(self, **meta) -> dict:
+        raise NotImplementedError
+
     def pull_state(self) -> Any:
         raise NotImplementedError
 
@@ -1082,10 +1178,11 @@ class LoopbackEndpoint(Endpoint):
     receivers, preserving every loopback integrity semantic (the
     in-process seal/CRC bypass, chaos rerouting, seq dedup)."""
 
-    def __init__(self, engine=None, kv=None,
+    def __init__(self, engine=None, kv=None, serving=None,
                  state_provider: Optional[Callable[[], bytes]] = None):
         self.engine = engine
         self.kv = kv
+        self.serving = serving
         self.state_provider = state_provider
 
     def push(self, key, value, worker_id, num_workers, mepoch=None):
@@ -1114,6 +1211,14 @@ class LoopbackEndpoint(Endpoint):
 
     def kv_pull(self, key):
         return self.kv.pull_versioned(key)
+
+    def serve_pull(self, since_id=None, keys=None, max_stale_s=None,
+                   deadline_s=None):
+        del deadline_s   # no wire, no deadline
+        if getattr(self.serving, "supports_shed", False):
+            return self.serving.pull(since_id=since_id, keys=keys,
+                                     max_stale_s=max_stale_s)
+        return self.serving.pull(since_id=since_id, keys=keys)
 
     def pull_state(self):
         from ..utils.checkpoint import unpack_state
@@ -1249,6 +1354,8 @@ class TcpEndpoint(Endpoint):
             if rop == OP_ERR:
                 raise _map_remote_error(rmeta)
             try:
+                if op == OP_SERVE_PULL:
+                    return rmeta, _open_serve_reply(rmeta, rpayload)
                 if op == OP_STATE:
                     return rmeta, rpayload
                 value, _env = _integrity.open_array(rpayload)
@@ -1295,6 +1402,51 @@ class TcpEndpoint(Endpoint):
                                   frame, "kv_push", key, worker_id, token)
         return rmeta.get("version", -1)
 
+    # -- serving-tier publication hops (server/serving_tier.py) -------------
+
+    def serve_cut(self, key, payload, *, snapshot_id, version, codec=None,
+                  deadline_s=None):
+        """One shipped key of a cut: the sealed envelope + NACK/
+        retransmit machine of the push hops, chaos-instrumented at the
+        serving wire's site (``bitflip:site=serve_pull`` corrupts cut
+        ships exactly as it corrupts pull replies)."""
+        seq = next(self._seq)
+        if codec is None:
+            frame = _integrity.seal_array(_host(payload), key=key,
+                                          seq=seq, worker=self._conn.rank)
+        else:
+            frame = _integrity.seal_bytes(bytes(payload), key=key, seq=seq,
+                                          worker=self._conn.rank)
+        self._transmit({"hop": "serve_cut", "snapshot_id": snapshot_id,
+                        "version": version, "codec": codec}, frame,
+                       "serve_pull", key, self._conn.rank, seq,
+                       deadline_s=deadline_s)
+
+    def serve_commit(self, *, snapshot_id, gen, versions, deadline_s=None):
+        """Publish the shipped cut on the host (atomic ring swap there);
+        idempotent by snapshot id, so a reconnect retransmit is a dup
+        ACK, never a double publish."""
+        seq = next(self._seq)
+        frame = _integrity.seal_bytes(b"", key="__serve_commit__", seq=seq,
+                                      worker=self._conn.rank)
+        rmeta, _ = self._transmit(
+            {"hop": "serve_commit", "snapshot_id": snapshot_id,
+             "gen": gen, "versions": dict(versions)}, frame,
+            "serve_pull", "__serve_commit__", self._conn.rank, seq,
+            deadline_s=deadline_s)
+        return rmeta
+
+    def serve_ctl(self, **meta):
+        """Management/chaos channel to a serving host (ring-aware chaos:
+        arm a fault spec in ONE host mid-storm)."""
+        seq = next(self._seq)
+        frame = _integrity.seal_bytes(b"", key="__serve_ctl__", seq=seq,
+                                      worker=self._conn.rank)
+        rmeta, _ = self._transmit(dict(meta, hop="serve_ctl"), frame,
+                                  "serve_pull", "__serve_ctl__",
+                                  self._conn.rank, seq)
+        return rmeta
+
     def pull(self, key, timeout=None):
         return self.pull_versioned(key, timeout)[0]
 
@@ -1317,6 +1469,23 @@ class TcpEndpoint(Endpoint):
         rmeta, value = self._request_verified(OP_KV_PULL, {"key": key})
         return np.array(value, copy=True), rmeta.get("version", -1)
 
+    def serve_pull(self, since_id=None, keys=None, max_stale_s=None,
+                   deadline_s=None):
+        try:
+            _meta, reply = self._request_verified(
+                OP_SERVE_PULL, {"since_id": since_id, "keys": keys,
+                                "max_stale_s": max_stale_s},
+                deadline_s=deadline_s)
+        except (TransportError, _integrity.AckLost) as e:
+            # a dead/partitioned/wedged serving peer degrades through
+            # the plane's ordinary routing signal, not a client crash —
+            # AckLost is how a PARTITIONED peer surfaces (the deadline,
+            # not a socket error), and it must fail over like one
+            from ..server.serving import ServeUnavailable
+            raise ServeUnavailable(
+                f"serving peer {self.peer} unreachable: {e}") from None
+        return reply
+
     def pull_state(self):
         _meta, payload = self._request_verified(OP_STATE, {})
         from ..utils.checkpoint import unpack_state
@@ -1333,12 +1502,30 @@ class TcpEndpoint(Endpoint):
 def _map_remote_error(meta: dict) -> BaseException:
     kind = meta.get("kind", "")
     msg = meta.get("error", "remote error")
+    if kind == "ServeUnavailable":
+        from ..server.serving import ServeUnavailable
+        return ServeUnavailable(msg)
     if kind == "TimeoutError":
         return TimeoutError(msg)
     if kind in ("RuntimeError", "KeyError", "ValueError"):
         return {"RuntimeError": RuntimeError, "KeyError": KeyError,
                 "ValueError": ValueError}[kind](msg)
     return TransportRemoteError(f"{kind}: {msg}")
+
+
+class RemoteServing:
+    """Adapter giving a :class:`TcpEndpoint` the ``ServingPlane.pull``
+    call shape, so a :class:`~byteps_tpu_torch.server.serve_client.
+    PullClient` (staleness bounds, local cache, delta accounting)
+    consumes a REMOTE serving endpoint exactly as it consumes the
+    in-process plane."""
+
+    def __init__(self, endpoint: Endpoint):
+        self._ep = endpoint
+
+    def pull(self, since_id=None, keys=None, record=True, hedge=None):
+        del record, hedge  # hotness/hedging live server-side
+        return self._ep.serve_pull(since_id=since_id, keys=keys)
 
 
 # -- sharded routing --------------------------------------------------------
@@ -1439,7 +1626,8 @@ def serve(rank: Optional[int] = None, host: Optional[str] = None,
           port: Optional[int] = None, **attach) -> TransportServer:
     """Start (or return) THIS process's transport server, listening at
     its host-map/port-base address, and attach local receivers
-    (``engine=``, ``kv=``, ``state_provider=``)."""
+    (``engine=``, ``kv=``, ``serving=``, ``tier=``,
+    ``state_provider=``)."""
     from ..common.config import get_config
     cfg = get_config()
     rank = cfg.host_id if rank is None else int(rank)
@@ -1486,6 +1674,7 @@ def endpoint_to(rank: int, **conn_kw) -> Endpoint:
         srv = local_server(rank)
         if srv is not None:
             return LoopbackEndpoint(engine=srv.engine, kv=srv.kv,
+                                    serving=srv.serving,
                                     state_provider=srv.state_provider)
     with _endpoints_lock:
         ep = _endpoints.get(rank)

@@ -27,9 +27,40 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
   - BYTEPS_KEY_HASH_FN / BYTEPS_ENABLE_MIXED_MODE /
     BYTEPS_MIXED_MODE_BOUND              -> key_hash_fn / enable_mixed_mode
                                             / mixed_mode_bound
-  - BYTEPS_SERVE_REPLICAS / BYTEPS_SERVE_HOT_KEYS -> serve_replicas /
-                                            serve_hot_keys (the
-                                            ServerAssigner's replica sets)
+  - BYTEPS_SERVE_REPLICAS / _RETENTION / _HOT_KEYS / _MAX_STALENESS /
+    _CUT_INTERVAL / _HEDGE_MS            -> serve_replicas /
+                                            serve_retention /
+                                            serve_hot_keys /
+                                            serve_max_staleness_s /
+                                            serve_cut_interval_s /
+                                            serve_hedge_ms (the serving
+                                            plane, server/serving.py)
+  - BYTEPS_SERVE_TIER_VNODES / _REPLICAS / _RATE / _BURST / _QUEUE_HIGH /
+    _TTL / _MIN_HOSTS / _MAX_HOSTS / _COOLDOWN / _BUS
+                                         -> serve_tier_vnodes /
+                                            serve_tier_replicas /
+                                            serve_tier_rate /
+                                            serve_tier_burst /
+                                            serve_tier_queue_high /
+                                            serve_tier_ttl_s /
+                                            serve_tier_min_hosts /
+                                            serve_tier_max_hosts /
+                                            serve_tier_cooldown_s /
+                                            serve_tier_bus (the serving
+                                            tier, server/serving_tier.py)
+  - BYTEPS_RECONCILE_INTERVAL / _FLAP_LIMIT / _FLAP_WINDOW /
+    _DRAIN_DEADLINE / _BAN               -> reconcile_interval_s /
+                                            reconcile_flap_limit /
+                                            reconcile_flap_window_s /
+                                            reconcile_drain_deadline_s /
+                                            reconcile_ban_s
+                                            (launcher/reconciler.py)
+  - BYTEPS_DURABLE_DIR / BYTEPS_WAL_FSYNC / _FSYNC_INTERVAL /
+    _SEGMENT_BYTES / _RETAIN             -> durable_dir / wal_fsync /
+                                            wal_fsync_interval_s /
+                                            wal_segment_bytes /
+                                            wal_retain_snapshots
+                                            (server/wal.py)
   - BYTEPS_INTEGRITY / BYTEPS_INTEGRITY_LOOPBACK /
     BYTEPS_INTEGRITY_MAX_RETRANSMITS / BYTEPS_NONFINITE_POLICY
                                          -> integrity_on /
@@ -121,8 +152,8 @@ installed with :func:`set_config`, as in the JAX package.
 directory under the system's temporary directory, never the working
 directory.
 
-Not ported: the knobs of the planes the port does not have yet
-(serving, durability).
+The serving, tier, reconciler and durable knobs carry the JAX
+``Config``'s defaults, environment names and validation messages.
 """
 
 from __future__ import annotations
@@ -287,6 +318,40 @@ class Config:
     mixed_mode_bound: int = 101
     serve_replicas: int = 1          # hot-key replica set size
     serve_hot_keys: int = 8          # keys eligible for a replica set
+
+    # --- parameter serving (server/serving.py, server/serve_client.py) ---
+    serve_retention: int = 8         # snapshots kept per ring
+    serve_max_staleness_s: float = 0.5   # PullClient's default bound
+    # minimum seconds between write-driven snapshot cuts (0 = every
+    # consistent write point)
+    serve_cut_interval_s: float = 0.05
+    serve_hedge_ms: float = 0.0      # fixed hedge delay; 0 = adaptive
+
+    # --- distributed serving tier (server/serving_tier.py) ---
+    serve_tier_vnodes: int = 64      # ring points per serving host
+    serve_tier_replicas: int = 2     # hosts each key is shipped to
+    serve_tier_rate: float = 0.0     # admission refill, pulls/s (0 = off)
+    serve_tier_burst: float = 0.0    # bucket capacity (0 = 1 s of refill)
+    serve_tier_queue_high: int = 64  # in-flight pulls before shedding
+    serve_tier_ttl_s: float = 10.0   # directory registration TTL
+    serve_tier_min_hosts: int = 1    # autoscaler floor
+    serve_tier_max_hosts: int = 8    # autoscaler ceiling
+    serve_tier_cooldown_s: float = 5.0   # between autoscaler decisions
+    serve_tier_bus: str = ""         # "host:port" of the membership bus
+
+    # --- fleet reconciler (launcher/reconciler.py) ---
+    reconcile_interval_s: float = 0.5
+    reconcile_flap_limit: int = 3    # crashes in the window -> ban
+    reconcile_flap_window_s: float = 30.0
+    reconcile_drain_deadline_s: float = 10.0
+    reconcile_ban_s: float = 30.0    # directory ban of a flapping id
+
+    # --- durable state plane (server/wal.py) ---
+    durable_dir: str = ""            # empty = durability off
+    wal_fsync: str = "always"        # always | interval | off
+    wal_fsync_interval_s: float = 0.05
+    wal_segment_bytes: int = 4 << 20
+    wal_retain_snapshots: int = 2
 
     # --- data integrity (common/integrity.py) ---
     # CRC32C envelopes and the non-finite quarantine on every host hop of
@@ -506,8 +571,68 @@ class Config:
         if self.serve_replicas < 1:
             raise ValueError("serve_replicas must be >= 1 (1 = primary "
                              "only, no replication)")
+        if self.serve_retention < 1:
+            raise ValueError("serve_retention must be >= 1 (at least the "
+                             "latest snapshot must stay pullable)")
         if self.serve_hot_keys < 0:
             raise ValueError("serve_hot_keys must be >= 0")
+        if self.serve_max_staleness_s < 0:
+            raise ValueError("serve_max_staleness_s must be >= 0")
+        if self.serve_cut_interval_s < 0:
+            raise ValueError("serve_cut_interval_s must be >= 0")
+        if self.serve_hedge_ms < 0:
+            raise ValueError("serve_hedge_ms must be >= 0 (0 = adaptive)")
+        if self.serve_tier_vnodes < 1:
+            raise ValueError("serve_tier_vnodes must be >= 1")
+        if self.serve_tier_replicas < 1:
+            raise ValueError("serve_tier_replicas must be >= 1 (the "
+                             "owning host)")
+        if self.serve_tier_rate < 0:
+            raise ValueError("serve_tier_rate must be >= 0 (0 = no token "
+                             "bucket, queue watermark only)")
+        if self.serve_tier_burst < 0:
+            raise ValueError("serve_tier_burst must be >= 0 (0 = one "
+                             "second of refill)")
+        if self.serve_tier_queue_high < 1:
+            raise ValueError("serve_tier_queue_high must be >= 1")
+        if self.serve_tier_ttl_s <= 0:
+            raise ValueError("serve_tier_ttl_s must be positive — a "
+                             "non-expiring directory entry would pin a "
+                             "dead host in every client's ring forever")
+        if self.serve_tier_min_hosts < 1:
+            raise ValueError("serve_tier_min_hosts must be >= 1")
+        if self.serve_tier_max_hosts < self.serve_tier_min_hosts:
+            raise ValueError("serve_tier_max_hosts must be >= "
+                             "serve_tier_min_hosts")
+        if self.serve_tier_cooldown_s < 0:
+            raise ValueError("serve_tier_cooldown_s must be >= 0")
+        if self.reconcile_interval_s <= 0:
+            raise ValueError("reconcile_interval_s must be positive")
+        if self.reconcile_flap_limit < 1:
+            raise ValueError("reconcile_flap_limit must be >= 1 (the "
+                             "crash count that triggers the ban)")
+        if self.reconcile_flap_window_s <= 0:
+            raise ValueError("reconcile_flap_window_s must be positive")
+        if self.reconcile_drain_deadline_s <= 0:
+            raise ValueError("reconcile_drain_deadline_s must be "
+                             "positive — a 0 deadline would kill every "
+                             "drain before its first in-flight pull "
+                             "finished")
+        if self.reconcile_ban_s < 0:
+            raise ValueError("reconcile_ban_s must be >= 0")
+        if self.wal_fsync not in ("always", "interval", "off"):
+            raise ValueError(
+                "wal_fsync must be one of always|interval|off — an "
+                "unknown policy would silently weaken the durability "
+                "guarantee the operator thinks they have")
+        if self.wal_fsync_interval_s <= 0:
+            raise ValueError("wal_fsync_interval_s must be positive")
+        if self.wal_segment_bytes < 4096:
+            raise ValueError("wal_segment_bytes must be >= 4096 — a "
+                             "sub-page segment rolls on every record")
+        if self.wal_retain_snapshots < 1:
+            raise ValueError("wal_retain_snapshots must be >= 1 (the "
+                             "latest durable cut must survive pruning)")
         if self.nonfinite_policy not in ("raise", "skip", "zero"):
             raise ValueError(
                 f"BYTEPS_NONFINITE_POLICY must be raise, skip, or zero — "
@@ -597,6 +722,40 @@ class Config:
             mixed_mode_bound=_env_int("BYTEPS_MIXED_MODE_BOUND", 101),
             serve_replicas=_env_int("BYTEPS_SERVE_REPLICAS", 1),
             serve_hot_keys=_env_int("BYTEPS_SERVE_HOT_KEYS", 8),
+            serve_retention=_env_int("BYTEPS_SERVE_RETENTION", 8),
+            serve_max_staleness_s=_env_float("BYTEPS_SERVE_MAX_STALENESS",
+                                             0.5),
+            serve_cut_interval_s=_env_float("BYTEPS_SERVE_CUT_INTERVAL",
+                                            0.05),
+            serve_hedge_ms=_env_float("BYTEPS_SERVE_HEDGE_MS", 0.0),
+            serve_tier_vnodes=_env_int("BYTEPS_SERVE_TIER_VNODES", 64),
+            serve_tier_replicas=_env_int("BYTEPS_SERVE_TIER_REPLICAS", 2),
+            serve_tier_rate=_env_float("BYTEPS_SERVE_TIER_RATE", 0.0),
+            serve_tier_burst=_env_float("BYTEPS_SERVE_TIER_BURST", 0.0),
+            serve_tier_queue_high=_env_int(
+                "BYTEPS_SERVE_TIER_QUEUE_HIGH", 64),
+            serve_tier_ttl_s=_env_float("BYTEPS_SERVE_TIER_TTL", 10.0),
+            serve_tier_min_hosts=_env_int("BYTEPS_SERVE_TIER_MIN_HOSTS", 1),
+            serve_tier_max_hosts=_env_int("BYTEPS_SERVE_TIER_MAX_HOSTS", 8),
+            serve_tier_cooldown_s=_env_float(
+                "BYTEPS_SERVE_TIER_COOLDOWN", 5.0),
+            serve_tier_bus=_env_str("BYTEPS_SERVE_TIER_BUS", ""),
+            reconcile_interval_s=_env_float("BYTEPS_RECONCILE_INTERVAL",
+                                            0.5),
+            reconcile_flap_limit=_env_int("BYTEPS_RECONCILE_FLAP_LIMIT",
+                                          3),
+            reconcile_flap_window_s=_env_float(
+                "BYTEPS_RECONCILE_FLAP_WINDOW", 30.0),
+            reconcile_drain_deadline_s=_env_float(
+                "BYTEPS_RECONCILE_DRAIN_DEADLINE", 10.0),
+            reconcile_ban_s=_env_float("BYTEPS_RECONCILE_BAN", 30.0),
+            durable_dir=_env_str("BYTEPS_DURABLE_DIR", ""),
+            wal_fsync=_env_str("BYTEPS_WAL_FSYNC",
+                               "always").strip().lower(),
+            wal_fsync_interval_s=_env_float("BYTEPS_WAL_FSYNC_INTERVAL",
+                                            0.05),
+            wal_segment_bytes=_env_int("BYTEPS_WAL_SEGMENT_BYTES", 4 << 20),
+            wal_retain_snapshots=_env_int("BYTEPS_WAL_RETAIN", 2),
             integrity_on=_env_bool("BYTEPS_INTEGRITY", True),
             integrity_loopback=_env_bool("BYTEPS_INTEGRITY_LOOPBACK", True),
             integrity_max_retransmits=_env_int(

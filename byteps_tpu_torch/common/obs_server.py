@@ -9,20 +9,23 @@
   bytes in flight, push_pull MB/s) refreshed at scrape time;
 - ``/healthz``: JSON liveness (membership epoch, engine run state, the
   age of the last heartbeat reply when ``init()`` or the membership
-  armed the heartbeat, push_pull speed, current step, and under elastic
-  membership who hosts the control plane); HTTP 503 with
+  armed the heartbeat, push_pull speed, current step, under elastic
+  membership who hosts the control plane, and one line each for the
+  serving planes and tier, the durable journals and the fleet
+  reconciler of this process); HTTP 503 with
   ``degraded: true`` and
   the firing rules while any ``common/health.py`` alert is active;
 - ``/debug/state``: JSON internals (scheduler, planner, last step, the
   server engines' quarantined rounds, the stores' dedup floors, the TCP
-  transport's connections and servers, the slowness scores, the flight
-  recorder's fill, the tracer, the time-series window, the health
-  alerts, the membership view and its failover replica);
+  transport's connections and servers, the serving planes, the serving
+  tier (publisher or host), the durable journals, the fleet reconciler,
+  the slowness scores, the flight recorder's fill, the tracer, the
+  time-series window, the health alerts, the membership view and its
+  failover replica);
 - ``/timeseries``: the raw time-series ring.
 
 Both documents carry an ``omitted`` list naming the sections of the JAX
-package's documents that the port leaves out until their planes exist:
-``serving``, ``wal`` and ``reconciler``.
+package's documents that the port leaves out: none are left.
 
 Started once per process by ``init()`` and not stopped by
 ``shutdown()``: an elastic suspend/resume keeps the endpoint and its
@@ -68,8 +71,31 @@ def _refresh_live_gauges() -> None:
     # divergence-prone copy of the same figure)
 
 
-# sections of the JAX package's documents that wait for their planes
-OMITTED = ("serving", "wal", "reconciler")
+# sections of the JAX package's documents that the port leaves out
+OMITTED: tuple = ()
+
+
+def _plane_health() -> dict:
+    """The serving, durable and reconciler lines of ``/healthz``: a few
+    fields of each registered component's debug state."""
+    serving = []
+    for kind in ("serving_plane", "serving_tier"):
+        for c in _metrics.components(kind):
+            st = c.debug_state()
+            serving.append({"kind": st["kind"],
+                            "snapshot_id": st.get("snapshot_id")})
+    wal = []
+    for c in _metrics.components("wal"):
+        st = c.debug_state()
+        wal.append({"lsn": st["lsn"], "fsync": st["fsync"],
+                    "checkpoint_lsn": st.get("checkpoint_lsn"),
+                    "lag_bytes": st["lag_bytes"]})
+    reconciler = []
+    for c in _metrics.components("reconciler"):
+        st = c.debug_state()
+        reconciler.append({k: st[k] for k in ("supervised", "draining",
+                                              "banned")})
+    return {"serving": serving, "wal": wal, "reconciler": reconciler}
 
 
 def healthz() -> dict:
@@ -101,6 +127,7 @@ def healthz() -> dict:
                                  if hb is not None else None),
         "omitted": list(OMITTED),
     }
+    doc.update(_plane_health())
     if m is not None:
         # who hosts the control plane right now (coordinator failover
         # visibility: bps_top and operators read this)
@@ -141,6 +168,21 @@ def debug_state() -> dict:
                            for c in _metrics.components("server_engine")],
         "kv_stores": [c.debug_state()
                       for c in _metrics.components("kv_store")],
+        "serving_planes": [c.debug_state()
+                           for c in _metrics.components("serving_plane")],
+        # the serving tier (server/serving_tier.py): the publisher's ring
+        # and ship state on a trainer, the host core's staged, committed
+        # and shed state on a serving host
+        "serving_tier": [c.debug_state()
+                         for c in _metrics.components("serving_tier")],
+        # the fleet reconciler (launcher/reconciler.py): supervised
+        # hosts, pending crash-loop restarts, draining set, ban list
+        "reconciler": [c.debug_state()
+                       for c in _metrics.components("reconciler")],
+        # the durable state plane (server/wal.py): journal position,
+        # fsync policy, live segments, cold-start replay lag
+        "wal": [c.debug_state()
+                for c in _metrics.components("wal")],
         # the TCP transport (comm/transport.py): per-connection state
         # machines and per-server attachment and peer views
         "transport": {

@@ -53,9 +53,15 @@ rejoin and reconcile, and :func:`resume` with nothing suspended starts
 an engine, as the JAX one does, which is how a rejoining process comes
 up.  :func:`membership_epoch` reads the epoch and
 :func:`cluster_metrics` every live rank's snapshot in one bus round
-trip (or from the gossip table, bus-free).  Not ported: the serving
-entry points (``start_serving``, ``start_serving_tier``) and the
-durable store.
+trip (or from the gossip table, bus-free).
+
+The serving and durability planes (JAX ``api.py:130-150, 384-420``):
+with ``BYTEPS_DURABLE_DIR`` set, ``init()`` opens the process-lifetime
+durable store (``server/wal.py``) on the engine's device — on a cold
+start it restores the last cut and replays the journal before any push
+lands — and :func:`durable_kv_store` returns it; :func:`start_serving`
+and :func:`start_serving_tier` stand up the read plane over a store,
+with or without an engine.
 """
 
 from __future__ import annotations
@@ -141,6 +147,17 @@ def _start(config: Optional[Config], device, names: List[str]) -> None:
             raise
         _health.configure(cfg)
         _ts.ensure_started(cfg)
+        if cfg.durable_dir:
+            # process-lifetime like the endpoint: an elastic
+            # suspend/resume must not close and re-replay the journal
+            from ..server import wal as _wal
+            try:
+                _wal.ensure_process_store(cfg, comm.device)
+            except BaseException:
+                _stop_heartbeat()
+                engine.shutdown(wait=False)
+                comm.close()
+                raise
         for name in names:
             engine.registry.declare(name)
         _engine = engine
@@ -172,6 +189,45 @@ def _stop_heartbeat() -> None:
 
 def initialized() -> bool:
     return _engine is not None
+
+
+def durable_kv_store():
+    """The process-lifetime durable trainer-side KVStore that
+    :func:`init` opens when ``BYTEPS_DURABLE_DIR`` is set
+    (``server/wal.py``); None when the durable plane is off."""
+    import sys
+    wal_mod = sys.modules.get("byteps_tpu_torch.server.wal")
+    return None if wal_mod is None else wal_mod.process_store()
+
+
+def start_serving(store, **kwargs):
+    """Stand up the parameter-serving plane over ``store`` (a
+    :class:`~byteps_tpu_torch.server.kv_store.KVStore`): versioned
+    snapshots, delta pulls, hot-key replicas (``server/serving.py``).
+    Keyword arguments go to ``ServingPlane`` (``replicas``,
+    ``retention``, ``hot_keys``, ``cut_interval_s``, ``device``);
+    ``cut_interval_s`` defaults to ``BYTEPS_SERVE_CUT_INTERVAL``, so the
+    plane is write-driven (pass ``cut_interval_s=None`` for manual
+    ``cut()``).  Build consumers with ``PullClient``."""
+    from ..common.config import get_config
+    from ..server.serving import ServingPlane
+    kwargs.setdefault("cut_interval_s", get_config().serve_cut_interval_s)
+    return ServingPlane(store, **kwargs)
+
+
+def start_serving_tier(store, **kwargs):
+    """Stand up the distributed serving tier over ``store``
+    (``server/serving_tier.py``): serving hosts in processes of their
+    own (``python -m byteps_tpu_torch.server.serve_host``) behind the
+    TCP transport, fed the cuts' changed keys along the consistent-hash
+    ring.  Keyword arguments go to ``ServingTier`` (``bus``,
+    ``static_hosts``, ``replicas``, ``retention``, ``cut_interval_s``,
+    ...); ``cut_interval_s`` defaults as in :func:`start_serving`.
+    Build consumers with ``tier.client()``."""
+    from ..common.config import get_config
+    from ..server.serving_tier import ServingTier
+    kwargs.setdefault("cut_interval_s", get_config().serve_cut_interval_s)
+    return ServingTier(store, **kwargs)
 
 
 def shutdown(wait: bool = True) -> None:

@@ -101,11 +101,11 @@ fails with ``ABORTED: stale membership epoch`` (:class:`StaleEpochError`),
 counted in ``membership.stale_chunks_dropped`` with an
 ``engine.stale_chunk`` flight event.
 
-Not ported:
-- AOT warming: eager PyTorch compiles no program per shape, and the
-  CUDA kernels are built once per process at their first launch, so
-  there is nothing to warm (the ``compile`` attribution reads 0);
-- ``export_shards`` (serving cuts).
+Not ported: AOT warming.  Eager PyTorch compiles no program per shape,
+and the CUDA kernels are built once per process at their first launch,
+so there is nothing to warm (the ``compile`` attribution reads 0).  A
+sharded-update slot's ``export_shards`` feeds the serving tier's
+shard-published cuts (``server/serving_tier.py``).
 """
 
 from __future__ import annotations

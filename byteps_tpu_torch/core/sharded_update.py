@@ -70,6 +70,7 @@ import math
 import time
 from typing import Any, Dict, Optional, Tuple, Type
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -326,6 +327,34 @@ class ShardedUpdateSlot:
                     torch.as_tensor(value).detach().reshape(-1))
             else:
                 self.master.copy_(self._my_block(value, torch.float32))
+
+    def export_shards(self):
+        """Per-owner slices of the master for a shard-published serving
+        cut (``ServingTier``): ``[(owner_block, lo, arr)]`` sorted by
+        offset, each ``arr`` a host numpy copy of block ``[lo, lo + C)``
+        trimmed to the logical length and cast to the declared dtype.
+        A rank exports the blocks it holds — its own, or every block
+        under a parameter codec, whose whole vector each rank keeps — so
+        no collective runs and, without a codec, no full-vector buffer is
+        made (the JAX slot reads its addressable shards the same way)."""
+        if self.comm.device.type == "cuda":
+            # the dispatcher steps the master on the engine stream
+            torch.cuda.synchronize(self.comm.device)
+        if self.full is not None:
+            held = [(b, self.full[b * self.C:(b + 1) * self.C])
+                    for b in range(self.comm.local_size)]
+        else:
+            held = [(self.block, self.master)]
+        out = []
+        for b, block in held:
+            lo = b * self.C
+            if lo >= self.n:
+                continue
+            hi = min(lo + self.C, self.n)
+            t = block[:hi - lo].detach().to(self.dtype).cpu()
+            out.append((b, lo, np.array(t.numpy(), copy=True)))
+        out.sort(key=lambda e: e[1])
+        return out
 
     def params(self) -> torch.Tensor:
         """The current parameters: the gathered master, shaped and cast

@@ -2534,6 +2534,11 @@ class ElasticMembership:
                 self.server_engine.set_membership_epoch(view.epoch)
             if self.kv_store is not None:
                 self.kv_store.set_membership_epoch(view.epoch)
+            # serving plane: re-clamp replica endpoints + rebuild
+            # replica sets for the new world (a dead replica's hot keys
+            # degrade to primary reads; never an erroring read path)
+            from ..server import serving as _serving
+            _serving.notify_world_change(view)
             self._ensure_bus(view, prev_coordinator=old.coordinator)
             if view.coordinator != old.coordinator:
                 # the clock reference moved with the coordinator: later

@@ -35,10 +35,14 @@ A survivor stuck *inside* a
 collective cannot run this path (its thread is captive in NCCL): that
 case stays with the step watchdog's exit.
 
-Not ported yet: the durable-store probe and restore of the JAX
-coordinator (``byteps_tpu/fault/recovery.py:171-215``), which wait for
-``server/wal.py`` (ROADMAP Queue A item 4): ``RecoveryResult.durable``
-is always None here.
+With ``BYTEPS_DURABLE_DIR`` set the durable plane (``server/wal.py``)
+rides the recovery as in the JAX coordinator: the probe BEFORE suspend
+notes whether this process holds an open durable store (resume's
+``init()`` opens one itself, so a later probe would always see one); a
+survivor keeps its live store and hardens the journal's tail (under
+``wal_fsync=interval/off`` the tail lives only in memory), a process
+without one rebuilds the store from the snapshot and the journal.
+``RecoveryResult.durable`` carries the journal's recovery statistics.
 """
 
 from __future__ import annotations
@@ -66,8 +70,8 @@ class RecoveryResult:
     step: Optional[int]         # restored checkpoint step (None: no ckpt)
     state: Any                  # restored pytree (template when no ckpt)
     elapsed_s: float
-    durable: Optional[dict] = None  # the durable plane's stats: None
-    #                                   until server/wal.py is ported
+    durable: Optional[dict] = None  # the durable plane's recovery stats
+    #                                   (None when the plane is off)
 
 
 class RecoveryCoordinator:
@@ -157,6 +161,14 @@ class RecoveryCoordinator:
         get_logger().error(
             "recovery: rank(s) %s lost — drain/suspend, resume on %d "
             "worker(s), restore from checkpoint", sorted(stale), k)
+        # durable-plane survivor probe — BEFORE suspend/resume: resume's
+        # init() opens the durable process store itself, so probing
+        # afterwards would always look like a survivor
+        from ..common.config import get_config
+        dur_survivor = False
+        if get_config().durable_dir:
+            from ..server import wal as _wal
+            dur_survivor = _wal.process_store() is not None
         if api.initialized():
             api.suspend()          # drains handles, stops engine+heartbeat
         if not self.rearm_heartbeat:
@@ -172,9 +184,32 @@ class RecoveryCoordinator:
                 self.checkpoint_manager.reload()
             step, state = self.checkpoint_manager.restore_latest(
                 self.template)
+        # the durable plane: without a surviving store in memory, the
+        # journal and the snapshot cuts on disk hold the KV state; a
+        # survivor's live store is the authority (its journal tail may
+        # exist only in memory) and keeps it.  Non-fatal either way: the
+        # in-memory recovery above stands, the store starts empty.
+        dur_stats = None
+        if get_config().durable_dir:
+            from ..server import wal as _wal
+            try:
+                _store, dur = _wal.ensure_process_store(
+                    device=api.device() if api.initialized() else "cuda")
+                if dur_survivor:
+                    dur.wal.sync()
+                    counters.inc("recovery.durable_kept")
+                else:
+                    counters.inc("recovery.durable_restore")
+                dur_stats = dict(dur.recover_stats)
+            except Exception:  # noqa: BLE001 — degraded, not dead
+                counters.inc("recovery.durable_restore_failed")
+                get_logger().error(
+                    "recovery: durable KV restore failed — continuing "
+                    "with an empty store", exc_info=True)
         elapsed = time.monotonic() - t0
         result = RecoveryResult(failed_ranks=set(stale), num_workers=k,
-                                step=step, state=state, elapsed_s=elapsed)
+                                step=step, state=state, elapsed_s=elapsed,
+                                durable=dur_stats)
         self._record_span(result, t0)
         counters.inc("recovery.completed")
         _flight.record("recovery", failed_ranks=sorted(stale),

@@ -48,17 +48,33 @@ the chaos ack-drop), the raw value summed on the host where
 ``push_delta`` sums it, a wire frame decoded on the store's device.  A
 push joins the caller's captured trace or samples one at ``kv.push``
 and records a ``kv.push`` span (the envelope's wire hop adds its own).
-Not ported: the write subscription, ``write_batch``, ``publish_key``,
-``snapshot_refs`` and the WAL hooks (the serving and durability planes,
-ROADMAP Queue A item 4).
+
+The serving and durability planes hook in as in the JAX store:
+- a write subscription (:meth:`subscribe`, :meth:`write_batch`): every
+  delta path's landing tail returns the landed version and the push
+  notifies subscribers OUTSIDE the lock, deferred to a batch's exit;
+- :meth:`snapshot_refs` marks every key copy-on-write and takes the
+  generation under one lock hold, and returns read-only numpy views of
+  the host tensors (``t.numpy()``, not writeable).  Every path that
+  mutates a stored tensor in place (``inplace_add``, the non-finite
+  screen's ``copy_``/``nan_to_num``) runs after the COW clone of
+  :meth:`_push_delta_locked`, so a cut never tears;
+- :meth:`publish_key` overwrites a key whole (the shard-published cut);
+- the journal (``server/wal.py``, :meth:`bind_wal`): ``init``,
+  ``publish``, ``epoch``, every ``delta`` and ``clear`` are appended
+  BEFORE they apply, as numpy arrays (the journal's records hold no
+  torch object, so the JAX package replays the port's journal and the
+  reverse); :meth:`durable_state`, :meth:`restore_durable_state` and
+  :meth:`apply_wal_record` are the recovery side.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,11 +118,25 @@ def host_view(value):
     return np.asarray(value)
 
 
-def decode(comp, data: bytes, device: torch.device) -> torch.Tensor:
-    """A codec's wire frame decoded on ``device``, back on the host
-    (flat, in the codec's dtype)."""
+def host_numpy(value) -> np.ndarray:
+    """``value`` as a host numpy array (a CPU tensor's own memory, no
+    copy): what the journal and the durable cuts hold, in both
+    packages."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def decode_on(comp, data: bytes, device: torch.device) -> torch.Tensor:
+    """A codec's wire frame decoded on ``device`` (flat, in the codec's
+    dtype): the JAX package's ``decompress(wire_decode(data))``."""
     payload = {k: v.to(device) for k, v in comp.wire_decode(data).items()}
-    return comp.decompress(payload).reshape(-1).cpu()
+    return comp.decompress(payload).reshape(-1)
+
+
+def decode(comp, data: bytes, device: torch.device) -> torch.Tensor:
+    """A codec's wire frame decoded on ``device``, back on the host."""
+    return decode_on(comp, data, device).cpu()
 
 
 def _copy_outside_lock(ref: torch.Tensor) -> torch.Tensor:
@@ -130,6 +160,11 @@ class KVStore:
         # it replaces the tensor with a fresh copy before summing, so the
         # outstanding reference stays frozen
         self._cow: set = set()
+        # write-subscription hook (server/serving.py SnapshotStore):
+        # callbacks fired OUTSIDE the lock after a version advances,
+        # deferred to batch exit inside write_batch
+        self._subs: List[Callable[[str, int], None]] = []
+        self._tls = threading.local()
         self.wire_bytes = 0         # compressed bytes that LANDED (summed)
         self.wire_bytes_wasted = 0  # retransmitted + duplicate-dropped bytes
         # per-(key, worker) highest sequence token seen — the dedup floor
@@ -138,6 +173,13 @@ class KVStore:
         # membership-epoch gate: deltas stamped with another epoch are
         # dropped, not summed
         self._membership_epoch = _membership.current_epoch()
+        # store generation, bumped by clear(): a serving delta pull whose
+        # base predates a clear is answered full
+        self._generation = 0
+        # durable state plane (server/wal.py): when bound, every
+        # mutation is journaled BEFORE it applies; None = in memory only
+        self._durable = None
+        self._wal = None
         # force the one-time native build/load here, NOT under self._lock
         # in push_delta (the first load may g++-compile core.cc)
         _native_load()
@@ -171,6 +213,158 @@ class KVStore:
                     "dedup_floors": {f"{k}:{w}": s for (k, w), s
                                      in worst[:DEBUG_FLOORS_MAX]}}
 
+    # -- write subscription (serving-plane snapshot cutting) ----------------
+
+    def subscribe(self, fn: Callable[[str, int], None]) -> None:
+        """Register a write hook: ``fn(key, new_version)`` runs after a
+        delta lands, OUTSIDE the store lock; inside a
+        :meth:`write_batch` notifications are deferred to its exit."""
+        with self._lock:
+            self._subs.append(fn)
+
+    def unsubscribe(self, fn: Callable[[str, int], None]) -> None:
+        """Detach a write hook (subscribers are strongly referenced);
+        unknown hooks are ignored."""
+        with self._lock:
+            try:
+                self._subs.remove(fn)
+            except ValueError:
+                pass
+
+    @contextlib.contextmanager
+    def write_batch(self):
+        """Group several pushes into one consistent point: subscriber
+        notifications for everything pushed inside the block fire at its
+        exit.  Per writer thread, reentrant."""
+        depth = getattr(self._tls, "depth", 0)
+        if depth == 0:
+            self._tls.pending = []
+        self._tls.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._tls.depth = depth
+            if depth == 0:
+                pending, self._tls.pending = self._tls.pending, []
+                for key, version in pending:
+                    self._fire(key, version)
+
+    def _notify(self, key: str, version: int) -> None:
+        """Caller does NOT hold the lock."""
+        if not self._subs:
+            return
+        if getattr(self._tls, "depth", 0) > 0:
+            self._tls.pending.append((key, version))
+            return
+        self._fire(key, version)
+
+    def _fire(self, key: str, version: int) -> None:
+        with self._lock:
+            subs = list(self._subs)
+        for fn in subs:
+            try:
+                fn(key, version)
+            except Exception:  # noqa: BLE001 — a subscriber must never
+                # fail a push that already landed
+                _log.error("kv store: write subscriber raised for %r",
+                           key, exc_info=True)
+
+    # -- durable state plane (server/wal.py) --------------------------------
+
+    def bind_wal(self, durable) -> None:
+        """Arm journaling (``wal.attach`` calls it AFTER recovery: a
+        replay must not journal itself again)."""
+        with self._lock:
+            self._durable = durable
+            self._wal = durable.wal
+
+    def durable_state(self) -> dict:
+        """The restorable state as one consistent cut under ONE lock
+        hold: numpy copies of the values, versions, generation,
+        membership epoch, dedup floors and the journal position."""
+        with self._lock:
+            state = {
+                "arrays": {k: host_numpy(t).copy()
+                           for k, t in self._store.items()},
+                "versions": dict(self._versions),
+                "generation": self._generation,
+                "epoch": self._membership_epoch,
+                "seen": dict(self._seen),
+            }
+            if self._wal is not None:
+                state["wal_lsn"] = self._wal.lsn
+            return state
+
+    def restore_durable_state(self, state: dict) -> None:
+        """Adopt a durable cut wholesale (cold start; no subscriber
+        notifications)."""
+        with self._lock:
+            self._store = {k: torch.from_numpy(np.array(a, copy=True))
+                           for k, a in state["arrays"].items()}
+            self._versions = dict(state["versions"])
+            self._seen = dict(state.get("seen") or {})
+            self._generation = int(state.get("generation", 0))
+            self._membership_epoch = int(
+                state.get("epoch", self._membership_epoch))
+            self._cow.clear()
+
+    def apply_wal_record(self, kind: str, data) -> None:
+        """Replay ONE journaled mutation (``wal.DurableKV._recover``):
+        deltas merge through the normal path unconditionally (the stale
+        gate passed at journal time) and their ``(worker_id, seq)``
+        token rebuilds the dedup floor."""
+        if kind == "delta":
+            key, delta, worker_id, seq = data
+            with self._lock:
+                if key not in self._store:
+                    counters.inc("wal.replay_skipped")
+                    _log.error("wal replay: delta for unknown key %r "
+                               "skipped (journal hole ahead of a lost "
+                               "init record)", key)
+                    return
+                self._push_delta_locked(key, np.asarray(delta))
+                self._mark_seen(key, worker_id, seq)
+        elif kind == "init":
+            key, value = data
+            with self._lock:
+                if key not in self._store:
+                    self._store[key] = torch.from_numpy(
+                        np.array(value, copy=True))
+                    self._versions[key] = 0
+        elif kind == "publish":
+            key, value = data
+            with self._lock:
+                version = 0 if key not in self._store \
+                    else self._versions[key] + 1
+                self._cow.discard(key)
+                self._store[key] = torch.from_numpy(
+                    np.array(value, copy=True))
+                self._versions[key] = version
+        elif kind == "epoch":
+            with self._lock:
+                if data > self._membership_epoch:
+                    self._membership_epoch = int(data)
+                    self._seen.clear()
+        elif kind == "clear":
+            if isinstance(data, (tuple, list)):
+                generation, epoch = data
+            else:  # records without the epoch hold the bare generation
+                generation, epoch = data, None
+            with self._lock:
+                self._store.clear()
+                self._versions.clear()
+                self._codecs.clear()
+                self._seen.clear()
+                self._cow.clear()
+                self._generation = int(generation)
+                if epoch is not None:
+                    self._membership_epoch = int(epoch)
+        elif kind == "__advance__":
+            pass  # the journal's LSN-jump marker: no mutation
+        else:
+            counters.inc("wal.replay_skipped")
+            _log.error("wal replay: unknown record kind %r skipped", kind)
+
     def set_membership_epoch(self, epoch: int) -> None:
         """Adopt a new membership epoch (monotonic).  The dedup floors
         reset with the world: a rejoined incarnation of a dead rank
@@ -180,6 +374,8 @@ class KVStore:
         stale in :meth:`_stale`."""
         with self._lock:
             if epoch > self._membership_epoch:
+                if self._wal is not None:
+                    self._wal.append("epoch", int(epoch))
                 self._membership_epoch = epoch
                 self._seen.clear()
 
@@ -222,10 +418,35 @@ class KVStore:
     def init_key(self, key: str, value) -> None:
         """Idempotent first-push initialization (reference init-push
         barrier, server.cc:261-289)."""
+        created = False
         with self._lock:
             if key not in self._store:
-                self._store[key] = host_copy(value)
+                t = host_copy(value)
+                if self._wal is not None:
+                    self._wal.append("init", (key, host_numpy(t)))
+                self._store[key] = t
                 self._versions[key] = 0
+                created = True
+        if created:
+            self._notify(key, 0)
+
+    def publish_key(self, key: str, value) -> int:
+        """Serving-side overwrite: replace ``key``'s value whole and
+        bump its version (version 0 if absent).  No sum: the caller owns
+        the key (the shard-published cut of ``serving_tier.py``), and an
+        overwrite is the only bit-exact refresh.  Outstanding COW
+        references stay frozen: the slot is re-pointed."""
+        t = host_copy(value)
+        with self._lock:
+            if self._wal is not None:
+                self._wal.append("publish", (key, host_numpy(t)))
+            version = (0 if key not in self._store
+                       else self._versions[key] + 1)
+            self._cow.discard(key)
+            self._store[key] = t
+            self._versions[key] = version
+        self._notify(key, version)
+        return version
 
     def _push_delta_locked(self, key: str, delta) -> int:
         if key not in self._store:
@@ -287,18 +508,31 @@ class KVStore:
 
     def _land_delta_locked(self, key: str, delta, worker_id: int,
                            seq: Optional[int],
-                           wire_len: Optional[int] = None) -> int:
+                           wire_len: Optional[int] = None
+                           ) -> Tuple[int, Optional[int]]:
         """The landing tail every delta path shares (caller holds
-        ``_lock``; ``delta`` already verified and screened): merge,
-        advance the dedup floor (fate final), account wire bytes on the
-        wire-denominated path, maybe chaos-drop the ack."""
+        ``_lock``; ``delta`` already verified and screened): journal the
+        intent, merge, advance the dedup floor (fate final), account
+        wire bytes on the wire-denominated path.  Returns ``(version, landed)``: ``landed`` is the new
+        version when the merge changed the key (the caller notifies
+        subscribers outside the lock), None on a merged-screen skip.
+        :meth:`_finish` rolls the ack-drop after it has kept ``landed``,
+        so a chaos-dropped ack still notifies (the sum DID apply)."""
+        if key not in self._store:
+            raise KeyError(f"key {key!r} not initialized")
+        if self._wal is not None:
+            # journal BEFORE the merge: a failed append fails the push
+            # with the store untouched and the floor unadvanced; a crash
+            # between append and merge replays the merge
+            self._wal.append("delta",
+                             (key, host_numpy(delta), worker_id, seq))
         before = self._versions.get(key, -1)
         version = self._push_delta_locked(key, delta)
         self._mark_seen(key, worker_id, seq)
+        landed = version if version != before else None
         if wire_len is not None:
-            self._account_wire(wire_len, wasted=version == before)
-        self._maybe_drop_ack(key, version, seq)
-        return version
+            self._account_wire(wire_len, wasted=landed is None)
+        return version, landed
 
     def _wire_recv(self, key: str, frame: bytes, worker_id: int, seq: int,
                    opener, wasted_nbytes: int):
@@ -332,18 +566,58 @@ class KVStore:
         dropped — the current version is returned unchanged.  With
         integrity armed the delta crosses the envelope hop (chaos-visible,
         CRC verified); a ``(worker_id, seq)`` token makes the push
-        idempotent (see :meth:`_dup`)."""
-        return self._traced(key, worker_id, lambda: self._push_delta(
-            key, delta, mepoch, worker_id, seq))
+        idempotent (see :meth:`_dup`).  A landed delta notifies the write
+        subscribers outside the lock, even when chaos then drops the
+        ack."""
+        return self._traced(key, worker_id, lambda: self._finish(
+            key, seq, self._push_delta(key, delta, mepoch, worker_id,
+                                       seq)))
 
-    def _push_delta(self, key, delta, mepoch, worker_id, seq) -> int:
+    def _finish(self, key: str, seq: Optional[int], out) -> int:
+        """A delta path's last step, outside the lock: ``out`` is the
+        locked body's ``(version, landed, ackable)``.  Notify the write
+        subscribers of a landed version, then roll the chaos ack-drop
+        (raising :class:`integrity.AckLost`) for a push that landed or
+        was a duplicate."""
+        version, landed, ackable = out
+        if landed is not None:
+            self._notify(key, landed)
+        if ackable:
+            self._maybe_drop_ack(key, version, seq)
+        return version
+
+    def _gate_locked(self, key, mepoch, worker_id, seq, wire_len=None):
+        """The stale and duplicate gates every delta path opens with
+        (caller holds the lock): ``(version, None, ackable)`` when the
+        push ends here, else None."""
+        if self._stale(key, mepoch):
+            return self._versions.get(key, -1), None, False
+        if self._dup(key, worker_id, seq):
+            if wire_len is not None:
+                self._account_wire(wire_len, wasted=True)
+            return self._versions.get(key, -1), None, True
+        return None
+
+    def _screened_locked(self, key, delta, worker_id, seq, wire_len=None):
+        """The non-finite screen and the landing tail (caller holds the
+        lock): ``(version, landed, ackable)``."""
+        if _integrity.enabled():
+            delta = _integrity.screen_nonfinite(
+                delta, what="delta", key=key, worker=worker_id)
+            if delta is None:  # skip policy: dropped, fate final
+                if wire_len is not None:
+                    self._account_wire(wire_len, wasted=True)
+                self._mark_seen(key, worker_id, seq)
+                return self._versions.get(key, -1), None, False
+        version, landed = self._land_delta_locked(key, delta, worker_id,
+                                                  seq, wire_len=wire_len)
+        return version, landed, True
+
+    def _push_delta(self, key, delta, mepoch, worker_id, seq):
         with self._lock:
-            if self._stale(key, mepoch):
-                return self._versions.get(key, -1)
-            if self._dup(key, worker_id, seq):
-                version = self._versions.get(key, -1)
-                self._maybe_drop_ack(key, version, seq)
-                return version
+            gated = self._gate_locked(key, mepoch, worker_id, seq)
+            if gated is not None:
+                return gated
             arr = host_view(delta)
             if _integrity.enabled():
                 seq_env = seq if seq is not None else next(self._wire_seq)
@@ -354,17 +628,13 @@ class KVStore:
                 # visible in integrity.crc_reject/retransmit
                 arr = self._wire_recv(key, frame, worker_id, seq_env,
                                       _integrity.open_array, 0)
-                arr = _integrity.screen_nonfinite(
-                    arr, what="delta", key=key, worker=worker_id)
-                if arr is None:  # skip policy: drop this contribution
-                    self._mark_seen(key, worker_id, seq)  # fate final
-                    return self._versions.get(key, -1)
             elif _fault.ENABLED:
                 # integrity off: the bitflip lands silently in this delta
                 # — the unprotected baseline the envelope fixes
                 arr = _fault.corrupt("kv_push", arr)
                 _fault.fire("kv_push")
-            return self._land_delta_locked(key, arr, worker_id, seq)
+            return self._screened_locked(key, arr, worker_id, seq)
+
 
     def register_compression(self, key: str, kwargs: dict, numel: int,
                              dtype: torch.dtype = torch.float32) -> None:
@@ -395,6 +665,7 @@ class KVStore:
         with self._lock:
             return dict(self._codecs)
 
+
     def push_delta_wire(self, key: str, data: bytes,
                         mepoch: Optional[int] = None,
                         worker_id: int = 0,
@@ -407,21 +678,25 @@ class KVStore:
         stale ``mepoch`` is dropped before the decode runs; a corrupt
         frame is NACKed and retransmitted before the decode runs — the
         codec never sees unverified bytes."""
-        return self._traced(key, worker_id, lambda: self._push_delta_wire(
-            key, data, mepoch, worker_id, seq), compressed=True)
+        return self._traced(key, worker_id, lambda: self._finish(
+            key, seq, self._push_delta_wire(key, data, mepoch, worker_id,
+                                            seq)), compressed=True)
 
-    def _push_delta_wire(self, key, data, mepoch, worker_id, seq) -> int:
+    def _codec_locked(self, key):
+        codec = self._codecs.get(key)
+        if codec is None:
+            raise KeyError(f"key {key!r} has no registered compression")
+        return codec
+
+    def _push_delta_wire(self, key, data, mepoch, worker_id, seq):
         with self._lock:
             if self._stale(key, mepoch):
-                return self._versions.get(key, -1)
-            codec = self._codecs.get(key)
-            if codec is None:
-                raise KeyError(f"key {key!r} has no registered compression")
-            if self._dup(key, worker_id, seq):
-                self._account_wire(len(data), wasted=True)
-                version = self._versions.get(key, -1)
-                self._maybe_drop_ack(key, version, seq)
-                return version
+                return self._versions.get(key, -1), None, False
+            codec = self._codec_locked(key)
+            gated = self._gate_locked(key, None, worker_id, seq,
+                                      wire_len=len(data))
+            if gated is not None:
+                return gated
             if _integrity.enabled():
                 env_seq = seq if seq is not None else next(self._wire_seq)
                 frame = _integrity.seal_bytes(data, key=key, seq=env_seq,
@@ -437,15 +712,8 @@ class KVStore:
                     verified = _fault.corrupt_bytes("kv_push", verified)
                     _fault.fire("kv_push")
             delta = decode(codec[1], verified, self.device)
-            if _integrity.enabled():
-                delta = _integrity.screen_nonfinite(
-                    delta, what="delta", key=key, worker=worker_id)
-                if delta is None:  # skip policy: dropped, bytes wasted
-                    self._account_wire(len(data), wasted=True)
-                    self._mark_seen(key, worker_id, seq)  # fate final
-                    return self._versions.get(key, -1)
-            return self._land_delta_locked(key, delta, worker_id, seq,
-                                           wire_len=len(data))
+            return self._screened_locked(key, delta, worker_id, seq,
+                                         wire_len=len(data))
 
     # The TCP transport verifies the sealed envelope AT THE SOCKET and
     # NACKs corruption back to the sender, so these entry points skip
@@ -462,20 +730,11 @@ class KVStore:
         the ack (``drop:site=kv_push``): the transport server suppresses
         its reply and the sender's same-token retry is dedup-absorbed."""
         with self._lock:
-            if self._stale(key, mepoch):
-                return self._versions.get(key, -1)
-            if self._dup(key, worker_id, seq):
-                version = self._versions.get(key, -1)
-                self._maybe_drop_ack(key, version, seq)
-                return version
-            arr = host_view(delta)
-            if _integrity.enabled():
-                arr = _integrity.screen_nonfinite(
-                    arr, what="delta", key=key, worker=worker_id)
-                if arr is None:  # skip policy: fate final
-                    self._mark_seen(key, worker_id, seq)
-                    return self._versions.get(key, -1)
-            return self._land_delta_locked(key, arr, worker_id, seq)
+            out = self._gate_locked(key, mepoch, worker_id, seq)
+            if out is None:
+                out = self._screened_locked(key, host_view(delta),
+                                            worker_id, seq)
+        return self._finish(key, seq, out)
 
     def apply_delta_wire(self, key: str, data: bytes, *,
                          mepoch: Optional[int] = None, worker_id: int = 0,
@@ -487,25 +746,16 @@ class KVStore:
         :attr:`wire_bytes_wasted`."""
         with self._lock:
             if self._stale(key, mepoch):
-                return self._versions.get(key, -1)
-            codec = self._codecs.get(key)
-            if codec is None:
-                raise KeyError(f"key {key!r} has no registered compression")
-            if self._dup(key, worker_id, seq):
-                self._account_wire(len(data), wasted=True)
-                version = self._versions.get(key, -1)
-                self._maybe_drop_ack(key, version, seq)
-                return version
-            delta = decode(codec[1], bytes(data), self.device)
-            if _integrity.enabled():
-                delta = _integrity.screen_nonfinite(
-                    delta, what="delta", key=key, worker=worker_id)
-                if delta is None:  # skip policy: dropped, bytes wasted
-                    self._account_wire(len(data), wasted=True)
-                    self._mark_seen(key, worker_id, seq)
-                    return self._versions.get(key, -1)
-            return self._land_delta_locked(key, delta, worker_id, seq,
-                                           wire_len=len(data))
+                out = (self._versions.get(key, -1), None, False)
+            else:
+                codec = self._codec_locked(key)
+                out = self._gate_locked(key, None, worker_id, seq,
+                                        wire_len=len(data))
+                if out is None:
+                    delta = decode(codec[1], bytes(data), self.device)
+                    out = self._screened_locked(key, delta, worker_id, seq,
+                                                wire_len=len(data))
+        return self._finish(key, seq, out)
 
     def pull(self, key: str) -> torch.Tensor:
         """Return a copy of the current value (no barrier — async pull,
@@ -525,6 +775,24 @@ class KVStore:
             self._cow.add(key)
         return _copy_outside_lock(ref), version
 
+    def snapshot_refs(self) -> Tuple[Dict[str, Tuple[np.ndarray, int]],
+                                     int]:
+        """Consistent copy-on-write snapshot of every key:
+        ``({key: (read-only numpy view, version)}, generation)`` under ONE
+        lock hold, copying nothing.  Every key is marked COW, so a later
+        push clones the tensor before it sums (:meth:`_push_delta_locked`)
+        and the views stay a frozen, mutually consistent cut; the
+        generation rides the same hold, so a racing :meth:`clear` cannot
+        stamp pre-clear views with a post-clear generation."""
+        with self._lock:
+            self._cow.update(self._store.keys())
+            out = {}
+            for k, t in self._store.items():
+                v = t.numpy()
+                v.flags.writeable = False
+                out[k] = (v, self._versions[k])
+            return out, self._generation
+
     def version(self, key: str) -> int:
         with self._lock:
             return self._versions.get(key, -1)
@@ -542,8 +810,14 @@ class KVStore:
     def clear(self) -> None:
         """Reset the store to empty.  The membership epoch RE-SYNCS to the
         process-wide current epoch: a cleared-and-reused store is a new
-        logical store in whatever world exists NOW."""
+        logical store in whatever world exists NOW.  The generation is
+        bumped, so a serving snapshot cut before the clear never serves as
+        a delta base after it."""
         with self._lock:
+            epoch = _membership.current_epoch()
+            if self._wal is not None:
+                # the epoch rides the record: replay restores the re-sync
+                self._wal.append("clear", (self._generation + 1, epoch))
             self._store.clear()
             self._versions.clear()
             self._codecs.clear()
@@ -551,4 +825,5 @@ class KVStore:
             self._cow.clear()
             self.wire_bytes = 0
             self.wire_bytes_wasted = 0
-            self._membership_epoch = _membership.current_epoch()
+            self._membership_epoch = epoch
+            self._generation += 1

@@ -1,8 +1,7 @@
 """bps_top: live terminal view of a running byteps_tpu cluster; the
 port's copy of ``tools/bps_top.py`` (the bus's ``metrics`` reply is
 shared, so it watches either package's cluster and renders the same
-frame).  The serving tier is not ported: its rows render, but without
-the ring-arc share (the ARC column reads '-').
+frame), the serving tier's hosts with their ring-arc share.
 
 Polls the membership bus's ``metrics`` verb (one round-trip returns
 every live rank's latest snapshot — ``core/api.py:cluster_metrics()``)
@@ -240,8 +239,12 @@ def render(cluster: dict) -> str:
     serve_hosts = cluster.get("serve_hosts") or {}
     serve_ranks = cluster.get("serve_ranks") or {}
     if serve_hosts:
-        # the ring math (server/serve_ring.py) is not ported: no arc
-        shares = {}
+        try:
+            from ..server.serve_ring import ServeRing
+            shares = ServeRing(serve_hosts).arc_share()
+        except Exception:  # noqa: BLE001 — render must not die on a
+            # directory/ring mismatch mid-transition
+            shares = {}
         draining = {int(h) for h in cluster.get("serve_draining") or ()}
         for hid in sorted(serve_hosts):
             rows.append(_rank_row(

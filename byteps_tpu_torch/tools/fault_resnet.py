@@ -127,10 +127,10 @@ def run_server(args) -> int:
     land = store._land_delta_locked
 
     def recording(key, delta, worker_id, seq, wire_len=None):
-        version = land(key, delta, worker_id, seq, wire_len)
+        landed = land(key, delta, worker_id, seq, wire_len)
         if key != DONE_KEY:
             order.append((key, worker_id, seq))
-        return version
+        return landed
 
     store._land_delta_locked = recording
     ok.reset_launches()

@@ -23,9 +23,10 @@ measured condition, distinct from *dead*:
   sampler's ``slow_score``) and ``metrics_snapshot()["slowness"]``.
 
 The same observation sequence gives the same scores as the JAX module:
-the arithmetic is the same Python, in the same order.  Not ported yet:
-the membership bus's step-barrier feed and its demotion policy, and the
-serving plane's hedge delay (:class:`LatencyQuantile` is here for it).
+the arithmetic is the same Python, in the same order.  The membership
+bus feeds its step barriers' lags (``site="step_sync"``) and demotes on
+them; :class:`LatencyQuantile` is the serving plane's adaptive hedge
+delay (``server/serving.py``).
 """
 
 from __future__ import annotations
@@ -203,8 +204,8 @@ class SlownessTracker:
 
 class LatencyQuantile:
     """Tiny bounded latency-sample ring with exact quantiles — the
-    adaptive hedge-delay source (the JAX ``ServingPlane``'s; the port's
-    serving plane is not written yet): the p99 of recent
+    adaptive hedge-delay source of ``server/serving.py``'s
+    ``ServingPlane``: the p99 of recent
     *winning* pull latencies is what "this is taking too long, fire the
     backup" means.  ``quantile`` answers ``None`` until ``min_samples``
     have landed so early noise cannot set a garbage delay."""

@@ -362,10 +362,51 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    rejoin, failover and reconcile times, each member's onebit launches
    and resume ms, and its seconds.
 
+13. serving and durability (``serving_phase``): a trainer (``python -m
+   byteps_tpu_torch.tools.serve_resnet train``) on the card: ``init()``
+   opens the durable store in a fresh ``BYTEPS_DURABLE_DIR``
+   (``BYTEPS_WAL_FSYNC=always``); ResNet-50 at full width (batch 32,
+   weights and data from the seed) trains through two
+   ``AsyncDistributedOptimizer(SGD(momentum=0.9))``: onebit + EF on the
+   52 tensors of ``min_compress_bytes`` and more, raw on the other 109;
+   a ``ServingTier`` ships each cut (two replicas a key) to two
+   ``serve_host`` processes on the card that the parent's
+   ``FleetReconciler`` (target 2) keeps over the parent's membership
+   bus; a ``PullClient`` on the card in the parent pulls through the
+   ring.  The trainer runs in lockstep with the parent (command files),
+   prints the value's CRC32C at every acknowledged push and, at every
+   cut, each raw key's CRC32C and each onebit key's CPU-chain frame.
+   Every child logs to a file; one that exits early or runs past
+   SERVE_TIMEOUT_S fails the run; every child is killed in a
+   ``finally``.
+   - (a) ``serve_resnet_tier``: SERVE_STEPS_A steps, each cut followed
+     by a blocking pull: every key at the cut's version; raw keys bit
+     for bit the trainer's value; onebit keys' sign words bit for bit
+     the CPU chain's ``compress`` of the cut's value, the scale within
+     ONEBIT_SCALE_RTOL; a second pull inside the bound is a cache hit
+     with no bytes;
+   - (b) ``serve_resnet_host_kill``: ``kill:site=serve_host:step=
+     SERVE_KILL_PULL`` armed on host 1 over ``serve_ctl``; pulls go on
+     while it is down, held as in (a); the reconciler restarts it once
+     (``reconcile.restarted`` 1), it prints ``HOST-RESTORED`` from its
+     ``arc.bin``, and a cut without a step ships it 0 B;
+   - (c) ``serve_resnet_cold_start``: the trainer stops after
+     SERVE_PAUSE_ACKS acknowledged pushes of a step and is SIGKILLed; a
+     fresh process (``serve_resnet recover``) recovers the store: every
+     key's version and CRC32C equal its last acknowledged push, every
+     key's last token replayed is absorbed, and a fresh tier's cut
+     pulled in full is held as in (a).
+   Each arm prints, beside the card's name and power limit, the median
+   trainer step (min-max), the journal's ms a push (append, fsync), cut,
+   encode and durable-save ms and bytes, ship ms and bytes a host, pull
+   p50 / p99 and bytes received against raw, kill -> ``HOST-RESTORED``,
+   the recovery's ms and bytes, each process's onebit launches and its
+   seconds.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
-4, the two LM slices', phase 10's arms and phase 11's and phase 12's
-child processes, which count their own);
+4, the two LM slices', phase 10's arms and phase 11's, 12's and 13's
+processes, which count their own);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -516,6 +557,14 @@ ELASTIC_DEADLINE_S = 2.0         # arm (c)'s BYTEPS_SYNC_DEADLINE_S
 ELASTIC_WEDGE_MS = 5000          # arm (c)'s one-visit slow fault at site=sync
 ELASTIC_WEDGE_STEP = 3
 ELASTIC_TIMEOUT_S = 150          # each arm's children, in all
+# serving and durability (13)
+SERVE_DEVICE = "cuda"            # the trainer's, the hosts' and the client's
+SERVE_MODEL = "resnet50"
+SERVE_STEPS_A = 4                # arm (a)'s steps, a cut after each
+SERVE_KILL_PULL = 2              # host 1 dies at this answered pull (b)
+SERVE_PAUSE_ACKS = 80            # of 161 pushes: arm (c)'s kill, mid-step
+SERVE_PULL_DEADLINE_S = 5.0      # a pull's deadline at one host
+SERVE_TIMEOUT_S = 300            # the phase's children, in all
 
 
 def log(msg):
@@ -3707,6 +3756,428 @@ def elastic_phase(torch, smi):
     return dict(launches)
 
 
+# ------------------------------------------- 13. serving and durability
+
+class _Tail:
+    """A child's output file, read as it grows."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def lines(self):
+        try:
+            with open(self.path) as f:
+                return f.read().splitlines()
+        except FileNotFoundError:
+            return []
+
+    def tagged(self, tag):
+        return [ln[len(tag) + 1:] for ln in self.lines()
+                if ln.startswith(tag + " ")]
+
+
+def _serve_child(argv, out, name, env):
+    root = os.path.dirname(os.path.abspath(__file__))
+    full_env = dict(os.environ)
+    full_env["PYTHONPATH"] = root + os.pathsep + full_env.get(
+        "PYTHONPATH", "")
+    full_env.pop("BYTEPS_FAULT_SPEC", None)
+    full_env.update(env)
+    path = os.path.join(out, f"{name}.log")
+    with open(path, "w") as logf:
+        p = subprocess.Popen([sys.executable] + argv, cwd=root, env=full_env,
+                             stdout=logf, stderr=subprocess.STDOUT)
+    p.tail = _Tail(path)
+    return p
+
+
+def _serve_wait(name, pred, procs, deadline):
+    """Poll ``pred()`` until it holds; a child that exits early (with
+    another code than 0, or at all while it is awaited) or the deadline
+    fails the run."""
+    while True:
+        got = pred()
+        if got:
+            return got
+        for who, p in procs.items():
+            rc = p.poll()
+            check(rc is None or rc == 0,
+                  f"{name}: {who} exited {rc}:\n"
+                  + "\n".join(p.tail.lines()[-40:]))
+        check(time.monotonic() < deadline,
+              f"{name}: past its {SERVE_TIMEOUT_S} s; logs:\n" + "\n".join(
+                  f"--- {who}\n" + "\n".join(p.tail.lines()[-20:])
+                  for who, p in procs.items()))
+        time.sleep(0.02)
+
+
+class _ServeLedger:
+    """What each cut published, by (key, version): a raw key's CRC32C,
+    a onebit key's CPU-chain frame (sign words' CRC32C, scale)."""
+
+    def __init__(self):
+        self.raw, self.onebit, self.cuts = {}, {}, []
+
+    def add(self, doc):
+        for k, c in doc["crc"].items():
+            self.raw[(k, doc["versions"][k])] = c
+        for k, f in doc["onebit"].items():
+            self.onebit[(k, doc["versions"][k])] = f
+        self.cuts.append(doc)
+
+
+def _check_pulled(torch, registry, name, client, vals, ledger, want):
+    """Every pulled key at the versions ``want`` (the latest cut's): a raw
+    key bit for bit the trainer's value at that version; a onebit key's
+    sign words bit for bit the CPU chain's and its magnitude the chain's
+    scale within ONEBIT_SCALE_RTOL."""
+    from byteps_tpu_torch.native import crc32c
+    check(sorted(vals) == sorted(want),
+          f"{name}: pulled {len(vals)} keys, the cut has {len(want)}")
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for k, x in vals.items():
+        v = client.version(k)
+        check(v == want[k], f"{name}: {k} at version {v}, the cut's is "
+                            f"{want[k]}")
+        host = x.detach().cpu().contiguous()
+        if (k, v) in ledger.raw:
+            got = crc32c(memoryview(host.numpy()).cast("B"))
+            check(got == ledger.raw[(k, v)],
+                  f"{name}: raw {k} v{v} CRC32C {got:#x}, the trainer's "
+                  f"{ledger.raw[(k, v)]:#x}")
+            continue
+        check((k, v) in ledger.onebit, f"{name}: {k} v{v} not in any cut")
+        words_crc, scale = ledger.onebit[(k, v)]
+        comp = registry.create(ONEBIT_EF, host.numel(), torch.float32,
+                               for_server=True)
+        payload, _ = comp.compress(host.reshape(-1), comp.init_state(cpu))
+        got = crc32c(memoryview(payload["words"].numpy()).cast("B"))
+        check(got == words_crc, f"{name}: onebit {k} v{v}: sign words "
+                                f"differ from the CPU chain's")
+        mag = host.abs()
+        check(bool((mag == mag[0]).all()), f"{name}: onebit {k} v{v} is "
+                                           f"not sign x scale")
+        err = abs(float(mag[0]) - scale) / max(abs(scale), 1e-30)
+        worst = max(worst, err)
+        check(err <= ONEBIT_SCALE_RTOL,
+              f"{name}: onebit {k} v{v} scale {float(mag[0])!r}, the CPU "
+              f"chain's {scale!r} (rel {err:.3g})")
+    return worst
+
+
+def serving_phase(torch, smi):
+    """Phase 13: a ResNet-50 async store on the card, durable, serves its
+    onebit-encoded cuts through a serving tier to two serving-host
+    processes kept by a fleet reconciler, survives a host's death, and
+    comes back from its journal after a SIGKILL.  Returns the onebit
+    launches of every process."""
+    import signal
+    import threading
+
+    from byteps_tpu_torch.common.telemetry import counters
+    from byteps_tpu_torch.comm.transport import TcpEndpoint
+    from byteps_tpu_torch.compression import registry
+    from byteps_tpu_torch.fault.membership import (SERVE_RANK_BASE,
+                                                   MembershipView,
+                                                   _BusServer)
+    from byteps_tpu_torch.launcher.reconciler import FleetReconciler
+    from byteps_tpu_torch.ops import onebit_kernels as ok
+    from byteps_tpu_torch.server.serve_client import PullClient
+    from byteps_tpu_torch.server.serving_tier import (TierDirectory,
+                                                      TierRouter)
+
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="bps_serve_")
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    bus_port = _free_port()
+    bus = _BusServer(("127.0.0.1", bus_port), MembershipView(0, (0,)),
+                     5.0, 5.0)
+    busaddr = f"127.0.0.1:{bus_port}"
+    hosts = collections.defaultdict(list)     # host id -> its processes
+    deaths = {}
+
+    def spawn_host(hid, env):
+        n = len(hosts[hid])
+        p = _serve_child(["-m", "byteps_tpu_torch.server.serve_host",
+                          "--device", SERVE_DEVICE], out,
+                         f"host{hid}.{n}", env)
+        hosts[hid].append(p)
+        return p
+
+    rec = FleetReconciler(bus=busaddr, spawn_fn=spawn_host, interval_s=0.1,
+                          max_hosts=2, device=SERVE_DEVICE,
+                          spawn_env={"BYTEPS_DURABLE_DIR":
+                                     os.path.join(out, "hosts")})
+    stop = threading.Event()
+    loop = threading.Thread(target=rec.run, args=(stop,), daemon=True)
+    directory = TierDirectory(bus=busaddr)
+    procs = {}
+    ncmd = [0]
+    launches = collections.Counter()
+    launches_trainer = launches_recover = {}
+    client = None
+
+    def command(*words):
+        ncmd[0] += 1
+        tmp = os.path.join(out, f".cmd.{ncmd[0]}")
+        with open(tmp, "w") as f:
+            f.write(" ".join(str(w) for w in words))
+        os.replace(tmp, os.path.join(out, f"cmd.{ncmd[0]}"))
+
+    def next_cut(p, ledger, seen):
+        docs = _serve_wait("serving", lambda: (
+            p.tail.tagged("CUT")[seen:] or None), procs, deadline)
+        doc = json.loads(docs[0])
+        ledger.add(doc)
+        return doc
+
+    def watch():
+        # the killed host's death, to the millisecond
+        while not stop.is_set():
+            for hid, ps in list(hosts.items()):
+                for i, p in enumerate(list(ps)):
+                    if (hid, i) not in deaths and p.poll() is not None:
+                        deaths[(hid, i)] = time.monotonic()
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    try:
+        env = {"BYTEPS_DURABLE_DIR": os.path.join(out, "durable"),
+               "BYTEPS_WAL_FSYNC": "always", "DMLC_NUM_WORKER": "1",
+               "DMLC_WORKER_ID": "0"}
+        argv = ["-m", "byteps_tpu_torch.tools.serve_resnet"]
+        common = ["--bus", busaddr, "--device", SERVE_DEVICE, "--model",
+                  SERVE_MODEL, "--batch", str(BATCH), "--image", str(IMAGE),
+                  "--out", out]
+        directory.set_target(2)
+        loop.start()
+        watcher.start()
+        procs["trainer"] = trainer = _serve_child(
+            argv + ["train"] + common, out, "trainer", env)
+        up = json.loads(_serve_wait("serving", lambda: (
+            trainer.tail.tagged("TRAINER-UP") or [None])[0], procs,
+            deadline))
+        _serve_wait("serving", lambda: sorted(
+            directory.hosts(force=True)[1]) == [0, 1], procs, deadline)
+        for hid in (0, 1):
+            procs[f"host{hid}"] = hosts[hid][0]
+        log(f"serving [{smi}]: trainer and hosts up in "
+            f"{time.perf_counter() - t_phase:.1f} s; {up['keys']} keys, "
+            f"{up['compressed']} onebit + EF, {up['raw_bytes']} B raw")
+        ok.reset_launches()
+        client = PullClient(TierRouter(TierDirectory(bus=busaddr),
+                                       replicas=2,
+                                       pull_deadline_s=SERVE_PULL_DEADLINE_S),
+                            max_staleness_s=60.0, device=SERVE_DEVICE,
+                            stale_on_error=False)
+        ledger = _ServeLedger()
+        pull_ms, pull_done, worst = [], [], [0.0]
+
+        def pull_and_check(name, want):
+            t0 = time.perf_counter()
+            vals = client.pull(max_staleness_s=0.0)
+            if SERVE_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            pull_ms.append((time.perf_counter() - t0) * 1e3)
+            pull_done.append(time.monotonic())
+            worst[0] = max(worst[0], _check_pulled(
+                torch, registry, name, client, vals, ledger, want))
+
+        # (a) a cut after every step, a blocking pull after every cut
+        t_arm = time.perf_counter()
+        name = "serve_resnet_tier"
+        for _ in range(SERVE_STEPS_A):
+            command("step")
+            doc = next_cut(trainer, ledger, len(ledger.cuts))
+            pull_and_check(name, doc["versions"])
+            b0, h0 = client.bytes_received, counters.get("serve.cache_hits")
+            client.pull()                  # inside the staleness bound
+            check(client.bytes_received == b0
+                  and counters.get("serve.cache_hits") == h0 + 1,
+                  f"{name}: the pull inside the bound was no cache hit")
+        _serve_report(name, ledger.cuts, smi, pull_ms, client, up,
+                      t_arm, worst[0])
+        # (b) host 1 dies at its SERVE_KILL_PULL-th answered pull
+        t_arm = time.perf_counter()
+        name = "serve_resnet_host_kill"
+        addr = directory.hosts(force=True)[1][1]
+        ep = TcpEndpoint(addr, peer=SERVE_RANK_BASE + 1, rank=0)
+        ep.serve_ctl(cmd="chaos_arm", seed=FAULT_SEED,
+                     spec=f"kill:site=serve_host:step={SERVE_KILL_PULL}")
+        ep.close(drain=False)
+        f0 = counters.get("serve.tier_failover")
+        command("step")
+        doc = next_cut(trainer, ledger, len(ledger.cuts))
+        del procs["host1"]
+        while (1, 0) not in deaths or len(hosts[1]) < 2 or not any(
+                ln.startswith("HOST-RESTORED") for ln in
+                hosts[1][-1].tail.lines()):
+            pull_and_check(name, doc["versions"])
+            check(time.monotonic() < deadline, f"{name}: host 1 was not "
+                  f"killed and restored within {SERVE_TIMEOUT_S} s")
+            time.sleep(0.2)
+        t_restored = time.monotonic()
+        procs["host1"] = hosts[1][-1]
+        restored = [ln for ln in hosts[1][-1].tail.lines()
+                    if ln.startswith("HOST-RESTORED")][0]
+        _serve_wait(name, lambda: directory.hosts(force=True)[1].get(1)
+                    not in (None, addr), procs, deadline)
+        check(counters.get("reconcile.restarted") == 1
+              and counters.get("reconcile.crashed") == 1,
+              f"{name}: reconcile restarted "
+              f"{counters.get('reconcile.restarted')} crashed "
+              f"{counters.get('reconcile.crashed')}, expected 1 and 1")
+        dead = [t for t in pull_done if deaths[(1, 0)] < t < t_restored]
+        check(dead, f"{name}: no pull completed while host 1 was down")
+        command("cut")                     # no step: nothing changed
+        recut = next_cut(trainer, ledger, len(ledger.cuts))
+        check(recut["arc_probe_hits"] == 1 and recut["ship_bytes"] == 0,
+              f"{name}: the restarted host was re-shipped "
+              f"{recut['ship_bytes']} B (probe hits "
+              f"{recut['arc_probe_hits']})")
+        pull_and_check(name, recut["versions"])
+        command("step")
+        doc = next_cut(trainer, ledger, len(ledger.cuts))
+        pull_and_check(name, doc["versions"])
+        kill_ms = (t_restored - deaths[(1, 0)]) * 1e3
+        _serve_report(name, ledger.cuts[SERVE_STEPS_A:], smi, pull_ms,
+                      client, up, t_arm, worst[0],
+                      extra={"kill -> HOST-RESTORED": f"{kill_ms:.1f} ms "
+                             f"({restored})",
+                             "pulls while host 1 was down": len(dead),
+                             "failovers along the arc": counters.get(
+                                 "serve.tier_failover") - f0})
+        # (c) the trainer killed mid-step; a fresh process recovers
+        t_arm = time.perf_counter()
+        name = "serve_resnet_cold_start"
+        command("pause", SERVE_PAUSE_ACKS)
+        paused = _serve_wait(name, lambda: (trainer.tail.tagged("PAUSED")
+                                            or [None])[0], procs, deadline)
+        trainer.send_signal(signal.SIGKILL)
+        trainer.wait(timeout=30)
+        del procs["trainer"]
+        launches_trainer = json.loads(paused.split(" ", 1)[1])
+        launches.update(launches_trainer)
+        last = {}
+        for ln in trainer.tail.tagged("ACK"):
+            k, v, c = ln.split()
+            last[k] = (int(v), int(c))
+        procs["recover"] = recov = _serve_child(
+            argv + ["recover"] + common, out, "recover", env)
+        got = json.loads(_serve_wait(name, lambda: (
+            recov.tail.tagged("RECOVERED") or [None])[0], procs, deadline))
+        bad = [k for k, (v, c) in last.items()
+               if (got["versions"].get(k), got["crc"].get(k)) != (v, c)]
+        check(not bad and sorted(last) == sorted(got["versions"]),
+              f"{name}: {len(bad)} keys differ from their last "
+              f"acknowledged push, e.g. {bad[:3]}")
+        check(got["replayed"] == got["absorbed"] == len(got["versions"]),
+              f"{name}: {got['absorbed']} of {got['replayed']} replayed "
+              f"tokens absorbed ({len(got['versions'])} keys)")
+        rdoc = next_cut(recov, ledger, 0)
+        fresh = PullClient(TierRouter(TierDirectory(bus=busaddr),
+                                      replicas=2,
+                                       pull_deadline_s=SERVE_PULL_DEADLINE_S),
+                           max_staleness_s=0.0, device=SERVE_DEVICE,
+                           stale_on_error=False)
+        t0 = time.perf_counter()
+        vals = fresh.pull()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        check(rdoc["versions"] == got["versions"],
+              f"{name}: the fresh tier's cut is not the recovered store")
+        worst[0] = max(worst[0], _check_pulled(
+            torch, registry, name, fresh, vals, ledger, rdoc["versions"]))
+        fresh.close()
+        command_done = os.path.join(out, "cmd.done")
+        with open(command_done, "w") as f:
+            f.write("done")
+        _serve_wait(name, lambda: recov.poll() is not None, {}, deadline)
+        check(recov.returncode == 0, f"{name}: recover exited "
+              f"{recov.returncode}")
+        rl = launches_recover = json.loads(
+            recov.tail.tagged("RECOVER-LAUNCHES")[0])
+        launches.update(rl)
+        st = got["stats"]
+        log(f"{name} [{smi}]: trainer SIGKILLed after {SERVE_PAUSE_ACKS} "
+            f"acknowledged pushes of step {SERVE_STEPS_A + 3}; recovery "
+            f"{got['recover_ms']:.1f} ms (snapshot lsn "
+            f"{st['snapshot_lsn']}, {st['applied']} records replayed, "
+            f"{st['bytes']} B of journal read); {len(last)} keys at their "
+            f"last acknowledged version and CRC32C; {got['absorbed']} "
+            f"replayed tokens absorbed; fresh tier cut {rdoc['cut_ms']:.1f} "
+            f"ms, shipped {rdoc['ship_bytes']} B; full pull "
+            f"{full_ms:.1f} ms, {fresh.bytes_received} B; recover onebit "
+            f"launches {rl}; {time.perf_counter() - t_arm:.1f} s")
+    finally:
+        stop.set()
+        if loop.is_alive():
+            loop.join(timeout=10)
+        rec.close(kill_hosts=True)
+        for p in list(procs.values()) + [p for ps in hosts.values()
+                                         for p in ps]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if client is not None:
+            client.close()
+        bus.close()
+    parent = dict(ok.launches)             # this process's client
+    launches.update(parent)
+    # each process's kernels: the trainer packs (EF, the cuts) and
+    # unpacks (EF, the store's decode), a host unpacks at receipt, the
+    # client unpacks, the recovering process packs at its cut
+    each = {"trainer": (launches_trainer, ("onebit_pack", "onebit_unpack")),
+            "parent": (parent, ("onebit_unpack",)),
+            "recover": (launches_recover, ("onebit_pack",))}
+    for hid, ps in sorted(hosts.items()):
+        for i, p in enumerate(ps):
+            lines = p.tail.tagged("HOST-LAUNCHES")
+            if lines:
+                hl = json.loads(lines[0].split(" ", 1)[1])
+                launches.update(hl)
+                each[f"host {hid}.{i}"] = (hl, ("onebit_unpack",))
+    for who, (got, need) in each.items():
+        log(f"serving: {who} onebit launches {got}")
+        check(SERVE_DEVICE != "cuda" or all(got.get(k, 0) > 0
+                                            for k in need),
+              f"serving: {who} launched {got}, expected {need}")
+    check(SERVE_DEVICE != "cuda" or len(each) == 5,
+          f"serving: launches reported by {sorted(each)}")
+    log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(out, ignore_errors=True)
+    return dict(launches)
+
+
+def _serve_report(name, cuts, smi, pull_ms, client, up, t0, worst,
+                  extra=None):
+    steps = [c["step_ms"] for c in cuts if c.get("step_ms")]
+    appends = sum(c.get("wal_appends", 0) for c in cuts)
+    append_ms = sum(c.get("wal_append_ms", 0.0) for c in cuts)
+    fsync_ms = sum(c.get("wal_fsync_ms", 0.0) for c in cuts)
+    ships = [ms for c in cuts for ms in c["ship_ms"].values()]
+    p = sorted(pull_ms)
+    log(f"{name} [{smi}]: trainer step {_median_line(steps)}; journal "
+        f"{append_ms / max(appends, 1):.3f} ms a push (append, of which "
+        f"fsync {fsync_ms / max(appends, 1):.3f}), {appends} pushes; cut "
+        f"{statistics.median(c['cut_ms'] for c in cuts):.1f} ms (encode "
+        f"{statistics.median(c['encode_ms'] for c in cuts):.1f} ms, "
+        f"{cuts[-1]['encodes']} keys), durable cut save "
+        f"{statistics.median(c['save_ms'] for c in cuts):.1f} ms "
+        f"{cuts[-1]['save_bytes']} B; ship "
+        f"{statistics.median(ships) if ships else 0.0:.1f} ms a host, "
+        f"{statistics.median(c['ship_bytes'] for c in cuts) / 2:.0f} B a "
+        f"host a cut; pull p50 {p[len(p) // 2]:.1f} ms p99 "
+        f"{p[min(len(p) - 1, int(0.99 * len(p)))]:.1f} ms over {len(p)}, "
+        f"{client.bytes_received} B received against "
+        f"{up['raw_bytes'] * client.refreshes} B raw; worst onebit scale "
+        f"rel err {worst:.3g}; trainer onebit launches "
+        f"{cuts[-1]['launches']}")
+    for k, v in (extra or {}).items():
+        log(f"{name}: {k} {v}")
+    log(f"{name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3767,11 +4238,13 @@ def main():
     t_phase = time.perf_counter()
     elastic_launches = elastic_phase(torch, smi)
     log(f"elastic membership phase: {time.perf_counter() - t_phase:.1f} s")
+    serve_launches = serving_phase(torch, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
-    # and those phase 11's and phase 12's child processes counted
+    # and those phase 11's, 12's and 13's processes counted
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
-                        + elastic_launches.get(k, 0))
+                        + elastic_launches.get(k, 0)
+                        + serve_launches.get(k, 0))
     for row in observed:
         for k in KERNELS:
             launches[k] += row["launches"][k]

@@ -1211,3 +1211,128 @@ def test_resume_without_suspend_starts_a_card_engine(card):
     finally:
         bps.shutdown()
         api._declared_order.clear()
+
+
+# -- the serving and durability planes on the card ------------------------
+
+
+def _cpu_frame(value, numel):
+    """The CPU chain's onebit frame of ``value``: (sign words, scale)."""
+    from byteps_tpu_torch.compression import registry
+    comp = registry.create(ONEBIT_EF_KW, numel, torch.float32,
+                           for_server=True)
+    payload, _ = comp.compress(torch.as_tensor(value).reshape(-1).cpu(),
+                               comp.init_state(torch.device("cpu")))
+    return payload["words"], float(payload["scale"])
+
+
+def test_serving_encode_and_decodes_on_card_match_cpu(card, tmp_path):
+    """A onebit key served through the tier on the card: the plane's
+    encode (the pack kernel), the host's decode at receipt and the
+    client's decode (the unpack kernel) equal the CPU chain: sign words
+    bit for bit, the scale to rtol 1e-5 (an L1 sum in another order)."""
+    from byteps_tpu_torch.server import KVStore
+    from byteps_tpu_torch.server import serving_tier as st
+    numel = 1024000
+    store = KVStore(device=card)
+    store.init_key("g", torch.zeros(numel))
+    store.init_key("raw", torch.arange(100.0))
+    store.register_compression("g", ONEBIT_EF_KW, numel)
+    gen = torch.Generator().manual_seed(3)
+    store.push_delta("g", torch.randn(numel, generator=gen), worker_id=0,
+                     seq=1)
+    core = st.inproc_host(st.ServingHostCore(host_id=0, device=card))
+    tier = st.ServingTier(store, directory=st.TierDirectory(
+        static_hosts={0: ("127.0.0.1", 1)}), replicas=1,
+        cut_interval_s=None)
+    try:
+        ok.reset_launches()
+        snap = tier.cut()
+        # the encode (the EF chain's pack and its residual's unpack),
+        # then the host's decode
+        assert ok.launches["onebit_pack"] == 1
+        assert ok.launches["onebit_unpack"] == 2
+        words, scale = _cpu_frame(snap.refs["g"], numel)
+        wire = snap.enc_cache["g"]
+        assert np.array_equal(np.frombuffer(wire[8:], "<u4"),
+                              words.numpy().view(np.uint32))
+        np.testing.assert_allclose(np.frombuffer(wire[4:8], "<f4")[0],
+                                   scale, rtol=1e-5)
+        host = core.ring.latest().refs["g"]
+        client = tier.client(max_staleness_s=0.0, device=card)
+        got = client.pull()["g"]
+        assert got.device.type == "cuda"
+        assert ok.launches["onebit_unpack"] == 3        # the client's
+        want = ok.onebit_unpack_plain(words, torch.tensor(
+            float(np.frombuffer(wire[4:8], "<f4")[0])), numel)
+        assert same_bits(got.cpu(), want)
+        assert same_bits(torch.from_numpy(np.array(host)), want)
+        np.testing.assert_allclose(got.abs().max().item(), scale,
+                                   rtol=1e-5)
+        client.close()
+    finally:
+        tier.close()
+        st._reset_for_tests()
+
+
+def test_cut_stays_frozen_while_card_decoded_pushes_land(card):
+    """Pushes decoded on the card (``push_delta_wire``, the unpack
+    kernel) keep landing while a cut's views are read: every cut's views
+    keep the bytes they had when cut."""
+    import threading
+    from byteps_tpu_torch.server import KVStore
+    from byteps_tpu_torch.server.serving import SnapshotStore
+    numel = 262144
+    store = KVStore(device=card)
+    store.init_key("g", torch.zeros(numel))
+    store.register_compression("g", ONEBIT_EF_KW, numel)
+    wires = _onebit_wires(numel, 40, 1)
+    ss = SnapshotStore(store, retention=64)
+    cuts = []
+    done = threading.Event()
+
+    def pusher():
+        for i, w in enumerate(wires):
+            store.push_delta_wire("g", w, worker_id=0, seq=i + 1)
+        done.set()
+
+    t = threading.Thread(target=pusher)
+    t.start()
+    while not done.is_set():
+        snap = ss.cut()
+        cuts.append((snap, snap.refs["g"].tobytes()))
+    t.join()
+    assert len(cuts) >= 2
+    for snap, frozen in cuts:
+        assert snap.refs["g"].tobytes() == frozen
+    assert store.version("g") == len(wires)
+
+
+def test_journal_of_card_decoded_deltas_recovers_bit_for_bit(card,
+                                                             tmp_path):
+    """A durable store on the card journals the deltas its codec decoded
+    on the card (as numpy): a recovery on the card and one on the CPU
+    rebuild the same values, versions and floors bit for bit."""
+    import dataclasses
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.server import KVStore, wal
+    numel = 50000
+    cfg = dataclasses.replace(get_config(), wal_fsync="always")
+    store = KVStore(device=card)
+    dur = wal.attach(store, str(tmp_path), cfg=cfg)
+    store.init_key("c", torch.zeros(numel))
+    store.register_compression("c", ONEBIT_EF_KW, numel)
+    ok.reset_launches()
+    for i, w in enumerate(_onebit_wires(numel, 6, 2)):
+        store.push_delta_wire("c", w, worker_id=1, seq=i + 1)
+        if i == 2:
+            dur.checkpoint()
+    assert ok.launches["onebit_unpack"] == 6
+    want = (store.pull("c"), store.version("c"), dict(store._seen))
+    dur.close()
+    for dev in ("cuda", "cpu"):
+        got, stats = wal.recover(str(tmp_path), device=dev)
+        assert stats["had_snapshot"] == 1
+        assert same_bits(got.pull("c"), want[0])
+        assert (got.version("c"), got._seen) == want[1:]
+        got._durable.close()

@@ -348,6 +348,15 @@ _TOP_DOCS = {
     "failover": {"epoch": 1, "world": [1, 2], "coordinator": 1,
                  "standby": 2, "local_only": True,
                  "failover_in_progress": True, "ranks": {}},
+    # the serving tier's rows: ROLE=serve, the ring-arc share, DRAINING
+    "serving": {"epoch": 0, "world": [0], "coordinator": 0,
+                "ranks": {0: {"age_s": 0.1, "metrics": {"epoch": 0}}},
+                "serve_hosts": {0: {"addr": ["127.0.0.1", 7000]},
+                                1: {"addr": ["127.0.0.1", 7001]},
+                                4: {"addr": ["127.0.0.1", 7004]}},
+                "serve_ranks": {1: {"counters": {"serve.pulls": 9,
+                                                 "serve.shed": 3}}},
+                "serve_draining": [4], "serve_target": 3},
 }
 
 

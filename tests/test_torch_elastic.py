@@ -33,6 +33,15 @@ from .torch_member_common import (communicate, final, free_port,  # noqa: F401
                                   fresh_member_state, simulate, spawn)
 
 KILL = {"BYTEPS_FAULT_SEED": "7"}
+# Headroom for a loaded host (the suite runs under ``-n 6``, this file's
+# first test beside six interpreters importing JAX): a member whose
+# heartbeat thread or bus handler is starved past the 0.7 s detection
+# timeout, or that reaches the shrink rendezvous later than 3 s after its
+# peer, is taken for dead beside the victim, and the survivors agree on
+# {0} instead of {0, 2}.  The test's subject is the shrink's arithmetic,
+# not its detection speed.
+LOADED = {"BYTEPS_ELASTIC_HB_TIMEOUT": "3.0",
+          "BYTEPS_MEMBERSHIP_RENDEZVOUS_TIMEOUT": "10"}
 
 
 def test_shrink_to_survivors_matches_clean_run():
@@ -41,10 +50,10 @@ def test_shrink_to_survivors_matches_clean_run():
     from the state at the shrink ends."""
     n, kill_at = 9, 4
     bus, hb = free_port(), free_port()
-    procs = {r: spawn(r, (0, 1, 2), bus, hb, n, extra=(
-        {**KILL, "BYTEPS_FAULT_SPEC": f"kill:rank=1:step={kill_at}"}
-        if r == 1 else None)) for r in (0, 1, 2)}
-    outs = communicate(procs)
+    procs = {r: spawn(r, (0, 1, 2), bus, hb, n, extra={
+        **LOADED, **({**KILL, "BYTEPS_FAULT_SPEC": f"kill:rank=1:step={kill_at}"}
+                     if r == 1 else {})}) for r in (0, 1, 2)}
+    outs = communicate(procs, timeout=240)
     assert procs[1].returncode == 1, outs[1][-3000:]
     assert "START 1" in outs[1] and "FINAL" not in outs[1]
     finals = {}
@@ -57,9 +66,9 @@ def test_shrink_to_survivors_matches_clean_run():
     w_shrink = simulate([((0, 1, 2), kill_at - 1)])
     bus2 = free_port()
     procs2 = {r: spawn(r, (0, 2), bus2, None, n, extra={
-        "BYTEPS_ELASTIC_START_STEP": str(kill_at),
+        **LOADED, "BYTEPS_ELASTIC_START_STEP": str(kill_at),
         "BYTEPS_ELASTIC_INIT_W": repr(w_shrink)}) for r in (0, 2)}
-    outs2 = communicate(procs2)
+    outs2 = communicate(procs2, timeout=240)
     for r in (0, 2):
         assert procs2[r].returncode == 0, outs2[r][-3000:]
     clean = final(outs2[0])

@@ -512,8 +512,9 @@ def test_endpoint_routes_over_http(tmp_path):
     """An engine with telemetry, sampling and the endpoint on port 0:
     ``/metrics`` carries the attribution gauges, ``/healthz`` answers 200
     and then 503 while a rule fires, ``/debug/state`` has its ``trace``
-    section and the omitted list (which no longer names ``membership``:
-    the plane is ported), ``/timeseries`` has points."""
+    section, the serving, tier, reconciler and journal sections, and an
+    empty omitted list (every plane is ported), ``/timeseries`` has
+    points."""
     cfg = pcfg.Config(obs_port=0, ts_interval_s=0.01, health_windows=1,
                       trace_sample="1/1", trace_dir=str(tmp_path))
     api.init(cfg, device="cpu")
@@ -528,7 +529,12 @@ def test_endpoint_routes_over_http(tmp_path):
         dbg = json.loads(_get(port, "/debug/state")[1])
         assert dbg["trace"]["sample_n"] == 1
         assert "membership" not in dbg["omitted"]
-        assert dbg["omitted"] == ["serving", "wal", "reconciler"]
+        assert dbg["omitted"] == []
+        # every registered component of each plane (none is built here;
+        # an earlier test's may still be alive in this process)
+        for section in ("serving_planes", "serving_tier", "reconciler",
+                        "wal"):
+            assert isinstance(dbg[section], list), section
         assert dbg["engine"]["step"]["step"] >= 1
         for _ in range(500):
             doc = json.loads(_get(port, "/timeseries")[1])

@@ -35,7 +35,9 @@ JAX worker's:
   ``declare_update`` / ``push_pull_update`` (torch SGD with momentum
   0.9), each step committed exactly once across a torn dispatch;
 - ``BYTEPS_ELASTIC_SLOW_S`` (straggler runs): sleep this long before
-  each ``step_sync``; a ``Demoted`` rank waits, then rejoins.
+  each ``step_sync``; a ``Demoted`` rank waits, then rejoins;
+- ``BYTEPS_ELASTIC_HB_TIMEOUT``: the heartbeat's detection timeout
+  (default 0.7 s, beats every 0.08 s).
 """
 
 from __future__ import annotations
@@ -205,6 +207,7 @@ def main() -> int:
     partition_spec = os.environ.get("BYTEPS_ELASTIC_PARTITION_SPEC", "")
     partition_step = int(os.environ.get("BYTEPS_ELASTIC_PARTITION_STEP",
                                         "0"))
+    hb_timeout = float(os.environ.get("BYTEPS_ELASTIC_HB_TIMEOUT", "0.7"))
     # single-host engines; the world lives in the membership layer
     os.environ["DMLC_NUM_WORKER"] = "1"
     os.environ["DMLC_WORKER_ID"] = str(rank)
@@ -240,7 +243,7 @@ def main() -> int:
             on_failure = m.on_failure
     install_failure_action(on_failure)
     if hb_port:
-        m.host_heartbeat(interval=0.08, timeout=0.7, grace=60.0,
+        m.host_heartbeat(interval=0.08, timeout=hb_timeout, grace=60.0,
                          addr="127.0.0.1:" + hb_port,
                          on_failure=on_failure)
     from byteps_tpu_torch.common import obs_server as _obs

@@ -1,8 +1,9 @@
 """Shared set-up of the fault-plane parity tests of the port
-(``tests/test_torch_{slowness,failure_detector,checkpoint,transport}.py``):
-both packages' process config, counters, injector, membership epoch,
-slowness tracker, transport registry and installed failure action start
-fresh around every test, a port engine left running is shut down, and
+(``tests/test_torch_{slowness,failure_detector,checkpoint,transport,
+durability,serving,serving_tier,fleet}.py``): both packages' process
+config, counters, injector, membership epoch, slowness tracker,
+transport registry, serving tiers, durable process store and installed
+failure action start fresh around every test, a port engine left running is shut down, and
 :func:`threads_settle` waits for the threads a test started to end."""
 
 import os
@@ -42,6 +43,14 @@ def _reset():
         papi.shutdown(wait=False)
     papi._suspended = None
     papi._declared_order.clear()
+    # serving tiers and routers own supervised connections outside the
+    # transport's registry; the durable process store holds a journal
+    for mod in ("byteps_tpu.server.serving_tier",
+                "byteps_tpu_torch.server.serving_tier",
+                "byteps_tpu.server.wal", "byteps_tpu_torch.server.wal"):
+        m = sys.modules.get(mod)
+        if m is not None:
+            m._reset_for_tests()
     for mod in ("byteps_tpu.comm.transport", "byteps_tpu_torch.comm.transport"):
         tp = sys.modules.get(mod)
         if tp is not None:
