@@ -31,14 +31,20 @@ from ..compression.base import Compressor, State
 from .mesh import CommContext
 
 
-def _all_gather(comm: CommContext, t: torch.Tensor) -> torch.Tensor:
-    """(*shape) on each rank -> (R, *shape), rows in rank order; the
-    leaf travels as its bytes, whatever its dtype (a 0-d leaf comes back
-    as (R,))."""
+def all_gather_bytes(t: torch.Tensor, size: int,
+                     group=None) -> torch.Tensor:
+    """(*shape) on each of the ``size`` ranks of ``group`` (None: the
+    world) -> (size, *shape), rows in rank order; the leaf travels as its
+    bytes, whatever its dtype (a 0-d leaf comes back as (size,))."""
     flat = t.reshape(-1).contiguous().view(torch.uint8)
-    out = flat.new_empty(comm.size * flat.numel())
-    dist.all_gather_into_tensor(out, flat)
-    return out.view(t.dtype).reshape((comm.size,) + tuple(t.shape))
+    out = flat.new_empty(size * flat.numel())
+    dist.all_gather_into_tensor(out, flat, group=group)
+    return out.view(t.dtype).reshape((size,) + tuple(t.shape))
+
+
+def _all_gather(comm: CommContext, t: torch.Tensor) -> torch.Tensor:
+    """A payload leaf gathered over the world (:func:`all_gather_bytes`)."""
+    return all_gather_bytes(t, comm.size)
 
 
 def fused_compressed_push_pull(comm: CommContext, x: torch.Tensor,

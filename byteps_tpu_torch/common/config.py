@@ -1,5 +1,7 @@
-"""Typed configuration: the subset of ``byteps_tpu/common/config.py`` that
-the data-parallel gradient path reads.
+"""Typed configuration; port of ``byteps_tpu/common/config.py``, with
+every field of the JAX ``Config``.  Fields whose JAX meaning has no
+counterpart here are parsed and validated, and their comments say so;
+a value other than the default is logged once as ignored (``_INERT``).
 
 Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
 ``docs/env.md`` (the contract both packages share):
@@ -7,6 +9,13 @@ Environment variable names are the ``BYTEPS_*`` / ``DMLC_*`` names of
   - DMLC_NUM_WORKER / DMLC_WORKER_ID     -> num_hosts / host_id
   - BYTEPS_LOCAL_RANK / BYTEPS_LOCAL_SIZE -> local_rank / local_size
   - DMLC_PS_ROOT_URI / DMLC_PS_ROOT_PORT -> coordinator_address
+  - BYTEPS_FORCE_DISTRIBUTED / BYTEPS_DCN_SIZE -> force_distributed /
+                                            dcn_size (parsed only)
+  - BYTEPS_BUFFER_MIN_BYTES              -> buffer_min_bytes
+  - BYTEPS_DEFERRED_GATHER               -> deferred_gather (parsed only)
+  - BYTEPS_PALLAS                        -> use_pallas (parsed only)
+  - BYTEPS_DEBUG_SAMPLE_TENSOR           -> debug_sample_tensor
+  - BYTEPS_RESTART_LIMIT                 -> restart_limit (parsed only)
   - BYTEPS_PARTITION_BYTES               -> partition_bytes (rounded up to
                                             ALIGN_BYTES, config.py:795)
   - BYTEPS_SCHEDULING_CREDIT             -> scheduling_credit (0 = unlimited)
@@ -214,6 +223,42 @@ def _parse_trace_sample(spec: str) -> int:
     return n
 
 
+# Fields of the shared env contract that the port parses and does not act
+# on: field -> (env name, what the port does instead).  A value other than
+# the default is logged once per process, so an operator who sets one
+# learns it is ignored here.
+_INERT = {
+    "force_distributed": ("BYTEPS_FORCE_DISTRIBUTED",
+                          "the JAX package reads it nowhere either"),
+    "dcn_size": ("BYTEPS_DCN_SIZE",
+                 "the node count is num_hosts (DMLC_NUM_WORKER)"),
+    "use_pallas": ("BYTEPS_PALLAS",
+                   "a CUDA tensor always takes the CUDA kernel"),
+    "deferred_gather": ("BYTEPS_DEFERRED_GATHER",
+                        "buffer-mode assembly always gathers"),
+    "restart_limit": ("BYTEPS_RESTART_LIMIT",
+                      "the port has no launcher to restart workers"),
+}
+_inert_warned: set = set()
+
+
+def _warn_inert(cfg) -> None:
+    for name, (env, instead) in _INERT.items():
+        value = getattr(cfg, name)
+        default = Config.__dataclass_fields__[name].default
+        if name == "dcn_size":
+            if value in (0, cfg.num_hosts):
+                continue
+        elif value == default:
+            continue
+        if name in _inert_warned:
+            continue
+        _inert_warned.add(name)
+        from .logging import get_logger
+        get_logger().warning("%s=%r (%s) is ignored by byteps_tpu_torch: %s",
+                             name, value, env, instead)
+
+
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     if v is None or v == "":
@@ -253,6 +298,16 @@ class Config:
     local_rank: int = 0              # BYTEPS_LOCAL_RANK
     local_size: int = 1              # BYTEPS_LOCAL_SIZE
     coordinator_address: Optional[str] = None  # DMLC_PS_ROOT_URI:PORT
+    # BYTEPS_FORCE_DISTRIBUTED: the reference's single-worker test mode.
+    # The JAX package parses it and reads it nowhere; so does the port.
+    force_distributed: bool = False
+    # BYTEPS_DCN_SIZE: the JAX mesh's slice count (0 = the process
+    # count), read from the environment even for an explicit Config(...),
+    # as the JAX field is.  Parsed and validated only: the port's node
+    # count is num_hosts (DMLC_NUM_WORKER), one process per GPU
+    # (comm/mesh.py).
+    dcn_size: int = dataclasses.field(
+        default_factory=lambda: _env_int("BYTEPS_DCN_SIZE", 0))
 
     # --- partitioning / scheduling ---
     partition_bytes: int = PARTITION_BYTES_DEFAULT
@@ -267,6 +322,17 @@ class Config:
     # Auto-tuned chunk size and credit window per size bucket
     # (scheduler.ChunkPlanner); inert at more than one rank.
     autotune: bool = True
+    # BYTEPS_BUFFER_MIN_BYTES: a single-chunk sharded-update tensor of at
+    # least this many bytes rides the scatter accumulator, a smaller one
+    # the parts fallback (the JAX engine's buffer-mode rule; only
+    # sharded-update tensors have a buffer mode on the port)
+    buffer_min_bytes: int = 1 << 20
+    # BYTEPS_DEFERRED_GATHER: in the JAX package, buffer-mode assembly
+    # leaves the result block-sharded for XLA to gather where it is used.
+    # Parsed and does nothing here: eager PyTorch has no consumer-side
+    # gather to defer, so the port's assembly always gathers
+    # (comm/collectives.py assemble_scatter).
+    deferred_gather: bool = True
 
     # --- compression ---
     min_compress_bytes: int = 65536  # smaller tensors skip compression
@@ -304,6 +370,12 @@ class Config:
     # The C++ priority/credit queue (native/core.cc).  With True a failed
     # build or load raises; False selects the Python heap.
     use_native: bool = True
+    # BYTEPS_PALLAS: the JAX package's switch between its Pallas kernels
+    # and their jnp fallbacks.  Parsed and does nothing here: the port has
+    # no fallback to switch to.  A CUDA tensor always takes the CUDA
+    # kernel, a CPU tensor the plain version (ops/onebit_kernels.py,
+    # ops/flash_attention.py).
+    use_pallas: bool = True
 
     # --- modes ---
     enable_async: bool = False       # async-PS weight deltas
@@ -313,6 +385,11 @@ class Config:
     server_engine_threads: int = 4
     server_enable_schedule: bool = False
     server_debug_key: str = ""
+    # BYTEPS_DEBUG_SAMPLE_TENSOR: a substring of tensor names; the engine
+    # logs each matching chunk's input and result summaries from its
+    # syncer, and keeps a matching tensor off the scatter accumulator
+    # (core/engine.py _debug_sample)
+    debug_sample_tensor: str = ""
     key_hash_fn: str = "djb2"        # server/sharding.py ServerAssigner
     enable_mixed_mode: bool = False
     mixed_mode_bound: int = 101
@@ -368,6 +445,10 @@ class Config:
     fault_seed: int = 0
 
     # --- retry/backoff (common/retry.py) ---
+    # BYTEPS_RESTART_LIMIT: the launcher's restarts per worker (0 =
+    # none).  Parsed and validated; the port has no launcher yet
+    # (launcher/launch.py, ROADMAP Queue A 7), so nothing reads it.
+    restart_limit: int = 0
     retry_max_attempts: int = 3
     retry_base_delay_s: float = 0.1
     retry_max_delay_s: float = 2.0
@@ -481,8 +562,16 @@ class Config:
         r = self.partition_bytes % ALIGN_BYTES
         if r and self.partition_bytes < 2**31 - ALIGN_BYTES:
             self.partition_bytes += ALIGN_BYTES - r
+        if self.buffer_min_bytes < 0:
+            raise ValueError("buffer_min_bytes must be >= 0")
         if self.num_hosts < 1:
             raise ValueError("num_hosts must be >= 1")
+        if self.dcn_size < 0:
+            raise ValueError("dcn_size must be >= 0 (0 = derive from "
+                             "the process count)")
+        if self.restart_limit < 0:
+            raise ValueError("restart_limit must be >= 0")
+        _warn_inert(self)
         if self.local_size < 1:
             raise ValueError("local_size must be >= 1")
         if self.host_id < 0:
@@ -696,6 +785,13 @@ class Config:
             local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
             local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
             coordinator_address=f"{uri}:{port}" if uri and port else None,
+            force_distributed=_env_bool("BYTEPS_FORCE_DISTRIBUTED", False),
+            dcn_size=_env_int("BYTEPS_DCN_SIZE", 0),
+            buffer_min_bytes=_env_int("BYTEPS_BUFFER_MIN_BYTES", 1 << 20),
+            deferred_gather=_env_bool("BYTEPS_DEFERRED_GATHER", True),
+            use_pallas=_env_bool("BYTEPS_PALLAS", True),
+            debug_sample_tensor=_env_str("BYTEPS_DEBUG_SAMPLE_TENSOR", ""),
+            restart_limit=_env_int("BYTEPS_RESTART_LIMIT", 0),
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
                                      PARTITION_BYTES_DEFAULT),
             scheduling_credit=_env_int("BYTEPS_SCHEDULING_CREDIT", 0),

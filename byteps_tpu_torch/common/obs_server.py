@@ -60,6 +60,9 @@ def _refresh_live_gauges() -> None:
                        eng.scheduler.bytes_in_flight)
             gauges.set("engine.pushpull_mbps", eng.speed.speed()[1])
             gauges.set("engine.running", 1 if eng._running else 0)
+            # per-tensor codec and error-feedback residual norm: device
+            # reads, at scrape time only, never on the push path
+            eng.refresh_compression_gauges()
         except Exception:  # noqa: BLE001 — a mid-shutdown engine is fine
             pass
     else:

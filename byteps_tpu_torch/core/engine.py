@@ -101,6 +101,15 @@ fails with ``ABORTED: stale membership epoch`` (:class:`StaleEpochError`),
 counted in ``membership.stale_chunks_dropped`` with an
 ``engine.stale_chunk`` flight event.
 
+Debug sampling (``BYTEPS_DEBUG_SAMPLE_TENSOR``, JAX
+``engine.py:1125-1150``): the syncer logs each matching chunk's input
+and result summaries, and a matching sharded-update tensor takes the
+parts fallback instead of the accumulator.  The JAX engine also keeps a
+matching tensor off ``push_pull_local``'s single-process fast path; the
+port has no such path.  Scrape-time gauges:
+:meth:`PushPullEngine.refresh_compression_gauges`, called by the
+``/metrics`` refresh.
+
 Not ported: AOT warming.  Eager PyTorch compiles no program per shape,
 and the CUDA kernels are built once per process at their first launch,
 so there is nothing to warm (the ``compile`` attribution reads 0).  A
@@ -143,11 +152,6 @@ _log = get_logger()
 
 _SHUTDOWN = object()  # sync-queue sentinel
 _DRAIN_BUDGET_S = 60.0  # shutdown waits this long, in all, for handles
-# A single-chunk sharded-update tensor rides the scatter accumulator from
-# this size up, and the parts fallback below it: the JAX engine's
-# buffer-mode rule, at the default of its BYTEPS_BUFFER_MIN_BYTES (not a
-# knob here).
-BUFFER_MIN_BYTES = 1 << 20
 
 
 class StaleEpochError(RuntimeError):
@@ -402,6 +406,8 @@ class PushPullEngine:
                       "wire_pull": 0}
         # name -> ShardedUpdateSlot, one per declare_update
         self.update_slots: Dict[str, ShardedUpdateSlot] = {}
+        # tensor -> the codec refresh_compression_gauges last published
+        self._comp_gauge_codecs: Dict[str, str] = {}
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
         self._sync_q: "queue.Queue" = queue.Queue()
@@ -608,16 +614,25 @@ class PushPullEngine:
                 ctx.inflight -= 1
             raise
 
+    def _sampled(self, name: str) -> bool:
+        """Whether ``BYTEPS_DEBUG_SAMPLE_TENSOR`` names this tensor."""
+        pat = self.cfg.debug_sample_tensor
+        return bool(pat) and pat in name
+
     def _scatter_layout_locked(self, ctx: TensorContext):
         """A sharded-update tensor's column layout ``(layout, C)`` on the
         scatter accumulator, or None for the parts fallback: chunk bounds
-        the ``[L, C]`` view cannot express, or a single chunk under
-        BUFFER_MIN_BYTES (the JAX engine's buffer-mode rule).  Computed
-        once per chunk geometry; the caller holds ``ctx.lock``."""
+        the ``[L, C]`` view cannot express, a single chunk under
+        ``buffer_min_bytes`` (the JAX engine's buffer-mode rule), or a
+        tensor debug sampling watches (sampling reads each chunk's own
+        result, which the accumulator never holds).  Computed once per
+        chunk geometry; the caller holds ``ctx.lock``."""
+        if self._sampled(ctx.name):
+            return None
         if ctx.scatter_layout is None:
             layout = None
             if (len(ctx.chunk_bounds) > 1
-                    or ctx.nbytes >= BUFFER_MIN_BYTES):
+                    or ctx.nbytes >= self.cfg.buffer_min_bytes):
                 layout = scatter_layout(ctx.chunk_bounds,
                                         self.comm.local_size)
             ctx.scatter_layout = layout or "ineligible"
@@ -832,6 +847,60 @@ class PushPullEngine:
                         wc, sc, wc.init_state(self.device),
                         sc.init_state(self.device)))
             ctx.compressor = slots
+
+    @staticmethod
+    def _ef_error_leaves(state) -> List[torch.Tensor]:
+        """Every ``"error"`` leaf of a (decorator-nested) compressor
+        state: the error-feedback residuals."""
+        out = []
+        if isinstance(state, dict):
+            for k, v in state.items():
+                if k == "error":
+                    out.append(v)
+                else:
+                    out.extend(PushPullEngine._ef_error_leaves(v))
+        return out
+
+    def refresh_compression_gauges(self) -> None:
+        """Scrape-time compression gauges (JAX ``engine.py:773-800``):
+        per compressed tensor, the codec it carries
+        (``compression.active{tensor=,codec=}``) and the error-feedback
+        residual's L2 norm (``compression.ef_norm{tensor=}``).  Reads
+        device state, so it runs at scrape time (the ``/metrics``
+        refresh), never on the push path.
+
+        ``_comp_gauge_codecs`` remembers what this method last published
+        per tensor: the registry has no series removal, so the series of
+        a codec the ladder retired is set to 0 (a stale 1.0 would keep the
+        old codec in bps_top's CODEC column)."""
+        for name in self.registry.names_in_declaration_order():
+            ctx = self.registry.get(name)
+            # one read: a concurrent retune can drop ctx.compressor
+            # between a check and the loop
+            slots = ctx.compressor if ctx is not None else None
+            prev = self._comp_gauge_codecs.get(name)
+            if not slots:
+                if prev is not None:
+                    gauges.set("compression.active", 0.0, tensor=name,
+                               codec=prev)
+                    del self._comp_gauge_codecs[name]
+                continue
+            codec = ctx.compression_kwargs.get("compressor", "?")
+            if prev is not None and prev != codec:
+                gauges.set("compression.active", 0.0, tensor=name,
+                           codec=prev)
+            self._comp_gauge_codecs[name] = codec
+            gauges.set("compression.active", 1.0, tensor=name, codec=codec)
+            norm_sq, found = 0.0, False
+            # on the engine stream, which wrote the residuals
+            with self._on_stream():
+                for slot in slots:
+                    for err in self._ef_error_leaves(slot.wstate):
+                        found = True
+                        norm_sq += float(err.float().square().sum())
+            if found:
+                gauges.set("compression.ef_norm", norm_sq ** 0.5,
+                           tensor=name)
 
     def _make_chunk_callback(self, pending: _PendingTensor, part_idx: int):
         def cb(data, status: Status):
@@ -1142,11 +1211,33 @@ class PushPullEngine:
                 # result was computed over a group that no longer exists
                 task.callback(None, _drop_stale(task, ep, "retire"))
             else:
+                if outs[i] is not None and self._sampled(task.name):
+                    self._debug_sample(task, outs[i])
                 task.callback(outs[i], Status.ok())
         if telemetry:
             # assembly and the callbacks: the tail of a push's path
             self.step_stats.add_component(
                 "assemble", (time.perf_counter() - t_cb0) * 1e3)
+
+    @staticmethod
+    def _debug_sample(task: ChunkTask, out: torch.Tensor) -> None:
+        """Stage-wise tensor sampling (JAX ``engine.py:1125-1150``,
+        reference ``BYTEPS_DEBUG_SAMPLE_TENSOR``): log the sum, the
+        abs-sum and the first element of a matching chunk's input and of
+        its reduction.  Called from the syncer after the unit's wait, so
+        the host read cannot stall dispatch."""
+        try:
+            i = _chunk(task).detach().to("cpu", torch.float64)
+            o = out.detach().to("cpu", torch.float64).reshape(-1)
+            _log.warning(
+                "sample %s key=%d off=%d in[sum=%.6g abs=%.6g first=%.6g] "
+                "out[sum=%.6g abs=%.6g first=%.6g]",
+                task.name, task.key, task.offset_elems,
+                float(i.sum()), float(i.abs().sum()), float(i[0]),
+                float(o.sum()), float(o.abs().sum()), float(o[0]))
+        except Exception:  # noqa: BLE001 — sampling must never kill a loop
+            _log.debug("debug sample for %s failed", task.name,
+                       exc_info=True)
 
     def _trace_chunk(self, task: ChunkTask) -> None:
         """A captured chunk's two spans, ``queued`` and ``push_pull``,

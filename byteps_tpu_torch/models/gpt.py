@@ -19,8 +19,12 @@ Numerics follow flax with ``dtype=cfg.dtype`` over f32 parameters:
 - ``gelu`` is the tanh form (``jax.nn.gelu``'s default);
 - logits are returned in f32.
 
-Mixture-of-experts blocks (``moe_experts > 0``) and per-layer
-rematerialisation (the JAX config's ``remat``) are not ported yet.
+``remat`` (the JAX config's ``nn.remat`` of each block) wraps each block
+in ``torch.utils.checkpoint`` (non-reentrant): the block's activations
+are dropped after the forward and recomputed in the backward, which runs
+the same ops on the same inputs, so the loss and gradients keep their
+bits.  Mixture-of-experts blocks (``moe_experts > 0``) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..parallel.sequence import full_attention
 
@@ -51,6 +56,7 @@ class GPTConfig:
     max_position: int = 32768        # long-context by default
     dtype: torch.dtype = torch.bfloat16
     moe_experts: int = 0             # > 0 is not ported yet
+    remat: bool = False              # checkpoint each block
 
 
 def gpt_small() -> GPTConfig:
@@ -122,6 +128,16 @@ class LayerNorm(nn.Module):
         var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+def run_block(block: nn.Module, remat: bool, *args) -> torch.Tensor:
+    """``block(*args)``; with ``remat``, under a non-reentrant
+    ``torch.utils.checkpoint`` when autograd records (the JAX models'
+    ``nn.remat`` of each layer)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(block, *args,
+                                                 use_reentrant=False)
+    return block(*args)
 
 
 @torch.no_grad()
@@ -206,7 +222,7 @@ class GPT(nn.Module):
                                      device=input_ids.device)[None]
         x = self.wte(input_ids) + self.wpe(positions)
         for block in self.h:
-            x = block(x)
+            x = run_block(block, self.cfg.remat, x)
         return self.lm_head(self.ln_f(x)).float()
 
 

@@ -13,10 +13,8 @@ untied embedding and lm head.  Numerics follow the JAX model:
 - GQA repeats each K/V head ``groups`` times in place
   (``repeat_interleave``, as ``jnp.repeat``), so the attention callable
   sees as many K/V heads as query heads;
-- logits in f32.
-
-Per-layer rematerialisation (the JAX config's ``remat``) is not ported
-yet.
+- logits in f32;
+- ``remat`` checkpoints each block, as ``models/gpt.py`` does.
 """
 
 from __future__ import annotations
@@ -30,7 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.sequence import full_attention
-from .gpt import AttnFn, Dense, Embed, init_params, load_flax_params
+from .gpt import (AttnFn, Dense, Embed, init_params, load_flax_params,
+                  run_block)
 from .gpt import lm_loss, token_nll  # noqa: F401 — the shared LM loss
 
 __all__ = [
@@ -52,6 +51,7 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False              # checkpoint each block
 
     def __post_init__(self):
         if self.num_heads % self.num_kv_heads:
@@ -205,7 +205,7 @@ class Llama(nn.Module):
         positions = positions.expand(b, t)
         x = self.wte(input_ids)
         for block in self.h:
-            x = block(x, positions)
+            x = run_block(block, self.cfg.remat, x, positions)
         return self.lm_head(self.norm_f(x)).float()
 
 

@@ -403,10 +403,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the recovery's ms and bytes, each process's onebit launches and its
    seconds.
 
+14. the fused data-parallel step and the benchmark's models
+   (``fused_step_phase``), one rank, NCCL at a world of one:
+   - (a) BERT-large MLM at full width (24 layers, hidden 1024, vocab
+     30528, 32 examples of 128 tokens, weights and batch from the seed,
+     AdamW 1e-4, the gathered head) through ``make_dp_train_step``
+     (``tools/bert_mlm.py``'s ``build``), batches through
+     ``ShardedBatchLoader`` (pinned copies on a side stream), in two
+     arms: ``flat`` (``push_pull_tree``) and ``onebit``
+     (``compress_dcn=make_onebit_pair()``: the 148 gradients of at least
+     2 MiB take the compressed hop).  FUSED_WARMUP steps, then the onebit
+     counters zeroed and FUSED_STEPS timed steps: ms a step, examples/s,
+     the loss finite, onebit launches a step (flat: none; onebit: a pack
+     and a merge per gradient past the gate, no unpack).  One checked
+     step each: the flat arm's averaged gradients equal the local ones
+     bit for bit; the onebit hop of the largest gradient equals the plain
+     merge of its words and scale bit for bit, its words the plain
+     pack's, its scale the plain pack's to rtol 1e-6;
+   - (b) Llama-3-8B width with OBS_LLAMA_LAYERS layers (2 x 4096, flash
+     attention), one forward and backward each of ``plain``,
+     ``plain_again`` and ``remat``: the loss bit for bit, each gradient
+     of ``remat`` no further from ``plain`` than ``plain_again`` is (bit
+     for bit where a plain step repeats its bits), the flash forward
+     launched twice a layer under remat; ms and peak memory of each;
+   - (c) ResNet-50 (cross-replica BatchNorm over the world) and VGG-16
+     at full width, 32 images of 224x224, through
+     ``make_vision_trainer``: 1 warm-up and VISION_STEPS timed steps,
+     images/s, the loss finite.
+   Every time is printed beside the card's name and power limit.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
-4, the two LM slices', phase 10's arms and phase 11's, 12's and 13's
-processes, which count their own);
+4, the two LM slices', phase 10's arms, phase 11's, 12's and 13's
+processes, which count their own, and phase 14's runs);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -4178,6 +4207,315 @@ def _serve_report(name, cuts, smi, pull_ms, client, up, t0, worst,
     log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the fused data-parallel step and the benchmark's models
+# ---------------------------------------------------------------------------
+
+FUSED_DEVICE = "cuda"
+FUSED_BERT = ("bert_large", 32, 128)     # config, examples a rank, sequence
+FUSED_WARMUP = 3                         # steps before each BERT arm's timing
+FUSED_STEPS = 10                         # timed steps of each BERT arm
+FUSED_LLAMA = ("llama3_8b", OBS_LLAMA_LAYERS, 2, 4096)  # layers, batch, seq
+FUSED_VISION = (32, 224)                 # images a step, their size
+VISION_STEPS = 2                         # timed steps of each vision model
+
+
+def fused_step_phase(torch, ok, fa, smi):
+    """Phase 14: (a) BERT MLM through ``make_dp_train_step``, flat and
+    with the onebit hop; (b) Llama with ``remat`` off and on; (c) ResNet-50
+    and VGG-16 through ``make_vision_trainer``.  Returns the onebit and
+    the flash launches of its runs."""
+    from byteps_tpu_torch.comm.mesh import bootstrap, resolve_device
+    from byteps_tpu_torch.common.config import Config
+
+    t_phase = time.perf_counter()
+    comm = bootstrap(Config(), resolve_device(FUSED_DEVICE))
+    try:
+        onebit = fused_bert_arms(torch, ok, comm, smi)
+        torch.cuda.empty_cache()
+        flash = remat_arms(torch, fa, comm.device, smi)
+        torch.cuda.empty_cache()
+        vision_arms(torch, comm, smi)
+    finally:
+        comm.close()
+    torch.cuda.empty_cache()
+    log(f"fused step phase: {time.perf_counter() - t_phase:.1f} s")
+    return onebit, flash
+
+
+def fused_bert_arms(torch, ok, comm, smi):
+    """BERT MLM at FUSED_BERT through ``make_dp_train_step`` (the tool's
+    ``build``: AdamW 1e-4, the gathered head, batches through
+    ``ShardedBatchLoader``), in three arms on the same weights and batch:
+    ``plain`` (the tool's yardstick: no push_pull), ``flat``
+    (``push_pull_tree``) and ``onebit`` (``compress_dcn=
+    make_onebit_pair()``).  After FUSED_WARMUP steps the onebit counters
+    are zeroed, FUSED_STEPS steps are timed and the counters read: the
+    plain and flat arms launch none, the onebit arm one pack and one merge
+    a step for each gradient of at least the 2 MiB gate, and no unpack.
+    One more step under torch.profiler gives each arm's device-busy share
+    and kernel count.  Then one
+    checked step per arm: at one rank the flat arm's averaged gradients
+    equal the local ones bit for bit; the onebit arm's output for its
+    largest gradient equals the plain merge of the kernel's words and
+    scale bit for bit, its words equal the plain pack's and its scale
+    the plain pack's to rtol 1e-6 (phase 3's bounds).  Returns the onebit
+    arm's launches over its timed steps."""
+    import math
+
+    from byteps_tpu_torch.models import bert
+    from byteps_tpu_torch.ops import collective_ops as co
+    from byteps_tpu_torch.parallel import data_parallel as dp
+    from byteps_tpu_torch.tools import bert_mlm
+
+    name, per_rank, seq = FUSED_BERT
+    cfg = getattr(bert, name)()
+    gate = co.dcn_compress_min_bytes()
+    on_card = comm.device.type == "cuda"
+    counted, step_ms = {}, {}
+    for arm in ("plain", "flat", "onebit"):
+        model, opt, step, batch = bert_mlm.build(
+            comm, cfg, per_rank, seq, "onebit" if arm == "onebit" else None,
+            plain=arm == "plain")
+        params = list(model.parameters())
+        n_hop = sum(p.numel() * p.element_size() >= gate for p in params)
+        bert_mlm.timed_steps(torch, comm, step, batch, FUSED_WARMUP)
+        ok.reset_launches()
+        dt, loss = bert_mlm.timed_steps(torch, comm, step, batch,
+                                        FUSED_STEPS)
+        got = dict(ok.launches)
+        check(math.isfinite(loss), f"fused bert {arm}: loss {loss}")
+        want = ({"onebit_pack": n_hop * FUSED_STEPS, "onebit_unpack": 0,
+                 "onebit_unpack_sum": n_hop * FUSED_STEPS}
+                if arm == "onebit" else {k: 0 for k in KERNELS})
+        check(not on_card or got == want,
+              f"fused bert {arm}: onebit launches {got}, expected {want}")
+        ms = step_ms[arm] = dt / FUSED_STEPS * 1e3
+        b = dp.shard_batch(comm, batch)
+        prof = (bert_mlm.profile_step(torch, lambda: step(b)) if on_card
+                else {"wall_ms": 0.0, "busy_ms": 0.0, "kernels": 0,
+                      "top_ms": []})
+        log(f"fused bert {arm} [{smi}]: {name} {per_rank} x {seq} a rank, "
+            f"{sum(p.numel() for p in params)} parameters; {ms:.2f} ms a "
+            f"step ({ms - step_ms['plain']:.2f} over plain), "
+            f"{FUSED_STEPS * per_rank / dt:.1f} examples/s over "
+            f"{FUSED_STEPS} steps after {FUSED_WARMUP}; loss {loss:.4f}; "
+            f"{n_hop} gradients of {len(params)} at or past the "
+            f"{gate} B gate; onebit launches a step "
+            f"{ {k: v / FUSED_STEPS for k, v in got.items()} }; profiled "
+            f"step {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['busy_ms']:.2f} ms "
+            f"({prof['busy_ms'] / max(prof['wall_ms'], 1e-9):.1%}), "
+            f"{prof['kernels']} kernels, the most device ms "
+            f"{[(k, round(v, 2)) for k, v in prof['top_ms']]}")
+        if arm == "flat":
+            _check_flat_step(torch, dp, step, b)
+        elif arm == "onebit":
+            _check_onebit_step(torch, ok, dp, step, b,
+                               max(params, key=lambda p: p.numel()))
+        counted[arm] = got
+        del model, opt, step, params
+        torch.cuda.empty_cache()
+    return counted["onebit"]
+
+
+def _check_flat_step(torch, dp, step, batch):
+    """One step with ``push_pull_tree`` watched: every averaged gradient
+    equals the gradient it was given, bit for bit (one rank)."""
+    real, seen = dp.push_pull_tree, {}
+
+    def watch(comm, grads, op="average", inplace=False):
+        seen["before"] = {n: g.clone() for n, g in grads.items()}
+        seen["after"] = grads
+        return real(comm, grads, op, inplace=inplace)
+
+    dp.push_pull_tree = watch
+    try:
+        step(batch)
+    finally:
+        dp.push_pull_tree = real
+    bad = [n for n, g in seen["before"].items()
+           if not same_bits(g, seen["after"][n])]
+    check(not bad, f"fused bert flat: {len(bad)} averaged gradients differ "
+          f"from the local ones at one rank, e.g. {bad[:3]}")
+    log(f"fused bert flat: {len(seen['before'])} averaged gradients equal "
+        f"the local ones bit for bit")
+
+
+def _check_onebit_step(torch, ok, dp, step, batch, target):
+    """One step with the hop of ``target``'s gradient watched: its
+    output against the plain versions on the same input."""
+    real, cap = dp.hierarchical_push_pull, {}
+
+    def watch(comm, x, op, compress, decompress, *a, **kw):
+        if x is not target.grad:
+            return real(comm, x, op, compress, decompress, *a, **kw)
+
+        def spy(shard):
+            payload = compress(shard)
+            cap["payload"] = {k: v.clone() for k, v in payload.items()}
+            return payload
+
+        cap["in"] = x.detach().reshape(-1).clone()
+        out = real(comm, x, op, spy, decompress, *a, **kw)
+        cap["out"] = out.reshape(-1).clone()
+        return out
+
+    dp.hierarchical_push_pull = watch
+    try:
+        step(batch)
+    finally:
+        dp.hierarchical_push_pull = real
+    check("payload" in cap, "fused bert onebit: the largest gradient did "
+          "not take the compressed hop")
+    x, numel = cap["in"], cap["in"].numel()
+    words, scale = cap["payload"]["words"], cap["payload"]["scale"]
+    w0, s0 = ok.onebit_pack_plain(x)
+    check(torch.equal(words, w0), "fused bert onebit: the hop's words "
+          "differ from the plain pack's")
+    rel = float((scale - s0[1]).abs() / s0[1].abs())
+    check(rel <= 1e-6, f"fused bert onebit: scale rel err {rel:.3g}")
+    want = ok.onebit_unpack_sum_plain(words[None], scale.reshape(1), numel)
+    check(same_bits(cap["out"], want), "fused bert onebit: the hop's "
+          "output differs from the plain merge of its words and scale")
+    log(f"fused bert onebit: the hop of the largest gradient ({numel} "
+        f"elements) equals the plain versions: words and output bit for "
+        f"bit, scale rel err {rel:.3g}")
+
+
+def remat_arms(torch, fa, dev, smi):
+    """Llama at FUSED_LLAMA (flash attention), one forward and backward
+    each of ``plain``, ``plain_again`` and ``remat`` on the same weights
+    and batch.  The loss must keep its bits; each gradient of ``remat``
+    must differ from ``plain``'s by no more than ``plain_again``'s does
+    (bit for bit wherever a plain step repeats its own bits); the flash
+    kernels run ``num_layers`` times a step each, the forward twice as
+    often under ``remat``.  Prints each run's ms, loss and peak memory
+    (and the step's own, above the memory held before it).  Returns the
+    flash launches of the three runs."""
+    import dataclasses
+
+    from byteps_tpu_torch.models import gpt, llama
+    from byteps_tpu_torch.ops.flash_attention import flash_attention
+    from byteps_tpu_torch.parallel.long_context import synthetic_lm_batch
+
+    name, layers, batch, seq = FUSED_LLAMA
+    base = dataclasses.replace(getattr(llama, name)(), num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = llama.Llama(base, attn_fn=flash_attention, device=dev,
+                        generator=gen)
+    data = synthetic_lm_batch(gen, base, batch, seq)
+    on_card = dev.type == "cuda"
+    total = {k: 0 for k in FLASH_KERNELS}
+    runs = {}
+    for arm, remat in (("plain", False), ("plain_again", False),
+                       ("remat", True)):
+        model.cfg = dataclasses.replace(base, remat=remat)
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        loss = gpt.lm_loss(model(data["input_ids"]), data["labels"])
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        got = dict(fa.launches)
+        for k in total:
+            total[k] += got[k]
+        want = {"flash_fwd": layers * (2 if remat else 1),
+                "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+        check(not on_card or got == want,
+              f"remat {arm}: flash launches {got}, expected {want}")
+        runs[arm] = {"loss": loss.detach(), "ms": ms, "peak": peak,
+                     "step_peak": peak - held,
+                     "grads": {n: p.grad for n, p in
+                               model.named_parameters()}}
+        log(f"remat {arm} [{smi}]: {name} with {layers} layers, {batch} x "
+            f"{seq}; forward + backward {ms:.1f} ms; loss "
+            f"{loss.item():.6f}; peak memory {peak / 2**30:.2f} GiB, "
+            f"{(peak - held) / 2**30:.2f} GiB above the "
+            f"{held / 2**30:.2f} GiB held before the step; flash launches "
+            f"{got}")
+        loss = None
+    plain, again, rem = runs["plain"], runs["plain_again"], runs["remat"]
+    check(same_bits(plain["loss"], rem["loss"]),
+          f"remat: loss {rem['loss'].item()} against "
+          f"{plain['loss'].item()} without remat")
+    worse, equal, floor, d_max = [], 0, {}, 0.0
+    for n, g in plain["grads"].items():
+        d_rep = float((again["grads"][n] - g).abs().max())
+        d = float((rem["grads"][n] - g).abs().max())
+        d_max = max(d_max, d)
+        if same_bits(rem["grads"][n], g):
+            equal += 1
+        else:
+            floor[n] = (d, d_rep)
+        if d > d_rep:
+            worse.append((n, d, d_rep))
+    check(not worse, f"remat: gradients further from the plain step than "
+          f"a second plain step is: {worse[:5]}")
+    log(f"remat: loss bit for bit; max |d| over every gradient {d_max}; "
+        f"{equal} of {len(plain['grads'])} gradients bit for bit; the others (max |d| with remat, max |d| "
+        f"of a second plain step) {floor}; peak memory "
+        f"{plain['peak'] / 2**30:.2f} GiB plain, {rem['peak'] / 2**30:.2f} "
+        f"GiB remat (the step's own {plain['step_peak'] / 2**30:.2f} and "
+        f"{rem['step_peak'] / 2**30:.2f} GiB) [{smi}]")
+    runs.clear()
+    return total
+
+
+def vision_arms(torch, comm, smi):
+    """ResNet-50 (cross-replica BatchNorm over the world) and VGG-16 at
+    full width, FUSED_VISION images a step, through
+    ``make_vision_trainer`` with SGD(momentum 0.9; lr 0.1 for ResNet-50 as
+    the JAX bench, 0.01 for VGG-16, which has no BatchNorm): 1 warm-up
+    and VISION_STEPS timed steps each, the loss finite at every step."""
+    import math
+
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.models import resnet
+
+    dev = comm.device
+    n, size = FUSED_VISION
+    for name in ("resnet50", "vgg16"):
+        if name == "resnet50":
+            model = resnet.resnet50(generator=torch.Generator().manual_seed(
+                4), bn_group=dist.group.WORLD).to(dev)
+            lr = 0.1
+        else:
+            model = resnet.vgg16(image_size=size, device=dev,
+                                 generator=torch.Generator(
+                                     device=dev).manual_seed(4),
+                                 dropout_generator=torch.Generator(
+                                     device=dev).manual_seed(5))
+            lr = 0.01
+        step = resnet.make_vision_trainer(
+            comm, model, torch.optim.SGD(model.parameters(), lr=lr,
+                                         momentum=0.9))
+        batch = resnet.synthetic_images(torch.Generator().manual_seed(6), n,
+                                        size, 1000, dev)
+        losses, ms = [step(batch).item()], []
+        for _ in range(VISION_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(batch).item())      # .item() synchronizes
+            ms.append((time.perf_counter() - t0) * 1e3)
+        dt = sum(ms) / 1e3
+        check(all(math.isfinite(v) for v in losses),
+              f"vision {name}: losses {losses}")
+        log(f"vision {name} [{smi}]: {n} x {size}x{size}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters; "
+            f"{dt / VISION_STEPS * 1e3:.2f} ms a step "
+            f"({', '.join(f'{v:.2f}' for v in ms)}), "
+            f"{VISION_STEPS * n / dt:.1f} images/s over {VISION_STEPS} steps "
+            f"after 1; losses {[round(v, 4) for v in losses]}")
+        del model, step
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4239,12 +4577,16 @@ def main():
     elastic_launches = elastic_phase(torch, smi)
     log(f"elastic membership phase: {time.perf_counter() - t_phase:.1f} s")
     serve_launches = serving_phase(torch, smi)
+    fused_launches, fused_flash = fused_step_phase(torch, ok, fa, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
-    # and those phase 11's, 12's and 13's processes counted
+    # those phase 11's, 12's and 13's processes counted, and phase 14's
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
                         + elastic_launches.get(k, 0)
-                        + serve_launches.get(k, 0))
+                        + serve_launches.get(k, 0)
+                        + fused_launches.get(k, 0))
+    for k in FLASH_KERNELS:
+        flash_launches[k] += fused_flash[k]
     for row in observed:
         for k in KERNELS:
             launches[k] += row["launches"][k]

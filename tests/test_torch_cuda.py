@@ -1336,3 +1336,71 @@ def test_journal_of_card_decoded_deltas_recovers_bit_for_bit(card,
         assert same_bits(got.pull("c"), want[0])
         assert (got.version("c"), got._seen) == want[1:]
         got._durable.close()
+
+
+def test_onebit_hop_on_card_matches_plain(card):
+    """The fused step's compressed hop at a world of one over NCCL:
+    ``hierarchical_push_pull`` with ``make_onebit_pair()`` launches one
+    pack and one merge, and its output equals the plain versions' chain
+    (pack, the gathered row, unpack_sum, over one rank) bit for bit on
+    the same input; words and values also equal the CPU chain's, the
+    scale to rtol 1e-6 (an L1 sum in another order)."""
+    from byteps_tpu_torch.comm.mesh import bootstrap, resolve_device
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.ops.collective_ops import (hierarchical_push_pull,
+                                                     make_onebit_pair)
+    comm = bootstrap(Config(), resolve_device("cuda"))
+    try:
+        numel = 512 * 1024 + 37
+        x = _x(numel, 11, card)
+        x[3] = 1.0
+        c, d = make_onebit_pair()
+        ok.reset_launches()
+        out = hierarchical_push_pull(comm, x, "average", c, d,
+                                     compress_min_bytes=0)
+        torch.cuda.synchronize()
+        assert ok.launches["onebit_pack"] == 1
+        assert ok.launches["onebit_unpack_sum"] == 1
+        w, s = ok.onebit_pack_plain(x)
+        want = ok.onebit_unpack_sum_plain(w[None], s[1:], numel)
+        assert same_bits(out, want)
+        wc, sc = ok.onebit_pack_plain(x.cpu())
+        torch.testing.assert_close(s.cpu(), sc, rtol=1e-6, atol=0)
+        assert torch.equal(w.cpu(), wc)
+    finally:
+        comm.close()
+
+
+def test_prefetch_side_stream_copy_matches_sync_copy(card):
+    """``prefetch_to_device`` on the card: each batch, copied from pinned
+    memory on a side stream, equals a synchronous copy; the consumer's
+    stream waits for the copy, and the staged tensors are tied to it by
+    ``record_stream`` (a slow consumer kernel queued first still reads
+    the right bytes)."""
+    from byteps_tpu_torch.utils.prefetch import prefetch_to_device
+    rng = np.random.RandomState(12)
+    host = [{"x": rng.randn(256, 1024).astype(np.float32),
+             "ids": torch.from_numpy(rng.randint(0, 1000, (256, 7)))}
+            for _ in range(6)]
+    recorded = []
+    real = torch.Tensor.record_stream
+
+    def spy(t, stream):
+        recorded.append(stream)
+        return real(t, stream)
+
+    torch.Tensor.record_stream = spy
+    try:
+        consumer = torch.cuda.current_stream(card)
+        for i, b in enumerate(prefetch_to_device(iter(host), size=2,
+                                                 device=card)):
+            torch.cuda._sleep(1_000_000)       # the step before reads late
+            assert b["x"].device == card and b["ids"].device == card
+            assert torch.equal(b["x"], torch.from_numpy(host[i]["x"]).to(
+                card))
+            assert torch.equal(b["ids"], host[i]["ids"].to(card))
+        assert i == len(host) - 1
+        assert len(recorded) == 2 * len(host)
+        assert all(s == consumer for s in recorded)
+    finally:
+        torch.Tensor.record_stream = real

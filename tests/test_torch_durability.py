@@ -297,14 +297,64 @@ def test_wal_torn_write_and_bitflip_recover_to_last_durable_point(tmp_path):
         store2._durable.close()
 
 
-def test_wal_fsync_policies_and_dropped_fsync(tmp_path):
+FSYNC_INTERVAL_S = 3600.0
+
+
+def _clock_past_interval(monkeypatch, module):
+    """Give ``module`` (either package's ``wal``) a ``time`` whose
+    monotonic clock reads two intervals past the real one.  A log starts
+    with ``_last_sync = 0.0``, so its first ``interval`` fsync waits until
+    the monotonic clock passes the interval: on a host up for less than
+    ``FSYNC_INTERVAL_S`` the real clock would see no fsync at all
+    (ROADMAP Queue C 30, the reference's rule)."""
+    real = module.time
+
+    class _Clock:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def monotonic():
+            return real.monotonic() + 2 * FSYNC_INTERVAL_S
+
+    monkeypatch.setattr(module, "time", _Clock())
+
+
+def _count_fsyncs(module, counters_, dirpath, policy):
+    """fsyncs of three appends through ``module.WriteAheadLog``."""
+    before = counters_.get("wal.fsyncs")
+    log = module.WriteAheadLog(str(dirpath), fsync=policy,
+                               fsync_interval_s=FSYNC_INTERVAL_S)
+    log.replay()
+    for i in range(1, 4):
+        log.append("epoch", i)
+    synced = counters_.get("wal.fsyncs") - before
+    log.close()
+    return synced
+
+
+def test_wal_interval_fsync_counts_match_jax(tmp_path, monkeypatch):
+    """The same appends under the same patched clock fsync as often in
+    both packages, for every policy."""
+    from byteps_tpu.common.telemetry import counters as jcounters
+    _clock_past_interval(monkeypatch, wal)
+    _clock_past_interval(monkeypatch, jwal)
+    for policy in ("always", "interval", "off"):
+        got = _count_fsyncs(wal, counters, tmp_path / f"p_{policy}", policy)
+        want = _count_fsyncs(jwal, jcounters, tmp_path / f"j_{policy}",
+                             policy)
+        assert got == want == {"always": 3, "interval": 1, "off": 0}[policy]
+
+
+def test_wal_fsync_policies_and_dropped_fsync(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="wal_fsync"):
         pcfg.Config(wal_fsync="sometimes")
+    _clock_past_interval(monkeypatch, wal)
     for policy in ("always", "interval", "off"):
         d = tmp_path / policy
         before = counters.get("wal.fsyncs")
         log = wal.WriteAheadLog(str(d), fsync=policy,
-                                fsync_interval_s=3600.0)
+                                fsync_interval_s=FSYNC_INTERVAL_S)
         log.replay()
         for i in range(1, 4):
             log.append("epoch", i)

@@ -607,3 +607,74 @@ def test_timer_and_throughput():
     rate = ptiming.throughput(lambda: calls.append(1) or torch.ones(2),
                               steps=3, items_per_step=10, warmup=2)
     assert len(calls) == 5 and rate > 0
+
+
+def _gauge_lines(text, family):
+    """``{labels: value}`` of a labelled gauge family in an exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family + "{"):
+            labels, value = line[len(family):].rsplit(" ", 1)
+            out[labels] = float(value)
+    return out
+
+
+def test_live_engine_publishes_compression_gauges_at_scrape():
+    """A CPU engine pushing with onebit + error feedback: a scrape of
+    ``/metrics`` reads ``compression.active{tensor,codec}`` at 1 and a
+    nonzero ``compression.ef_norm{tensor}``, refreshed from the engine's
+    own compressor state (nothing here sets a gauge)."""
+    cfg = pcfg.Config(obs_port=0, min_compress_bytes=0)
+    api.init(cfg, device="cpu")
+    try:
+        port = pobs.get_server().port
+        kw = {"compressor": "onebit", "ef": "vanilla"}
+        g = torch.Generator().manual_seed(0)
+        for _ in range(3):
+            api.push_pull(torch.randn(4096, generator=g), "w",
+                          compression=kw)
+            api.push_pull(torch.randn(64, generator=g), "b")
+        status, text = _get(port, "/metrics")
+        assert status == 200
+        active = _gauge_lines(text, "byteps_compression_active")
+        assert active == {'{codec="onebit",tensor="w"}': 1.0}
+        norms = _gauge_lines(text, "byteps_compression_ef_norm")
+        assert list(norms) == ['{tensor="w"}'] and norms['{tensor="w"}'] > 0
+        # the residual's own L2 norm, read from the engine's slots
+        eng = api.engine()
+        want = sum(float(e.square().sum())
+                   for s in eng.registry.get("w").compressor
+                   for e in eng._ef_error_leaves(s.wstate)) ** 0.5
+        assert norms['{tensor="w"}'] == pytest.approx(want, rel=1e-6)
+    finally:
+        api.shutdown()
+
+
+def test_retuned_codec_series_reads_zero():
+    """After the tensor's codec is swapped (the compressor ladder's
+    retune, between pushes), the retired codec's series reads 0 and the
+    new one 1."""
+    cfg = pcfg.Config(obs_port=0, min_compress_bytes=0)
+    api.init(cfg, device="cpu")
+    try:
+        port = pobs.get_server().port
+        x = torch.randn(4096, generator=torch.Generator().manual_seed(1))
+        api.push_pull(x, "w", compression={"compressor": "onebit",
+                                            "ef": "vanilla"})
+        assert _gauge_lines(_get(port, "/metrics")[1],
+                            "byteps_compression_active") == {
+            '{codec="onebit",tensor="w"}': 1.0}
+        eng = api.engine()
+        ctx = eng.registry.get("w")
+        with ctx.lock:
+            assert ctx.inflight == 0
+            eng.registry.retune_compression_locked(
+                ctx, {"compressor": "topk", "k": "0.01", "ef": "vanilla"},
+                ctx.partition_bytes)
+        api.push_pull(x, "w")
+        assert _gauge_lines(_get(port, "/metrics")[1],
+                            "byteps_compression_active") == {
+            '{codec="onebit",tensor="w"}': 0.0,
+            '{codec="topk",tensor="w"}': 1.0}
+    finally:
+        api.shutdown()

@@ -357,10 +357,15 @@ def test_client_cache_hit_refresh_block_false_and_prefetch():
     # past the bound, blocking: one delta pull brings it forward
     assert c.pull(max_staleness_s=0.0)["a"][0].item() == 2.0
     assert c.bytes_received == 2 * b
-    # block=False serves the stale cache now and refreshes behind
+    # block=False serves the stale cache now and refreshes behind.  The
+    # background refresh is held at the client's refresh lock until the
+    # stale value is back: on a loaded host it would otherwise publish
+    # the new cut before the foreground read the cache
     s.push_delta("a", np.ones(8, np.float32))
     plane.cut()
-    assert c.pull(max_staleness_s=0.0, block=False)["a"][0].item() == 2.0
+    with c._refresh_lock:
+        assert c.pull(max_staleness_s=0.0,
+                      block=False)["a"][0].item() == 2.0
     assert counters.get("serve.stale_served") == 1
     for _ in range(500):
         if c.version("a") == 3:
