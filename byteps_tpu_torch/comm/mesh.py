@@ -78,8 +78,13 @@ def resolve_device(device, local_rank: int = 0) -> torch.device:
     return device
 
 
-def bootstrap(cfg: Config, device: torch.device) -> CommContext:
-    """Join (or form) the process group described by ``cfg``."""
+def bootstrap(cfg: Config, device: torch.device,
+              backend: str = None) -> CommContext:
+    """Join (or form) the process group described by ``cfg``.  The
+    backend is NCCL on the card and gloo on the host unless ``backend``
+    names one: gloo on the card runs its collectives through the host,
+    which is how several ranks share one card (NCCL refuses two ranks of
+    a communicator on one device)."""
     if dist.is_initialized():
         raise RuntimeError("a torch.distributed process group is already "
                            "initialized in this process")
@@ -96,7 +101,7 @@ def bootstrap(cfg: Config, device: torch.device) -> CommContext:
         init_method = f"tcp://{cfg.coordinator_address}"
     else:
         init_method = f"tcp://127.0.0.1:{free_port()}"
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method,

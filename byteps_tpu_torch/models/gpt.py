@@ -23,8 +23,18 @@ Numerics follow flax with ``dtype=cfg.dtype`` over f32 parameters:
 in ``torch.utils.checkpoint`` (non-reentrant): the block's activations
 are dropped after the forward and recomputed in the backward, which runs
 the same ops on the same inputs, so the loss and gradients keep their
-bits.  Mixture-of-experts blocks (``moe_experts > 0``) are not ported
-yet.
+bits.
+
+Mixture of experts (``moe_experts > 0``): every block with ``i %
+moe_every == moe_every - 1`` takes a switch MLP (:class:`MoEMLP`,
+``parallel/expert.py``) in place of the dense one, under flax's scope
+``h{i}/moe`` (``router``, ``w1``, ``b1``, ``w2``, ``b2``).  Its
+parameters are f32; the expert stacks are cast to ``cfg.dtype`` for the
+products, and the router stays f32.  Built with an ``ep_axis``, a block
+holds this rank's slice of the expert stacks and dispatches over that
+axis.  Each block keeps the load-balance loss of its last forward
+(``MoEMLP.aux``; :meth:`GPT.moe_aux_losses`), the JAX model's ``moe_aux``
+collection.  A dense config keeps the dense parameter tree.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ import dataclasses
 import math
 import re
 from collections.abc import Mapping
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,8 +65,18 @@ class GPTConfig:
     intermediate_size: int = 2048
     max_position: int = 32768        # long-context by default
     dtype: torch.dtype = torch.bfloat16
-    moe_experts: int = 0             # > 0 is not ported yet
     remat: bool = False              # checkpoint each block
+    # switch-MoE MLPs: 0 = dense everywhere; > 0 turns every
+    # ``moe_every``-th block's MLP into a switch layer of that many experts
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_capacity: float = 1.25
+
+    def __post_init__(self):
+        if self.moe_experts > 0 and self.moe_every < 1:
+            raise ValueError(
+                "moe_every must be >= 1 when moe_experts > 0 (a value "
+                "of 0 would silently produce a fully dense model)")
 
 
 def gpt_small() -> GPTConfig:
@@ -143,7 +163,9 @@ def run_block(block: nn.Module, remat: bool, *args) -> torch.Tensor:
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded weights: kernels and embedding tables normal with standard
-    deviation ``1/sqrt(fan_in)``, biases 0, norm scales 1."""
+    deviation ``1/sqrt(fan_in)``, biases 0, norm scales 1.  A switch MLP
+    draws its full expert stacks and keeps its rank's slice, so every
+    layout of one seed holds the same experts."""
     for m in model.modules():
         if isinstance(m, Dense):
             m.kernel.normal_(0.0, 1.0 / math.sqrt(math.prod(m.in_shape)),
@@ -151,6 +173,15 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, Embed):
             m.embedding.normal_(0.0, 1.0 / math.sqrt(m.embedding.shape[1]),
                                 generator=generator)
+        elif isinstance(m, MoEMLP):
+            m.router.normal_(0.0, m.router.shape[0] ** -0.5,
+                             generator=generator)
+            for name in ("w1", "w2"):
+                w = getattr(m, name)
+                full = torch.empty((m.num_experts,) + tuple(w.shape[1:]),
+                                   device=w.device)
+                full.normal_(0.0, w.shape[1] ** -0.5, generator=generator)
+                w.copy_(m.local(full))
 
 
 # --- the model ---------------------------------------------------------------
@@ -174,42 +205,94 @@ class CausalSelfAttention(nn.Module):
         return self.out(ctx)
 
 
+class MoEMLP(nn.Module):
+    """Switch-MoE MLP (``parallel/expert.py`` ``moe_mlp``) over the
+    block's ``[B, T, C]`` tokens.  Without ``ep_axis`` it holds the full
+    expert stacks; with one, ``E / ep`` experts (:meth:`local`) and its
+    tokens cross that axis.  ``aux`` is the load-balance loss of the last
+    forward."""
+
+    def __init__(self, cfg: GPTConfig, ep_axis=None, device=None):
+        super().__init__()
+        h, f, e = cfg.hidden_size, cfg.intermediate_size, cfg.moe_experts
+        ep = 1 if ep_axis is None else ep_axis.size
+        if e % ep:
+            raise ValueError(f"{e} experts do not split over ep={ep}")
+        self.cfg, self.ep_axis, self.num_experts = cfg, ep_axis, e
+        e_loc = e // ep
+        self.router = nn.Parameter(torch.empty(h, e, device=device))
+        self.w1 = nn.Parameter(torch.empty(e_loc, h, f, device=device))
+        self.b1 = nn.Parameter(torch.zeros(e_loc, f, device=device))
+        self.w2 = nn.Parameter(torch.empty(e_loc, f, h, device=device))
+        self.b2 = nn.Parameter(torch.zeros(e_loc, h, device=device))
+        self.aux = None
+
+    def local(self, stack: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of a full ``[E, ...]`` stack."""
+        if self.ep_axis is None:
+            return stack
+        e_loc = self.w1.shape[0]
+        i = self.ep_axis.index
+        return stack[i * e_loc:(i + 1) * e_loc]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.expert import moe_mlp
+        dt = self.cfg.dtype
+        # products in cfg.dtype as the dense path; the router stays f32
+        params = {"router": self.router, "w1": self.w1.to(dt),
+                  "b1": self.b1.to(dt), "w2": self.w2.to(dt),
+                  "b2": self.b2.to(dt)}
+        b, t, h = x.shape
+        out, self.aux = moe_mlp(x.reshape(b * t, h), params,
+                                self.num_experts, self.cfg.moe_capacity,
+                                axis=self.ep_axis)
+        return out.reshape(b, t, h)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: GPTConfig, attn_fn: Optional[AttnFn] = None,
-                 device=None):
+                 device=None, moe: bool = False, ep_axis=None):
         super().__init__()
         c, dt = cfg.hidden_size, cfg.dtype
         self.ln1 = LayerNorm(c, dt, device=device)
         self.attn = CausalSelfAttention(cfg, attn_fn, device=device)
         self.ln2 = LayerNorm(c, dt, device=device)
-        self.mlp_in = Dense((c,), (cfg.intermediate_size,), dt,
-                            device=device)
-        self.mlp_out = Dense((cfg.intermediate_size,), (c,), dt,
-                             device=device)
+        if moe:
+            self.moe = MoEMLP(cfg, ep_axis, device=device)
+        else:
+            self.mlp_in = Dense((c,), (cfg.intermediate_size,), dt,
+                                device=device)
+            self.mlp_out = Dense((cfg.intermediate_size,), (c,), dt,
+                                 device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            return x + self.moe(h)
+        h = F.gelu(self.mlp_in(h), approximate="tanh")
         return x + self.mlp_out(h)
 
 
 class GPT(nn.Module):
     """Decoder-only LM on ``[B, T]`` token ids; ``positions`` defaults to
-    ``arange(T)``.  Weights are drawn from ``generator`` (on ``device``)."""
+    ``arange(T)``.  Weights are drawn from ``generator`` (on ``device``).
+    ``ep_axis`` (a ``parallel/mesh_util.MeshAxis``) shards the switch
+    MLPs' experts over that axis."""
 
     def __init__(self, cfg: GPTConfig, attn_fn: Optional[AttnFn] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 ep_axis=None):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "GPT mixture-of-experts blocks are not ported to "
-                "byteps_tpu_torch yet (parallel/expert.py, ROADMAP Queue A)")
         self.cfg = cfg
         c, dt = cfg.hidden_size, cfg.dtype
         self.wte = Embed(cfg.vocab_size, c, dt, device=device)
         self.wpe = Embed(cfg.max_position, c, dt, device=device)
-        self.h = nn.ModuleList(Block(cfg, attn_fn, device=device)
-                               for _ in range(cfg.num_layers))
+        self.h = nn.ModuleList(
+            Block(cfg, attn_fn, device=device, ep_axis=ep_axis,
+                  moe=(cfg.moe_experts > 0
+                       and i % cfg.moe_every == cfg.moe_every - 1))
+            for i in range(cfg.num_layers))
         self.ln_f = LayerNorm(c, dt, device=device)
         self.lm_head = Dense((c,), (cfg.vocab_size,), dt, device=device)
         init_params(self, generator
@@ -224,6 +307,11 @@ class GPT(nn.Module):
         for block in self.h:
             x = run_block(block, self.cfg.remat, x)
         return self.lm_head(self.ln_f(x)).float()
+
+    def moe_aux_losses(self) -> List[torch.Tensor]:
+        """The switch blocks' load-balance losses of the last forward, in
+        block order (empty for a dense model)."""
+        return [b.moe.aux for b in self.h if hasattr(b, "moe")]
 
 
 # --- loss ------------------------------------------------------------------
@@ -278,5 +366,17 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
 
 def load_flax_gpt(model: GPT, params) -> GPT:
     """The JAX package's GPT parameters (``variables["params"]``) into a
-    port :class:`GPT`."""
+    port :class:`GPT`.  Switch blocks take the full expert stacks, or,
+    in a model built with an ``ep_axis``, their rank's slice of them."""
+    params = dict(params)
+    for i, block in enumerate(model.h):
+        if hasattr(block, "moe") and f"h{i}" in params:
+            scope = dict(params[f"h{i}"])
+            moe = dict(scope.get("moe", {}))
+            for k in ("w1", "b1", "w2", "b2"):
+                if k in moe:
+                    moe[k] = block.moe.local(
+                        torch.from_numpy(np.array(moe[k], np.float32)))
+            scope["moe"] = moe
+            params[f"h{i}"] = scope
     return load_flax_params(model, params)

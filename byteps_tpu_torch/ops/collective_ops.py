@@ -89,15 +89,20 @@ def _by_dtype(leaves: Dict[str, torch.Tensor]):
 
 
 def push_pull_tree(comm: CommContext, tree, op: str = "average",
-                   inplace: bool = False) -> Dict[str, torch.Tensor]:
+                   inplace: bool = False,
+                   axis=None) -> Dict[str, torch.Tensor]:
     """Sum (``op="sum"``) or average every tensor of ``tree`` over all
     ranks: a dict of tensors, or a module's parameters.  The tensors of
     one dtype and device are concatenated into one buffer (f32 for
     f16/bf16), all-reduced once and split.  Returns the results by name;
     with ``inplace`` they are written into ``tree``'s tensors, which are
-    returned."""
+    returned.  ``axis`` (a mesh axis, ``parallel/mesh_util.MeshAxis``)
+    reduces over that axis's group alone, as the JAX function's ``axes``
+    name mesh axes."""
     if op not in ("average", "sum"):
         raise ValueError(f"op must be 'average' or 'sum', got {op!r}")
+    group, size = (None, comm.size) if axis is None else (axis.group,
+                                                           axis.size)
     leaves = _leaves(tree)
     out: Dict[str, torch.Tensor] = {}
     for names in _by_dtype(leaves):
@@ -107,10 +112,10 @@ def push_pull_tree(comm: CommContext, tree, op: str = "average",
             raise TypeError(f"push_pull_tree: cannot average {dtype} "
                             f"tensors ({names[0]}); use op='sum'")
         flat = torch.cat([t.reshape(-1).to(_acc_dtype(dtype)) for t in ts])
-        if comm.size > 1:
-            dist.all_reduce(flat)
+        if size > 1:
+            dist.all_reduce(flat, group=group)
         if op == "average":
-            flat = flat / comm.size
+            flat = flat / size
         for n, t, r in zip(names, ts, flat.split([t.numel() for t in ts])):
             r = r.view(t.shape).to(dtype)
             out[n] = t.copy_(r) if inplace else r

@@ -81,8 +81,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. flash kernels: the forward, dK/dV and dQ kernels against their plain
    versions on the card (same inputs, the plain lse and delta for both
    backward kernels), f32 and bf16, at the two slice shapes and at ragged
-   ones (T=100 with D=48, decode Tq=64 < Tk=256, non-causal, and a ring
-   step's q_off=32 with kv_len=100).  The bf16 forward's plain version is
+   ones (T=100 with D=48, decode Tq=64 < Tk=256, non-causal, a ring
+   step's q_off=32 with kv_len=100, and the off-diagonal blocks of phase
+   15's ring, [2*8, 4096, 64] at q_off = 4096 and 8192 with kv_len =
+   4096, where every key is visible).  The bf16 forward's plain version is
    ``flash_fwd_plain(..., block_k=FWD_BLOCK_K)``, which rounds P to bf16
    against the running max of each 64-wide key tile, where the kernel
    (and the JAX kernel) round it; the exact softmax rounds it against the
@@ -432,9 +434,44 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      images/s, the loss finite.
    Every time is printed beside the card's name and power limit.
 
+15. sequence and expert parallelism (``seqpar_phase``): SEQPAR_RANKS
+   processes on the one card (``python -m
+   byteps_tpu_torch.tools.long_context``), joined over gloo (NCCL refuses
+   two ranks of a communicator on one device; gloo stages its
+   collectives' CUDA tensors through the host, and takes none in send and
+   recv, so the ring's shift goes as an all-to-all with one non-empty
+   split, printed as the shift path).  Tensors, models and kernels stay
+   on the card.  A rank that exits with another code than 0, runs past
+   SEQPAR_TIMEOUT_S or prints no result fails the run.
+   - (a) GPT-small at full width (hidden 512, 8 layers, 8 heads of 64,
+     vocab 32768, bf16 compute, weights and batch from the seed) through
+     ``make_dp_sp_train_step`` over ``(dp 1, sp 2)`` on SEQPAR_SP (2
+     sequences of 8192 tokens, 4096 a rank), AdamW 3e-4, one arm per
+     kind: ``ring``, ``striped`` (the batch striped), ``ring_flash``,
+     ``ulysses``, ``ulysses_flash``.  Rank 0 also takes one step of the
+     whole sequence with ``attention="flash"`` on the same weights and
+     batch; after each arm's first step both ranks' gradients (summed
+     over the ranks) go to rank 0 and must be within SEQPAR_GRAD_TOL of
+     that step's, as a share of each tensor's max-abs, and the first loss
+     within SEQPAR_LOSS_RTOL.  A control, ``ring_flash`` with the
+     off-diagonal blocks given ``q_off = 0``, must break the bound.  Then
+     the flash counters are zeroed and each arm takes its timed steps:
+     ms a step, tokens/s, the loss finite, and the flash kernels'
+     launches on each rank, which must be ``(rank + 1) * 8`` a kernel and
+     step for ``ring_flash`` (the causal skip), 8 for ``ulysses_flash``,
+     0 for the others;
+   - (b) GPT-small width with 8 switch experts every 2nd block (capacity
+     1.25, flash attention) through ``make_moe_lm_train_step`` over
+     ``(dp 1, ep 2)``, 4 experts a rank, SEQPAR_EP (16 sequences of 1024
+     tokens, 8 a rank): each rank's forward (logits and the 4 aux losses)
+     within SEQPAR_MOE_TOL of the full-stack model's on its own rows; then
+     a first and the timed steps, the loss finite and falling, 8 flash
+     launches a kernel and step.
+   Every time is printed beside the card's name and power limit.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
-4, the two LM slices', phase 10's arms, phase 11's, 12's and 13's
+4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's and 15's
 processes, which count their own, and phase 14's runs);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
@@ -497,6 +534,9 @@ FLASH_CASES = [
     ("decode_tq64_tk256", (2, 64, 256, 4, 64), True),
     ("noncausal_t130_t70", (2, 130, 70, 4, 128), False),
     ("ring_qoff32_kvlen100", (3, 128, 128, 1, 64), True, (32, 100)),
+    # the off-diagonal blocks of phase 15's ring: every key visible
+    ("ring_gpt_qoff4096", (2, 4096, 4096, 8, 64), True, (4096, 4096)),
+    ("ring_gpt_qoff8192", (2, 4096, 4096, 8, 64), True, (8192, 4096)),
 ]
 # kernels of the flash library that must run on tensor cores
 MMA_KERNELS = [f"{k}<bf16, {d}>" for k in ("fwd_kernel", "bwd_dkv_kernel",
@@ -4516,6 +4556,154 @@ def vision_arms(torch, comm, smi):
         del model, step
 
 
+# --------------------------- 15. sequence and expert parallelism
+
+SEQPAR_DEVICE = "cuda"
+SEQPAR_MODEL = "small"                   # tools/long_context.py --model
+SEQPAR_SP = (2, 8192, 2)                 # sequences, tokens each, timed steps
+SEQPAR_EP = (16, 1024, 3)
+SEQPAR_RANKS = 2                         # processes on the one card, gloo
+# bf16 through 8 layers: the layouts' gradients (summed over the ranks)
+# against the one-rank flash step's, as a share of each tensor's max-abs
+SEQPAR_GRAD_TOL = 2**-4
+SEQPAR_LOSS_RTOL = 2**-8
+# the MoE layout's forward against the full-stack model on the same rows
+# (share of the logits' max-abs; the aux losses' relative difference)
+SEQPAR_MOE_TOL = 2**-6
+SEQPAR_TIMEOUT_S = 420
+
+
+def _seqpar_children(name, argv):
+    """Every rank of one layout (``tools/long_context.py`` ``argv``), on
+    the card over gloo; each must exit 0 within SEQPAR_TIMEOUT_S and
+    print its result line.  Returns the results by rank."""
+    from byteps_tpu_torch.tools import long_context as lc
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            ""),
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    procs = lc.spawn(list(argv) + ["--device", SEQPAR_DEVICE, "--backend",
+                                   "gloo", "--model", SEQPAR_MODEL],
+                     SEQPAR_RANKS, env=env, cwd=root)
+    outs = [""] * len(procs)
+    try:
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate(timeout=SEQPAR_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("LC_RESULT ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"{name}: rank {i} exited {p.returncode} without its result "
+              f"(or ran past {SEQPAR_TIMEOUT_S} s):\n{out[-3000:]}")
+        res.append(json.loads(lines[0][len("LC_RESULT "):]))
+    res.sort(key=lambda r: r["rank"])
+    return res
+
+
+def _ms_line(ms):
+    return (f"{statistics.median(ms):.1f} ms a step "
+            f"({min(ms):.1f}-{max(ms):.1f})")
+
+
+def seqpar_phase(torch, smi):
+    """Phase 15: GPT-small trained over ``(dp 1, sp 2)`` with each
+    sequence-parallel attention, held against the one-rank flash step,
+    and the switch-MoE GPT over ``(dp 1, ep 2)``, held against the
+    full-stack model; SEQPAR_RANKS processes on the one card.  Returns
+    the flash launches of their timed steps."""
+    from byteps_tpu_torch.tools.long_context import KINDS
+
+    t_phase = time.perf_counter()
+    on_card = SEQPAR_DEVICE == "cuda"     # the plain versions count nothing
+    total = {k: 0 for k in FLASH_KERNELS}
+    batch, seq, steps = SEQPAR_SP
+    sp = _seqpar_children("sp", ["sp", "--batch", str(batch), "--seq",
+                                 str(seq), "--steps", str(steps), "--check",
+                                 "--control-qoff0"])
+    layers = 8
+    log(f"sequence parallelism [{smi}]: GPT-small, {batch} x {seq} tokens "
+        f"(a rank {seq // SEQPAR_RANKS} of each), {SEQPAR_RANKS} ranks on "
+        f"the card over {sp[0]['backend']}; the ring's shift went by "
+        f"{sp[0]['shift_path']}; ranks up {sp[0]['seconds']:.1f} s")
+    for kind in KINDS + ("ring_flash_qoff0",):
+        arms = [r["arms"][kind] for r in sp]
+        shares = arms[0]["grad_share_by_rank"]
+        where = arms[0]["grad_share_where"]
+        ref_loss = arms[0]["ref_loss"]
+        first = arms[0]["first_loss"]
+        if kind == "ring_flash_qoff0":
+            check(min(shares) > SEQPAR_GRAD_TOL,
+                  f"sp control {kind}: gradient shares {shares} within "
+                  f"{SEQPAR_GRAD_TOL}: the check cannot see a wrong mask")
+            log(f"sp control {kind}: gradient share {shares} (at "
+                f"{where}) > {SEQPAR_GRAD_TOL}; first loss {first:.6f} "
+                f"against {ref_loss:.6f}")
+            continue
+        check(max(shares) <= SEQPAR_GRAD_TOL,
+              f"sp {kind}: gradients by rank differ from the one-rank "
+              f"flash step by {shares} of their max-abs (at {where}), "
+              f"bound {SEQPAR_GRAD_TOL}")
+        check(abs(first - ref_loss) <= SEQPAR_LOSS_RTOL * abs(ref_loss),
+              f"sp {kind}: first loss {first} against the one-rank step's "
+              f"{ref_loss}")
+        for r, a in enumerate(arms):
+            check(all(math.isfinite(v) for v in a["loss"]),
+                  f"sp {kind} rank {r}: losses {a['loss']}")
+            got = a["flash_launches"]
+            n = {"ring_flash": r + 1, "ulysses_flash": 1}.get(kind, 0)
+            want = {k: n * layers * steps for k in FLASH_KERNELS}
+            check(not on_card or got == want,
+                  f"sp {kind} rank {r}: flash launches {got}, expected "
+                  f"{want}")
+            for k in total:
+                total[k] += got[k]
+        per_step = [{k: v // steps for k, v in a["flash_launches"].items()}
+                    for a in arms]
+        log(f"sp {kind} [{smi}]: {_ms_line(arms[0]['ms'])} on rank 0, "
+            f"{arms[0]['tokens_per_s']:.0f} tokens/s; gradient share by "
+            f"rank {[f'{v:.2e}' for v in shares]} (at {where[0]}) <= "
+            f"{SEQPAR_GRAD_TOL}; first loss {first:.6f} against "
+            f"{ref_loss:.6f}; losses {[round(v, 4) for v in arms[0]['loss']]}"
+            f"; flash launches a step by rank {per_step}; peak memory by "
+            f"rank {[a['peak_gib'] for a in arms]} GiB")
+    batch, seq, steps = SEQPAR_EP
+    ep = _seqpar_children("ep", ["ep", "--batch", str(batch), "--seq",
+                                 str(seq), "--steps", str(steps), "--check"])
+    for r, a in enumerate(ep):
+        check(a["logit_share"] <= SEQPAR_MOE_TOL
+              and a["aux_rel"] <= SEQPAR_MOE_TOL,
+              f"ep rank {r}: the layout's forward differs from the full "
+              f"stacks' by {a['logit_share']} of the logits' max-abs, aux "
+              f"{a['aux']} against {a['ref_aux']}")
+        losses = [a["first_loss"]] + a["loss"]
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"ep rank {r}: losses {losses} not finite and falling")
+        got = a["flash_launches"]
+        want = {k: layers * steps for k in FLASH_KERNELS}
+        check(not on_card or got == want,
+              f"ep rank {r}: flash launches {got}, expected {want}")
+        for k in total:
+            total[k] += got[k]
+        log(f"ep rank {r} [{smi}]: GPT-small, 8 experts ({a['experts_here']}"
+            f" here) every 2nd block, {a['tokens_here']} tokens here; "
+            f"{_ms_line(a['ms'])}, {a['tokens_per_s']:.0f} tokens/s; logits "
+            f"{a['logit_share']:.2e} of their max-abs from the full stacks', "
+            f"aux {[round(v, 5) for v in a['aux']]} against "
+            f"{[round(v, 5) for v in a['ref_aux']]}; losses "
+            f"{[round(v, 4) for v in losses]}; peak memory {a['peak_gib']} "
+            f"GiB")
+    log(f"sequence and expert parallelism phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4578,15 +4766,16 @@ def main():
     log(f"elastic membership phase: {time.perf_counter() - t_phase:.1f} s")
     serve_launches = serving_phase(torch, smi)
     fused_launches, fused_flash = fused_step_phase(torch, ok, fa, smi)
+    seqpar_flash = seqpar_phase(torch, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
-    # those phase 11's, 12's and 13's processes counted, and phase 14's
+    # those phase 11's, 12's, 13's and 15's processes counted, and phase 14's
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
                         + elastic_launches.get(k, 0)
                         + serve_launches.get(k, 0)
                         + fused_launches.get(k, 0))
     for k in FLASH_KERNELS:
-        flash_launches[k] += fused_flash[k]
+        flash_launches[k] += fused_flash[k] + seqpar_flash[k]
     for row in observed:
         for k in KERNELS:
             launches[k] += row["launches"][k]

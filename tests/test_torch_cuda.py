@@ -508,6 +508,17 @@ def test_flash_kernels_match_plain_at_ring_offset(card, dtype):
     _check_flash(card, dtype, 3, 128, 128, 64, True, 32, 100)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocks", [1, 2])
+@pytest.mark.parametrize("bh,t,d", [(4, 256, 64), (3, 100, 48)])
+def test_flash_kernels_match_plain_at_ring_block_offsets(card, dtype, blocks,
+                                                         bh, t, d):
+    """The off-diagonal blocks of a causal ring (``parallel/
+    ring_flash.py``): q_off = Tk and 2 Tk with kv_len = Tk, where every
+    key is visible and no tile may be skipped; the same bounds."""
+    _check_flash(card, dtype, bh, t, t, d, True, blocks * t, t)
+
+
 def _check_flash(card, dtype, bh, tq, tk, d, causal, q_off, kv_len):
     from byteps_tpu_torch.ops import flash_attention as fa
 

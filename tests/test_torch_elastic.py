@@ -84,15 +84,22 @@ def test_rejoin_in_place_at_step_boundary():
     """The killed member restarts and is admitted at a step boundary
     (epoch 2, world {0,1,2}) with the survivors' epoch, keys and
     parameters; every member ends at the same ``w``; member 0's stale
-    chunk and stale server push are dropped."""
+    chunk and stale server push are dropped.  Member 0, which hosts the
+    bus, holds its first step barrier after the shrink until the
+    restarted member is parked there: on a loaded host a fresh
+    interpreter can take longer to start than the survivors' 40 steps."""
     from byteps_tpu_torch.fault.membership import bus_request
     n, kill_at = 40, 4
     bus, hb = free_port(), free_port()
+    # the held barrier waits for the restarted interpreter: its sync
+    # deadline must outlast that start
+    held = {"BYTEPS_MEMBERSHIP_SYNC_TIMEOUT": "120"}
     procs = {r: spawn(r, (0, 1, 2), bus, hb, n, extra={
-        "BYTEPS_ELASTIC_STEP_SLEEP": "0.3",
+        **held, "BYTEPS_ELASTIC_STEP_SLEEP": "0.3",
         **({**KILL, "BYTEPS_FAULT_SPEC": f"kill:rank=1:step={kill_at}"}
            if r == 1 else
-           {"BYTEPS_ELASTIC_STALE_PROBE": "1"} if r == 0 else {})})
+           {"BYTEPS_ELASTIC_STALE_PROBE": "1",
+            "BYTEPS_ELASTIC_HOLD_FOR_REJOIN": "1"} if r == 0 else {})})
         for r in (0, 1, 2)}
     out_victim, _ = procs[1].communicate(timeout=120)
     assert procs[1].returncode == 1, out_victim[-3000:]
@@ -109,7 +116,8 @@ def test_rejoin_in_place_at_step_boundary():
         assert time.monotonic() < deadline, pong
         time.sleep(0.1)
     rejoiner = spawn(1, (0, 1, 2), bus, None, n, extra={
-        "BYTEPS_ELASTIC_REJOIN": "1", "BYTEPS_ELASTIC_STEP_SLEEP": "0.3"})
+        **held, "BYTEPS_ELASTIC_REJOIN": "1",
+        "BYTEPS_ELASTIC_STEP_SLEEP": "0.3"})
     outs = communicate({0: procs[0], 2: procs[2], "rj": rejoiner})
     assert rejoiner.returncode == 0, outs["rj"][-3000:]
     line = next(ln for ln in outs["rj"].splitlines()

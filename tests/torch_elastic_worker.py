@@ -37,7 +37,13 @@ JAX worker's:
 - ``BYTEPS_ELASTIC_SLOW_S`` (straggler runs): sleep this long before
   each ``step_sync``; a ``Demoted`` rank waits, then rejoins;
 - ``BYTEPS_ELASTIC_HB_TIMEOUT``: the heartbeat's detection timeout
-  (default 0.7 s, beats every 0.08 s).
+  (default 0.7 s, beats every 0.08 s);
+- ``BYTEPS_ELASTIC_HOLD_FOR_REJOIN=1``: once this member's world has
+  shrunk, the member hosting the bus holds its next step barrier until a
+  joiner is parked on the bus (``HELD <rank> at <step>``), so that the
+  joiner is admitted at a step boundary however late it starts, rather
+  than racing the survivors' last step (the port's
+  ``tools/elastic_resnet.py --hold-for-rejoin``).
 """
 
 from __future__ import annotations
@@ -208,6 +214,8 @@ def main() -> int:
     partition_step = int(os.environ.get("BYTEPS_ELASTIC_PARTITION_STEP",
                                         "0"))
     hb_timeout = float(os.environ.get("BYTEPS_ELASTIC_HB_TIMEOUT", "0.7"))
+    hold_for_rejoin = os.environ.get("BYTEPS_ELASTIC_HOLD_FOR_REJOIN",
+                                     "") == "1"
     # single-host engines; the world lives in the membership layer
     os.environ["DMLC_NUM_WORKER"] = "1"
     os.environ["DMLC_WORKER_ID"] = str(rank)
@@ -288,6 +296,16 @@ def main() -> int:
             continue
         if slow_s:
             time.sleep(slow_s)
+        if (hold_for_rejoin and m.hosting_bus
+                and len(m.view().world) < len(world)):
+            hold_for_rejoin = False
+            deadline = time.monotonic() + 180.0
+            while not m.parked_joiners():
+                if time.monotonic() > deadline:
+                    print("NO-JOINER-PARKED at", step, flush=True)
+                    return 7
+                time.sleep(0.02)
+            print("HELD", rank, "at", step, flush=True)
         try:
             _, payloads = m.step_sync(step, payload=red,
                                       state={"w": w, "step": step - 1})
