@@ -11,10 +11,20 @@ untied embedding and lm head.  Numerics follow the JAX model:
 - RMSNorm statistics in f32 with an f32 scale;
 - rotary embeddings in f32 with the rotate-half convention, cast back;
 - GQA repeats each K/V head ``groups`` times in place
-  (``repeat_interleave``, as ``jnp.repeat``), so the attention callable
-  sees as many K/V heads as query heads;
+  (:func:`repeat_kv`, as ``jnp.repeat``), so the attention callable sees
+  as many K/V heads as query heads;
 - logits in f32;
 - ``remat`` checkpoints each block, as ``models/gpt.py`` does.
+
+``Llama(cfg, tp_axis=..., fsdp_axis=...)`` lays the model out by
+``parallel/fsdp_tp.py``'s rules: q/k/v and gate/up column-parallel over
+``tp``, out and down row-parallel, the word table and the head sliced on
+the vocabulary, and the other large axis of every weight sliced over
+``fsdp`` and gathered for each product (``parallel/tp_layers.py``).  When
+the K/V heads do not split over ``tp`` they stay whole while the query
+heads split: local query head ``j`` of tp rank ``r`` then reads K/V head
+``(r * H / tp + j) // groups`` (:func:`kv_heads`), and the K/V kernels'
+gradients are partial sums over ``tp`` (their ``partial_axis``).
 """
 
 from __future__ import annotations
@@ -28,14 +38,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.sequence import full_attention
-from .gpt import (AttnFn, Dense, Embed, init_params, load_flax_params,
-                  run_block)
+from ..parallel.tp_layers import at, copy_to
+from .gpt import (AttnFn, Dense, Embed, head_token_nll, init_params,
+                  load_flax_params, run_block)
 from .gpt import lm_loss, token_nll  # noqa: F401 — the shared LM loss
 
 __all__ = [
     "LlamaConfig", "Llama", "llama3_8b", "llama_tiny", "llama_tiny_f32",
     "lm_loss", "token_nll", "rope_frequencies", "apply_rope",
-    "load_flax_llama",
+    "load_flax_llama", "kv_heads", "repeat_kv",
 ]
 
 
@@ -119,9 +130,39 @@ class RMSNorm(nn.Module):
 
 # --- the model ---------------------------------------------------------------
 
+def kv_heads(tp_index: int, q_heads: int, groups: int, kv_heads_here: int,
+             kv_split: bool, device=None) -> torch.Tensor:
+    """The K/V head (an index into this rank's K/V heads) each of this
+    rank's ``q_heads`` query heads reads: query head ``tp_index * q_heads
+    + j`` reads K/V head ``(tp_index * q_heads + j) // groups``, offset to
+    this rank's K/V slice when the K/V heads split too."""
+    q = tp_index * q_heads + torch.arange(q_heads, device=device)
+    kv = q // groups
+    if kv_split:
+        kv = kv - tp_index * kv_heads_here
+    return kv
+
+
+def repeat_kv(x: torch.Tensor, idx: torch.Tensor,
+              groups: int) -> torch.Tensor:
+    """``x.index_select(2, idx)`` for the K/V heads ``idx`` (on the host)
+    of consecutive query heads, as :func:`kv_heads` gives them: each K/V
+    head from ``idx[0]`` to ``idx[-1]`` broadcast over ``groups`` query
+    heads, then the window of them ``idx`` covers.  Its backward sums each
+    head's broadcast in a fixed order, where ``index_select``'s adds by
+    atomics on the card and two backward passes would differ in their
+    last bits."""
+    lo, hi = int(idx[0]), int(idx[-1]) + 1
+    start = groups - int((idx == idx[0]).sum())
+    b, t, _, d = x.shape
+    y = x[:, :, lo:hi, None].expand(b, t, hi - lo, groups, d)
+    return y.reshape(b, t, (hi - lo) * groups, d)[:, :, start:
+                                                   start + idx.numel()]
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, attn_fn: Optional[AttnFn] = None,
-                 device=None):
+                 device=None, layout=None):
         super().__init__()
         c, h, kv = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads
         self.cfg = cfg
@@ -129,46 +170,67 @@ class LlamaAttention(nn.Module):
         self.groups = h // kv
         self.attn_fn = attn_fn or full_attention
         dt = cfg.dtype
-        self.q = Dense((c,), (h, hd), dt, bias=False, device=device)
-        self.k = Dense((c,), (kv, hd), dt, bias=False, device=device)
-        self.v = Dense((c,), (kv, hd), dt, bias=False, device=device)
-        self.out = Dense((h, hd), (c,), dt, bias=False, device=device)
+        self.q = Dense((c,), (h, hd), dt, bias=False, device=device,
+                       layout=at(layout, "q"))
+        self.k = Dense((c,), (kv, hd), dt, bias=False, device=device,
+                       layout=at(layout, "k"))
+        self.v = Dense((c,), (kv, hd), dt, bias=False, device=device,
+                       layout=at(layout, "v"))
+        self.out = Dense((h, hd), (c,), dt, bias=False, device=device,
+                         layout=at(layout, "out"))
+        tp = self.q.col_axis
+        if self.k.col_axis is not tp:
+            if tp is None:
+                raise ValueError("K/V heads split where query heads do not")
+            # whole K/V heads under split query heads: each rank's K/V
+            # gradient covers the heads its queries read
+            self.k.partial_axis = self.v.partial_axis = tp
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        tp = self.q.col_axis
+        x = copy_to(x, tp)
         cos, sin = rope_frequencies(self.head_dim, positions,
                                     self.cfg.rope_theta)
         q = apply_rope(self.q(x), cos, sin)
         k = apply_rope(self.k(x), cos, sin)
         v = self.v(x)
         if self.groups > 1:
-            k = k.repeat_interleave(self.groups, dim=2)
-            v = v.repeat_interleave(self.groups, dim=2)
+            idx = kv_heads(0 if tp is None else tp.index, q.shape[2],
+                           self.groups, k.shape[2],
+                           self.k.col_axis is not None)
+            k, v = repeat_kv(k, idx, self.groups), repeat_kv(v, idx,
+                                                             self.groups)
         ctx = self.attn_fn(q, k, v, causal=True,
                            sm_scale=1.0 / math.sqrt(self.head_dim))
         return self.out(ctx)
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, layout=None):
         super().__init__()
         c, f, dt = cfg.hidden_size, cfg.intermediate_size, cfg.dtype
-        self.gate = Dense((c,), (f,), dt, bias=False, device=device)
-        self.up = Dense((c,), (f,), dt, bias=False, device=device)
-        self.down = Dense((f,), (c,), dt, bias=False, device=device)
+        self.gate = Dense((c,), (f,), dt, bias=False, device=device,
+                          layout=at(layout, "gate"))
+        self.up = Dense((c,), (f,), dt, bias=False, device=device,
+                        layout=at(layout, "up"))
+        self.down = Dense((f,), (c,), dt, bias=False, device=device,
+                          layout=at(layout, "down"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to(x, self.gate.col_axis)
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, attn_fn: Optional[AttnFn] = None,
-                 device=None):
+                 device=None, layout=None):
         super().__init__()
         c, dt = cfg.hidden_size, cfg.dtype
         self.attn_norm = RMSNorm(c, cfg.rms_eps, dt, device=device)
-        self.attn = LlamaAttention(cfg, attn_fn, device=device)
+        self.attn = LlamaAttention(cfg, attn_fn, device=device,
+                                   layout=at(layout, "attn"))
         self.mlp_norm = RMSNorm(c, cfg.rms_eps, dt, device=device)
-        self.mlp = LlamaMLP(cfg, device=device)
+        self.mlp = LlamaMLP(cfg, device=device, layout=at(layout, "mlp"))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         x = x + self.attn(self.attn_norm(x), positions)
@@ -178,20 +240,32 @@ class LlamaBlock(nn.Module):
 class Llama(nn.Module):
     """Decoder-only Llama on ``[B, T]`` token ids; ``positions`` (``[T]``
     or ``[B, T]``) defaults to ``arange(T)``.  Weights are drawn from
-    ``generator`` (on ``device``)."""
+    ``generator`` (on ``device``), leaf by leaf, each rank keeping its
+    slice where ``tp_axis`` / ``fsdp_axis`` lay the model out (see the
+    module docstring); the logits are then this rank's vocabulary slice
+    (:meth:`token_nll` takes them)."""
 
     def __init__(self, cfg: LlamaConfig, attn_fn: Optional[AttnFn] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 tp_axis=None, fsdp_axis=None):
         super().__init__()
         self.cfg = cfg
+        layout = None
+        if tp_axis is not None or fsdp_axis is not None:
+            from ..parallel.fsdp_tp import llama_layout
+            layout = llama_layout(tp_axis, fsdp_axis)
+        self.mesh_axes = {"tp": tp_axis, "fsdp": fsdp_axis}
         self.wte = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype,
-                         device=device)
-        self.h = nn.ModuleList(LlamaBlock(cfg, attn_fn, device=device)
-                               for _ in range(cfg.num_layers))
+                         device=device, layout=at(layout, "wte"))
+        self.h = nn.ModuleList(
+            LlamaBlock(cfg, attn_fn, device=device,
+                       layout=at(layout, f"h{i}"))
+            for i in range(cfg.num_layers))
         self.norm_f = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                               device=device)
         self.lm_head = Dense((cfg.hidden_size,), (cfg.vocab_size,),
-                             cfg.dtype, bias=False, device=device)
+                             cfg.dtype, bias=False, device=device,
+                             layout=at(layout, "lm_head"))
         init_params(self, generator
                     or torch.Generator(device=device or "cpu").manual_seed(0))
 
@@ -206,10 +280,17 @@ class Llama(nn.Module):
         x = self.wte(input_ids)
         for block in self.h:
             x = run_block(block, self.cfg.remat, x, positions)
-        return self.lm_head(self.norm_f(x)).float()
+        h = copy_to(self.norm_f(x), self.lm_head.col_axis)
+        return self.lm_head(h).float()
+
+    def token_nll(self, logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -1):
+        """``token_nll`` of this model's logits: vocabulary-parallel where
+        ``lm_head`` is sliced on the vocabulary."""
+        return head_token_nll(self.lm_head, logits, labels, ignore)
 
 
 def load_flax_llama(model: Llama, params) -> Llama:
     """The JAX package's Llama parameters (``variables["params"]``) into a
-    port :class:`Llama`."""
+    port :class:`Llama`; a laid-out model takes its rank's slices."""
     return load_flax_params(model, params)

@@ -108,17 +108,23 @@ def _positions(mesh: Mesh2D, t_local: int, striped: bool,
 
 
 def global_token_loss(mesh: Mesh2D, logits: torch.Tensor,
-                      labels: torch.Tensor) -> torch.Tensor:
+                      labels: torch.Tensor, axis=None,
+                      nll: Callable = None) -> torch.Tensor:
     """This rank's NLL sum over the valid-token count summed over the
-    world: the rank's share of the global mean.  The count's all-reduce
-    carries no gradient, so the gradient is the exact local partial of
-    the global loss, which the world-wide sum of the gradients
-    completes."""
+    world (over ``axis`` alone where the other axes hold the same tokens,
+    as tp does): the rank's share of the global mean.  The count's
+    all-reduce carries no gradient, so the gradient is the exact local
+    partial of the global loss, which the sum of the gradients over the
+    data axes completes.  ``nll(logits, labels) -> (sum, count)`` defaults
+    to ``models.gpt.token_nll`` (a vocabulary-parallel head passes its
+    own, ``GPT.token_nll``)."""
     from ..models.gpt import token_nll
-    s, c = token_nll(logits, labels)
+    s, c = (nll or token_nll)(logits, labels)
     c = c.detach().clone()
-    if mesh.size > 1:
-        dist.all_reduce(c)
+    size, group = (mesh.size, None) if axis is None else (axis.size,
+                                                          axis.group)
+    if size > 1:
+        dist.all_reduce(c, group=group)
     return s / c.clamp_min(1.0)
 
 

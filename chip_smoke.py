@@ -468,11 +468,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      a first and the timed steps, the loss finite and falling, 8 flash
      launches a kernel and step.
    Every time is printed beside the card's name and power limit.
+16. tensor, pipeline and composite parallelism (``modelpar_phase``):
+   MODELPAR_RANKS processes on the one card (``python -m
+   byteps_tpu_torch.tools.model_parallel``) over gloo, one world, the
+   arms in order, each on its own mesh.  A rank that exits with another
+   code than 0, runs past MODELPAR_TIMEOUT_S or prints no result fails
+   the run.  Rank 0 first takes each arm's one-rank forward and backward
+   on the same weights and batch (its gradients to the host, the card
+   freed); after each arm's first step every rank's gradient slices must
+   be within MODELPAR_GRAD_TOL of that step's (share of each tensor's
+   max-abs) and the first loss within MODELPAR_LOSS_RTOL; each control
+   (a fault run before the first step, no update) must break the bound;
+   then MODELPAR_STEPS timed steps: ms, tokens/s, peak memory a rank.
+   - (a) ``fsdp_tp``: Llama-3-8B width (hidden 4096, 32 heads, 8 K/V heads
+     of 128, SwiGLU 14336, vocab 128256, bf16 compute, f32 parameters) at
+     MODELPAR_LLAMA (4 of 32 layers, 2 sequences of 4096 tokens, one an
+     fsdp rank) over ``(fsdp 2, tp 2)``, AdamW, the flash kernels at
+     ``[1, 4096, 16, 128]`` a rank, weights drawn leaf by leaf from the
+     seed; control: the attention's row-parallel sum skipped.  Each flash
+     kernel must launch 4 times a step on every rank, and each rank's
+     parameters and AdamW state must be 1/4 of the whole model's but for
+     the RMSNorm scales, which every rank holds whole;
+   - (b) GPT-small (hidden 512, 8 layers, 8 heads of 64, vocab 32768,
+     bf16 compute, exact attention, the biases drawn from the seed too)
+     on MODELPAR_GPT (8 sequences of 1024 tokens), AdamW: ``tp`` at
+     ``(dp 2, tp 2)`` (control: the row-parallel biases added on every tp
+     rank), ``pp`` at ``(dp 2, pp 2)`` with M = 4 (control: the embedding
+     and head gradients summed over dp only) and ``3d`` at ``(dp 1, pp 2,
+     tp 2)`` with M = 4; a pipeline stage must run M stage forwards a
+     step.
 
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
-4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's and 15's
-processes, which count their own, and phase 14's runs);
+4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's, 15's and
+16's processes, which count their own, and phase 14's runs);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -537,6 +566,8 @@ FLASH_CASES = [
     # the off-diagonal blocks of phase 15's ring: every key visible
     ("ring_gpt_qoff4096", (2, 4096, 4096, 8, 64), True, (4096, 4096)),
     ("ring_gpt_qoff8192", (2, 4096, 4096, 8, 64), True, (8192, 4096)),
+    # phase 16's fsdp_tp rank: one sequence, 32 heads over tp 2
+    ("llama_fsdp_tp_rank", (1, 4096, 4096, 16, 128), True),
 ]
 # kernels of the flash library that must run on tensor cores
 MMA_KERNELS = [f"{k}<bf16, {d}>" for k in ("fwd_kernel", "bwd_dkv_kernel",
@@ -4704,6 +4735,154 @@ def seqpar_phase(torch, smi):
     return total
 
 
+# --------------------------- 16. tensor, pipeline and composite parallelism
+
+MODELPAR_DEVICE = "cuda"
+MODELPAR_MODEL = "full"                  # tools/model_parallel.py --model
+MODELPAR_RANKS = 4                       # processes on the one card, gloo
+MODELPAR_LLAMA = (OBS_LLAMA_LAYERS, 2, 4096)   # layers, sequences, tokens
+MODELPAR_GPT = (8, 1024, 4)              # sequences, tokens, microbatches
+MODELPAR_STEPS = 2                       # timed steps an arm, after the first
+# bf16: each rank's gradient slices after the first step against the
+# one-rank step's, as a share of each tensor's max-abs (PR 17's bound)
+MODELPAR_GRAD_TOL = 2**-4
+MODELPAR_LOSS_RTOL = 2**-8
+MODELPAR_TIMEOUT_S = 600
+MODELPAR_CONTROLS = {"fsdp_tp": "the attention's row-parallel sum skipped",
+                     "tp": "row-parallel biases added on every tp rank",
+                     "pp": "embedding and head gradients summed over dp "
+                           "only"}
+
+
+def _modelpar_children(argv):
+    """Every rank of ``tools/model_parallel.py`` ``argv`` on the card over
+    gloo; each must exit 0 within MODELPAR_TIMEOUT_S and print its
+    result line.  Returns the results by rank."""
+    from byteps_tpu_torch.tools import model_parallel as mp
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            ""),
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    procs = mp.spawn(list(argv) + ["--device", MODELPAR_DEVICE, "--backend",
+                                   "gloo", "--model", MODELPAR_MODEL],
+                     MODELPAR_RANKS, env=env, cwd=root)
+    outs = [""] * len(procs)
+    try:
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate(timeout=MODELPAR_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MP_RESULT ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"model parallelism: rank {i} exited {p.returncode} without "
+              f"its result (or ran past {MODELPAR_TIMEOUT_S} s):\n"
+              f"{out[-3000:]}")
+        res.append(json.loads(lines[0][len("MP_RESULT "):]))
+    res.sort(key=lambda r: r["rank"])
+    return res
+
+
+def modelpar_phase(torch, smi):
+    """Phase 16: Llama-3-8B width (MODELPAR_LLAMA's layers) over
+    ``(fsdp 2, tp 2)`` through the flash kernels, and GPT-small over
+    ``(dp 2, tp 2)``, GPipe ``(dp 2, pp 2)`` and ``(dp 1, pp 2, tp 2)``:
+    MODELPAR_RANKS processes on the one card, the arms in one world, each
+    first step's gradients held against a one-rank step and each
+    control's broken.  Returns the flash launches of the timed steps."""
+    from byteps_tpu_torch.tools.model_parallel import ARMS, FAULTS
+    t_phase = time.perf_counter()
+    on_card = MODELPAR_DEVICE == "cuda"   # the plain versions count nothing
+    layers, batch, seq = MODELPAR_LLAMA
+    gbatch, gseq, m = MODELPAR_GPT
+    res = _modelpar_children(list(ARMS) + [
+        "--layers", str(layers), "--batch", str(batch), "--seq", str(seq),
+        "--gpt-batch", str(gbatch), "--gpt-seq", str(gseq),
+        "--microbatches", str(m), "--steps", str(MODELPAR_STEPS), "--check",
+        "--control"])
+    total = {k: 0 for k in FLASH_KERNELS}
+    log(f"model parallelism [{smi}]: {MODELPAR_RANKS} ranks on the card "
+        f"over {res[0]['backend']}; the stage shifts went by "
+        f"{res[0]['arms']['pp']['shift_path']}; rank 0 ran "
+        f"{res[0]['seconds']:.1f} s")
+    for arm in ARMS:
+        arms = [r["arms"][arm] for r in res]
+        a0 = arms[0]
+        shares, where = a0["grad_share_by_rank"], a0["grad_share_where"]
+        check(max(shares) <= MODELPAR_GRAD_TOL,
+              f"{arm}: gradient slices by rank differ from the one-rank "
+              f"step's by {shares} of their max-abs (at {where}), bound "
+              f"{MODELPAR_GRAD_TOL}")
+        check(abs(a0["first_loss"] - a0["ref_loss"])
+              <= MODELPAR_LOSS_RTOL * abs(a0["ref_loss"]),
+              f"{arm}: first loss {a0['first_loss']} against the one-rank "
+              f"step's {a0['ref_loss']}")
+        if arm in FAULTS:
+            ctl = a0["control"]["grad_share_by_rank"]
+            check(min(ctl) > MODELPAR_GRAD_TOL,
+                  f"{arm} control ({MODELPAR_CONTROLS[arm]}): gradient "
+                  f"shares {ctl} within {MODELPAR_GRAD_TOL}: the check "
+                  f"cannot see it")
+            log(f"{arm} control ({MODELPAR_CONTROLS[arm]}): gradient share "
+                f"by rank {[f'{v:.3g}' for v in ctl]} (at "
+                f"{a0['control']['grad_share_where']}) > {MODELPAR_GRAD_TOL}")
+        steps = len(a0["ms"])
+        n = layers if arm == "fsdp_tp" else 0   # GPT: exact attention
+        for r, a in enumerate(arms):
+            check(all(math.isfinite(v) for v in [a["first_loss"]]
+                      + a["loss"]),
+                  f"{arm} rank {r}: losses {a['first_loss']}, {a['loss']}")
+            got = a["flash_launches"]
+            want = {k: n * steps for k in FLASH_KERNELS}
+            check(not on_card or got == want,
+                  f"{arm} rank {r}: flash launches {got}, expected {want}")
+            for k in total:
+                total[k] += got[k]
+            if arm in ("pp", "3d"):
+                check(a["stage_forwards"] == m,
+                      f"{arm} rank {r}: {a['stage_forwards']} stage "
+                      f"forwards a step, expected {m}")
+        if arm == "fsdp_tp":
+            # every leaf but the RMSNorm scales is sliced on both axes at
+            # this width: a rank holds a quarter of it, state included
+            check(all(a["sliced_share"] == 0.25 for a in arms),
+                  f"fsdp_tp: parameter and optimizer bytes of the sliced "
+                  f"leaves a rank {[a['sliced_share'] for a in arms]} of "
+                  f"the whole leaves', expected 1/4")
+            want = [a["whole_held_bytes"] + (a["whole_state_bytes"]
+                                             - a["whole_held_bytes"]) // 4
+                    for a in arms]
+            check([a["state_bytes"] for a in arms] == want,
+                  f"fsdp_tp: parameter and optimizer bytes by rank "
+                  f"{[a['state_bytes'] for a in arms]}, expected {want}: "
+                  f"the whole leaves held whole, a quarter of the rest")
+        extra = ""
+        if "stage_forwards" in a0:
+            extra = (f"; {a0['stage_forwards']} stage forwards a step a "
+                     f"rank (M = {m}, bubbles skipped)")
+        log(f"{arm} [{smi}] mesh {a0['mesh']}: {_ms_line(a0['ms'])} on rank "
+            f"0, {a0['tokens_per_s']:.0f} tokens/s; gradient share by rank "
+            f"{[f'{v:.2e}' for v in shares]} (at {where[0]}) <= "
+            f"{MODELPAR_GRAD_TOL}; first loss {a0['first_loss']:.6f} "
+            f"against {a0['ref_loss']:.6f}; losses "
+            f"{[round(v, 4) for v in a0['loss']]}; peak memory by rank "
+            f"{[a['peak_gib'] for a in arms]} GiB; parameters and AdamW "
+            f"state {a0['state_bytes'] / 2**30:.3f} GiB a rank against the "
+            f"whole model's {a0['whole_state_bytes'] / 2**30:.3f} (sliced "
+            f"leaves: {a0['sliced_share']}); flash launches a step "
+            f"{ {k: v // max(steps, 1) for k, v in a0['flash_launches'].items()} }"
+            f"{extra}; arm {a0['seconds']:.1f} s")
+    log(f"tensor, pipeline and composite parallelism phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4767,15 +4946,18 @@ def main():
     serve_launches = serving_phase(torch, smi)
     fused_launches, fused_flash = fused_step_phase(torch, ok, fa, smi)
     seqpar_flash = seqpar_phase(torch, smi)
+    modelpar_flash = modelpar_phase(torch, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
-    # those phase 11's, 12's, 13's and 15's processes counted, and phase 14's
+    # those phase 11's, 12's, 13's, 15's and 16's processes counted, and
+    # phase 14's
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
                         + elastic_launches.get(k, 0)
                         + serve_launches.get(k, 0)
                         + fused_launches.get(k, 0))
     for k in FLASH_KERNELS:
-        flash_launches[k] += fused_flash[k] + seqpar_flash[k]
+        flash_launches[k] += (fused_flash[k] + seqpar_flash[k]
+                              + modelpar_flash[k])
     for row in observed:
         for k in KERNELS:
             launches[k] += row["launches"][k]

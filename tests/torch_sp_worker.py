@@ -272,9 +272,10 @@ def main(in_path, cases_path, out_path, device="cpu"):
     np.savez(out_path, **res)
 
 
-def spawn(world, in_path, cases_path, out_dir, timeout=240, device="cpu"):
-    """Every rank of a one-node world of ``world`` ranks; returns the
-    result paths by rank."""
+def spawn(world, in_path, cases_path, out_dir, timeout=240, device="cpu",
+          module="tests.torch_sp_worker"):
+    """Every rank of a one-node world of ``world`` ranks (each ``python -m
+    module``); returns the result paths by rank."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -290,8 +291,8 @@ def spawn(world, in_path, cases_path, out_dir, timeout=240, device="cpu"):
         if device == "cuda":
             env["CUDA_VISIBLE_DEVICES"] = str(rank)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "tests.torch_sp_worker", in_path,
-             cases_path, out, device], cwd=os.path.dirname(here),
+            [sys.executable, "-m", module, in_path, cases_path, out,
+             device], cwd=os.path.dirname(here),
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
         outs.append(out)
