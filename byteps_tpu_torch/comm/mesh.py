@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import socket
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -55,6 +55,9 @@ class CommContext:
     backend: str
     intra_group: Any = None
     inter_group: Any = None
+    # "host:port" of the rendezvous store (rank 0's) at more than one
+    # rank: the engine's root order talks through it
+    rendezvous: Optional[str] = None
 
     def close(self) -> None:
         if dist.is_initialized():
@@ -121,7 +124,9 @@ def bootstrap(cfg: Config, device: torch.device,
     comm = CommContext(rank=rank, size=world, local_rank=cfg.local_rank,
                        local_size=L, num_nodes=N, device=device,
                        backend=backend, intra_group=intra,
-                       inter_group=inter)
+                       inter_group=inter,
+                       rendezvous=cfg.coordinator_address if world > 1
+                       else None)
     _log.info("process group up: rank %d of %d (%d node(s) x %d), %s on %s",
               rank, world, N, L, backend, device)
     return comm

@@ -83,6 +83,9 @@ class ChunkTask:
     t_dispatch: float = 0.0
     step: int = 0                 # the tensor's push count (the tracer's)
     trace_id: int = 0             # the push's captured trace, 0 = none
+    # root-ordered dispatch (core/root_order.py): the root's
+    # membership-epoch verdict, which every rank applies; None at one rank
+    order_stale: Optional[bool] = None
 
     # priority descending, then key ascending
     def sort_tuple(self):

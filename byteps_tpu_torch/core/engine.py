@@ -32,12 +32,24 @@ explicit kwargs re-pin it, a new codec applies between pushes with
 fresh compressor state, and each push's sample is charged to the codec
 it ran under.  The planner is inert at more than one rank.
 
-Dispatch order is the priority mechanism on one rank.  The ranks of a
+Dispatch order is the priority mechanism: an explicit ``priority``,
+else ``-declared_key`` under ``enable_priority``.  The ranks of a
 process group must issue the same collectives, of the same sizes, in the
 same order, and the moment a task becomes eligible differs between
-ranks, so with more than one rank the engine dispatches in enqueue order
-(hook order, which is the same on every rank), one chunk per collective
-(a width of 1, as the JAX engine has for more than one process,
+ranks, so with more than one rank the root (rank 0) decides and the
+followers take its order (``core/root_order.py``): the root pops by
+priority under its credit window, as at one rank, and announces each
+popped batch; a follower issues the announced chunks in that order,
+waiting for any it has not enqueued yet.  Only the root's priorities
+count.  Every collective then keeps one order on every rank: the
+sharded update's reduce-scatter, slot step and all-gather, the onebit
+all-gather, the parts fallback, and the membership-epoch guard, whose
+verdict is the root's.  ``stats`` counts the announcements
+(``order_msgs``), the root's time writing them (``order_send_ms``), a
+follower's wait for chunks it lacked (``order_wait_ms``) and its wait
+for an announcement while it held chunks (``order_lag_ms``).  With more
+than one rank a collective carries one chunk (a width of 1, as the JAX
+engine has for more than one process,
 ``byteps_tpu/core/engine.py:298``), and the planner does not tune.
 
 The sharded weight update (``Config.sharded_update``): a tensor declared
@@ -161,6 +173,14 @@ class StaleEpochError(RuntimeError):
 
 def _is_stale(task: ChunkTask, epoch: int) -> bool:
     return task.pending is not None and task.pending.mepoch != epoch
+
+
+def _dispatch_stale(task: ChunkTask, epoch: int) -> bool:
+    """The dispatch guard's verdict: the root's where it gave one (more
+    than one rank), else this rank's own."""
+    if task.order_stale is not None:
+        return task.order_stale
+    return _is_stale(task, epoch)
 
 
 def _drop_stale(task: ChunkTask, epoch: int, where: str) -> Status:
@@ -385,7 +405,14 @@ class PushPullEngine:
         self.device = comm.device
         self.registry = TensorRegistry()
         self.handles = HandleManager()
-        self.scheduler = self._make_scheduler(cfg)
+        # collectives issued vs chunk tasks consumed; bytes on the wire of
+        # each leg of every retired chunk; the root order's messages and
+        # waits (more than one rank, core/root_order.py)
+        self.stats = {"dispatches": 0, "chunks": 0, "wire_push": 0,
+                      "wire_pull": 0, "order_msgs": 0, "order_send_ms": 0.0,
+                      "order_wait_ms": 0.0, "order_lag_ms": 0.0}
+        self.scheduler = (self._make_scheduler(cfg) if comm.size == 1
+                          else self._ordered_scheduler(cfg, comm))
         self.planner = ChunkPlanner(cfg, num_procs=comm.size)
         self.speed = SpeedMonitor()
         # one tracer per process (common/tracing.py): the engine, the
@@ -395,15 +422,12 @@ class PushPullEngine:
         # per-step stats and attribution: the step.* gauges, the flight
         # recorder's step_stats events, a bounded history
         self.step_stats = StepStatsTracker()
-        # chunks popped per dispatch iteration: -1 drains the eligible
-        # window; 1 at more than one rank (see the module docstring)
+        # chunks per dispatch iteration: -1 drains the eligible window;
+        # 1 at more than one rank, where the root's order is issued one
+        # chunk per collective (see the module docstring)
         self._group_size = (1 if comm.size > 1
                             else -1 if cfg.group_size < 0
                             else max(1, cfg.group_size))
-        # collectives issued vs chunk tasks consumed; bytes on the wire of
-        # each leg of every retired chunk
-        self.stats = {"dispatches": 0, "chunks": 0, "wire_push": 0,
-                      "wire_pull": 0}
         # name -> ShardedUpdateSlot, one per declare_update
         self.update_slots: Dict[str, ShardedUpdateSlot] = {}
         # tensor -> the codec refresh_compression_gauges last published
@@ -412,7 +436,6 @@ class PushPullEngine:
                        if self.device.type == "cuda" else None)
         self._sync_q: "queue.Queue" = queue.Queue()
         self._enq_lock = threading.Lock()
-        self._enq_seq = 0
         self._dispatch_enabled = threading.Event()
         self._dispatch_enabled.set()
         self._parked = threading.Event()  # dispatcher pause handshake
@@ -451,6 +474,23 @@ class PushPullEngine:
             from ..native import NativeChunkScheduler
             return NativeChunkScheduler(credit_bytes=cfg.scheduling_credit)
         return ChunkScheduler(credit_bytes=cfg.scheduling_credit)
+
+    def _ordered_scheduler(self, cfg: Config, comm: CommContext):
+        """With more than one rank: the root wraps its queue in the
+        announcement of its order, and a follower takes that order
+        instead of a queue (``core/root_order.py``)."""
+        from .root_order import open_order
+        return open_order(
+            comm, lambda: self._make_scheduler(cfg), self.stats,
+            lambda t: _is_stale(t, _membership.current_epoch()))
+
+    def _priority(self, ctx: TensorContext, priority: Optional[int]) -> int:
+        """A push's priority: the caller's, else ``-declared_key`` under
+        ``enable_priority`` (earlier-declared first).  With more than one
+        rank only the root's count."""
+        if priority is not None:
+            return priority
+        return -ctx.declared_key if self.cfg.enable_priority else 0
 
     # ----------------------------------------------------------- helpers
     def _on_stream(self):
@@ -696,14 +736,8 @@ class PushPullEngine:
         if telemetry:
             self.step_stats.add_component("enqueue",
                                           (t_queued - t_api0) * 1e3)
+        prio = self._priority(ctx, priority)
         with self._enq_lock:
-            self._enq_seq += 1
-            if self.comm.size > 1:
-                prio = -self._enq_seq       # enqueue order, see module doc
-            elif priority is not None:
-                prio = priority
-            else:
-                prio = -ctx.declared_key if self.cfg.enable_priority else 0
             for i, (off, ln) in enumerate(task_bounds):
                 task = ChunkTask(
                     name=name, key=keys[i], priority=prio,
@@ -965,12 +999,14 @@ class PushPullEngine:
                 batch.append(t2)
             # membership-epoch guard: chunks enqueued before a world
             # change must not be issued into a group that no longer
-            # exists; each leaves the batch as a failed unit of its own
+            # exists; each leaves the batch as a failed unit of its own.
+            # With more than one rank the verdict is the root's, so every
+            # rank drops the same chunks
             ep = _membership.current_epoch()
-            if any(_is_stale(t, ep) for t in batch):
+            if any(_dispatch_stale(t, ep) for t in batch):
                 fresh = []
                 for t in batch:
-                    if _is_stale(t, ep):
+                    if _dispatch_stale(t, ep):
                         if t.pending.slot is not None:
                             t.pending.dispatch_failed = True
                         self._sync_q.put(([t], None, None, None,
@@ -1328,6 +1364,11 @@ class PushPullEngine:
         self._dispatch_enabled.set()
         self.scheduler.wake()
         self._dispatcher.join(timeout=10)
+        close_order = getattr(self.scheduler, "close", None)
+        if close_order is not None:
+            # the root ends its followers' streams; a follower stops
+            # its receiver
+            close_order()
         self._sync_q.put(_SHUTDOWN)
         self._syncer.join(timeout=10)
         if (self._deadline_thread is not None

@@ -39,7 +39,7 @@ __all__ = [
     "declare", "push_pull", "push_pull_async", "poll", "synchronize",
     "declare_update", "push_pull_update", "push_pull_update_async",
     "suspend", "resume", "get_pushpull_speed", "metrics_snapshot",
-    "membership_epoch", "cluster_metrics",
+    "membership_epoch", "cluster_metrics", "device",
     "BytePSPushPull", "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "Compression", "DistributedDataParallel",
     "CrossBarrier", "HalfPrecisionDistributedOptimizer",
@@ -51,6 +51,7 @@ shutdown = _api.shutdown
 rank = _api.rank
 size = _api.size
 local_rank = _api.local_rank
+device = _api.device
 local_size = _api.local_size
 declare = _api.declare
 declare_update = _api.declare_update

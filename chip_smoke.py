@@ -497,11 +497,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and head gradients summed over dp only) and ``3d`` at ``(dp 1, pp 2,
      tp 2)`` with M = 4; a pipeline stage must run M stage forwards a
      step.
+17. the launcher, the examples and the bench tools (``launcher_phase``):
+   every command from the repo's root with the DMLC_* and BYTEPS_LOCAL_*
+   variables unset; one that exits with another code than 0, runs past
+   LAUNCH_TIMEOUT_S or prints no result fails the run.
+   - (a) ``python -m byteps_tpu_torch.launcher.launch python -m
+     byteps_tpu_torch.examples.benchmark_byteps`` with LAUNCH_BENCH (20
+     tensors of 4 MB, onebit, 10 timed iterations and a warm-up): exactly
+     one worker (one visible card), at local rank 0, NCCL at a world of
+     one; it prints MB/s, and its onebit launches must be 2 packs (the
+     worker's and the server's re-pack), 1 unpack and 1 merge a chunk
+     and iteration of the chunks its engine carved;
+   - (b) ``--restart 1`` around a worker that exits 17 once and then runs
+     ``examples.train_mnist_byteps`` for LAUNCH_MNIST_STEPS steps on the
+     card: exactly one restart, the loss finite and falling (run beside
+     ``fsdp_memory``, whose figures are memory a process, to keep the
+     phase short);
+   - (c) the bench tools at one rank on the card, their figures printed
+     with no bound: ``mechanism_bench`` (priority and partition
+     latencies), ``overlap_bench`` (the none and onebit lanes, 2 rounds;
+     the onebit lane must launch each onebit kernel), ``serve_bench`` (in
+     process, 2 s, 4 clients; no failed read, the delta check), and
+     ``async_bench`` (the sync arm's loss must fall); then
+     ``fsdp_memory``, two ranks over gloo on the one card, each with a
+     peak above its kept state for both FSDP designs.
+   Every figure is printed beside the card's name and power limit, and
+   the phase's time.
 
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
-4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's, 15's and
-16's processes, which count their own, and phase 14's runs);
+4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's, 15's,
+16's and 17's processes, which count their own, and phase 14's runs);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -4883,6 +4909,211 @@ def modelpar_phase(torch, smi):
     return total
 
 
+# phase 17: the launcher, the examples and the bench tools
+LAUNCH_DEVICE = "cuda"
+LAUNCH_TIMEOUT_S = 120           # each child command of phase 17
+LAUNCH_BENCH = ("--compressor", "onebit", "--num-tensors", "20",
+                "--tensor-mb", "4", "--num-iters", "10")
+LAUNCH_MNIST_STEPS = 20
+# a worker that exits with the restartable code once, then trains
+LAUNCH_RESTART_WRAPPER = (
+    "import os, sys\n"
+    "mark = sys.argv[1]\n"
+    "if not os.path.exists(mark):\n"
+    "    open(mark, 'w').close()\n"
+    "    sys.exit(17)\n"
+    "os.execv(sys.executable, [sys.executable, '-m',\n"
+    "         'byteps_tpu_torch.examples.train_mnist_byteps'] + sys.argv[2:])\n")
+LOSS_LINE = re.compile(r"step +(\d+) +loss (\S+)")
+
+
+def _launch_start(argv, env=None):
+    """Start one command of phase 17 from the repo's root, with the
+    DMLC_* and BYTEPS_LOCAL_* variables unset (the launcher sets its
+    workers')."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    full_env = {k: v for k, v in os.environ.items()
+                if not k.startswith(("DMLC_", "BYTEPS_LOCAL_"))}
+    full_env["PYTHONPATH"] = root + os.pathsep + full_env.get("PYTHONPATH",
+                                                              "")
+    full_env.update(env or {})
+    return subprocess.Popen([sys.executable] + list(argv), cwd=root,
+                            env=full_env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _launch_wait(name, p):
+    """The command must exit 0 within LAUNCH_TIMEOUT_S of this call;
+    returns (stdout, stderr)."""
+    try:
+        out, err = p.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        out, err = p.communicate()
+        check(False, f"{name}: ran past {LAUNCH_TIMEOUT_S} s:\n"
+                     f"{out[-2000:]}\n{err[-2000:]}")
+    check(p.returncode == 0, f"{name}: exited {p.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    return out, err
+
+
+def _launch_child(name, argv, env=None):
+    return _launch_wait(name, _launch_start(argv, env))
+
+
+def _json_lines(name, out, want=None, prefix=""):
+    rows = [json.loads(ln[len(prefix):]) for ln in out.splitlines()
+            if ln.startswith(prefix + "{")]
+    check(rows and (want is None or len(rows) == want),
+          f"{name}: {len(rows)} result line(s), expected "
+          f"{want or 'some'}:\n{out[-3000:]}")
+    return rows
+
+
+def launcher_phase(torch, smi):
+    """Phase 17: bpslaunch with one worker per visible card around the
+    onebit benchmark, a restart on the card, and the bench tools at one
+    rank.  Returns the onebit launches its processes counted."""
+    t_phase = time.perf_counter()
+    launch = ["-m", "byteps_tpu_torch.launcher.launch"]
+    launches = {k: 0 for k in KERNELS}
+
+    # (a) the onebit benchmark under the launcher, BYTEPS_LOCAL_SIZE unset
+    t = time.perf_counter()
+    out, _ = _launch_child("launcher onebit", launch + [
+        sys.executable, "-m", "byteps_tpu_torch.examples.benchmark_byteps",
+        *LAUNCH_BENCH])
+    (r,) = _json_lines("launcher onebit", out, want=1)
+    check((r["rank"], r["size"], r["local_rank"], r["backend"])
+          == (0, 1, 0, "nccl") and r["device"].startswith("cuda"),
+          f"launcher onebit: one worker at local rank 0 over NCCL at a "
+          f"world of one expected, got {r}")
+    check("MB/s pushed+pulled" in out, f"launcher onebit: no MB/s:\n{out}")
+    c = r["chunks"] * r["iters"]
+    # a chunk and iteration: the worker's pack and the server's re-pack,
+    # one merge, the server's unpack
+    want = {"onebit_pack": 2 * c, "onebit_unpack": c,
+            "onebit_unpack_sum": c}
+    check(r["launches"] == want,
+          f"launcher onebit: launches {r['launches']}, expected {want} "
+          f"({r['chunks']} chunks x {r['iters']} iterations)")
+    for k in KERNELS:
+        launches[k] += r["launches"][k]
+    log(f"launcher onebit [{smi}]: 1 worker (local rank 0, "
+        f"{r['backend']}, {r['device']}), {r['mb_per_s']:.1f} MB/s over "
+        f"{r['chunks']} chunks x {r['iters']} iterations; launches "
+        f"{r['launches']}; {time.perf_counter() - t:.1f} s")
+
+    # (c) the bench tools at one rank on the card (figures only)
+    t = time.perf_counter()
+    out, _ = _launch_child("mechanism_bench", [
+        "-m", "byteps_tpu_torch.tools.mechanism_bench", "--device",
+        LAUNCH_DEVICE])
+    (m,) = _json_lines("mechanism_bench", out, want=1)
+    pr, pa = m["priority"], m["partitioning"]
+    log(f"mechanism_bench [{smi}]: layer-0 ready {pr['layer0_ready_ms_priority']}"
+        f" ms with priority {pr['layer0_ready_priority_iqr_ms']}, "
+        f"{pr['layer0_ready_ms_fifo']} ms in arrival order "
+        f"{pr['layer0_ready_fifo_iqr_ms']}; urgent ready "
+        f"{pa['urgent_ready_ms_partitioned']} ms partitioned "
+        f"{pa['urgent_ready_partitioned_iqr_ms']}, "
+        f"{pa['urgent_ready_ms_whole']} ms whole "
+        f"{pa['urgent_ready_whole_iqr_ms']}; {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    out, _ = _launch_child("overlap_bench", [
+        "-m", "byteps_tpu_torch.tools.overlap_bench", "--device",
+        LAUNCH_DEVICE, "--compression", "none,onebit", "--rounds", "2"])
+    for o in _json_lines("overlap_bench", out, want=2):
+        md = o["modes"]
+        if o["compression"] == "onebit":
+            got = o["onebit_launches"]
+            check(all(got[k] > 0 for k in KERNELS),
+                  f"overlap_bench onebit lane: launches {got}")
+            for k in KERNELS:
+                launches[k] += got[k]
+        log(f"overlap_bench {o['compression']} [{smi}]: step ms nocomm "
+            f"{md['nocomm']['step_ms']} {md['nocomm']['iqr_ms']}, sync "
+            f"{md['sync']['step_ms']} {md['sync']['iqr_ms']}, xb "
+            f"{md['xb']['step_ms']} {md['xb']['iqr_ms']}; overlap fraction "
+            f"{o['overlap_fraction']} (rounds "
+            f"{o['overlap_fraction_rounds']}); onebit launches "
+            f"{o['onebit_launches']}")
+    log(f"overlap_bench: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    out, _ = _launch_child("serve_bench", [
+        "-m", "byteps_tpu_torch.tools.serve_bench", "--device",
+        LAUNCH_DEVICE, "--seconds", "2", "--clients", "4"])
+    (sv,) = _json_lines("serve_bench", out, want=1)
+    check(sv["failed_reads"] == 0 and sv["delta"]["ok"],
+          f"serve_bench: {sv['failed_reads']} failed reads, delta {sv['delta']}")
+    log(f"serve_bench [{smi}]: {sv['pulls_per_s']} pulls/s, p50 "
+        f"{sv['p50_ms']} ms, p99 {sv['p99_ms']} ms, {sv['pushes_per_s']} "
+        f"pushes/s, {sv['clients']} clients over {sv['keys']} keys of "
+        f"{sv['numel']}; delta pull {sv['delta']['delta_pull_bytes']} of "
+        f"{sv['delta']['model_bytes']} bytes; {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    out, _ = _launch_child("async_bench", [
+        "-m", "byteps_tpu_torch.tools.async_bench", "--device",
+        LAUNCH_DEVICE])
+    (a,) = _json_lines("async_bench", out, want=1)
+    check("error" not in a and a["loss_sync"] < a["loss_init"],
+          f"async_bench: {a}")
+    log(f"async_bench [{smi}]: loss {a['loss_init']} -> sync "
+        f"{a['loss_sync']} ({a['wall_sync_s']} s), async {a['loss_async']}"
+        f" ({a['wall_async_s']} s), {a['delta_pushes_per_key']} delta "
+        f"pushes a key; {time.perf_counter() - t:.1f} s")
+
+    # (b) a restart on the card: exit 17 once, then train; beside
+    # fsdp_memory, whose figures are this process's memory alone
+    t = time.perf_counter()
+    mark = os.path.join(tempfile.mkdtemp(prefix="bps_restart_"), "once")
+    restart = _launch_start(launch + [
+        "--restart", "1", sys.executable, "-c", LAUNCH_RESTART_WRAPPER,
+        mark, "--steps", str(LAUNCH_MNIST_STEPS), "--device",
+        LAUNCH_DEVICE], env={"BYTEPS_RETRY_BASE_DELAY": "0.01",
+                             "BYTEPS_RETRY_MAX_DELAY": "0.01"})
+    try:
+        out, _ = _launch_child("fsdp_memory", [
+        "-m", "byteps_tpu_torch.tools.fsdp_memory", "--device",
+        LAUNCH_DEVICE, "--spawn", "2", "--backend", "gloo"])
+        r_out, r_err = _launch_wait("launcher restart", restart)
+    finally:
+        if restart.poll() is None:
+            restart.kill()
+            restart.wait()
+        shutil.rmtree(os.path.dirname(mark), ignore_errors=True)
+    check(r_err.count("(restartable); restart 1/1") == 1,
+          f"launcher restart: expected exactly one restart:\n"
+          f"{r_err[-3000:]}")
+    losses = [float(v) for _, v in LOSS_LINE.findall(r_out)]
+    check(len(losses) >= 2 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          f"launcher restart: losses {losses} not finite and falling")
+    log(f"launcher restart [{smi}]: exit 17, one restart, then "
+        f"{LAUNCH_MNIST_STEPS} MNIST steps on the card, loss {losses[0]:.4f}"
+        f" -> {losses[-1]:.4f}")
+    fs = _json_lines("fsdp_memory", out, want=2, prefix="FSDP_RESULT ")
+    for f in sorted(fs, key=lambda f: f["rank"]):
+        check(all(f[d]["temp_bytes"] is not None
+                  for d in ("flat_fsdp", "gspmd_fsdp")),
+              f"fsdp_memory: no peak on the card: {f}")
+        log(f"fsdp_memory rank {f['rank']} [{smi}]: {f['n_params']} "
+            f"parameters; flat FSDP {f['flat_fsdp']['arg_bytes'] / 2**20:.1f}"
+            f" MiB kept, peak {f['flat_fsdp']['temp_bytes'] / 2**20:.1f} MiB"
+            f" above it; per-block FSDP "
+            f"{f['gspmd_fsdp']['arg_bytes'] / 2**20:.1f} MiB kept, peak "
+            f"{f['gspmd_fsdp']['temp_bytes'] / 2**20:.1f} MiB above it; "
+            f"ratio {f['temp_ratio_flat_over_gspmd']}")
+    log(f"fsdp_memory and the restart beside it: "
+        f"{time.perf_counter() - t:.1f} s")
+    log(f"launcher, examples and bench tools phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4947,14 +5178,16 @@ def main():
     fused_launches, fused_flash = fused_step_phase(torch, ok, fa, smi)
     seqpar_flash = seqpar_phase(torch, smi)
     modelpar_flash = modelpar_phase(torch, smi)
+    launcher_launches = launcher_phase(torch, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
-    # those phase 11's, 12's, 13's, 15's and 16's processes counted, and
-    # phase 14's
+    # those phase 11's, 12's, 13's, 15's, 16's and 17's processes
+    # counted, and phase 14's
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
                         + elastic_launches.get(k, 0)
                         + serve_launches.get(k, 0)
-                        + fused_launches.get(k, 0))
+                        + fused_launches.get(k, 0)
+                        + launcher_launches[k])
     for k in FLASH_KERNELS:
         flash_launches[k] += (fused_flash[k] + seqpar_flash[k]
                               + modelpar_flash[k])
