@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -124,6 +125,18 @@ def broadcast(comm: CommContext, x: torch.Tensor,
     out = x.clone()
     dist.broadcast(out, src=root)
     return out
+
+
+def broadcast_host(comm: CommContext, arr, root: int = 0):
+    """Rank ``root``'s host array on every rank (JAX ``broadcast_host``,
+    ``byteps_tpu/comm/collectives.py:351-362``): staged onto the group's
+    device, broadcast there, read back in ``arr``'s shape and dtype.  The
+    frameworks' ``broadcast_variables`` go through it."""
+    from ..common.host import host_to_tensor, tensor_to_host
+    arr = np.asarray(arr)
+    t = host_to_tensor(arr).to(comm.device, copy=True)
+    return tensor_to_host(broadcast(comm, t, root=root), arr.shape,
+                          arr.dtype)
 
 
 def _reduce_acc(comm: CommContext, buf: torch.Tensor, x_dtype,

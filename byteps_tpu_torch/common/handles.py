@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from .host import tensor_to_host
 from .types import Status
 
 
@@ -107,3 +108,33 @@ class HandleManager:
     def clear(self) -> None:
         with self._lock:
             self._live.clear()
+
+
+class HostHandle:
+    """The handle of a host-array push (``push_pull_local_async``): the
+    engine's handle, whose :meth:`wait` returns a numpy array of the
+    input's shape and dtype."""
+
+    def __init__(self, inner: Handle, shape, dtype):
+        self._inner = inner
+        self._shape = tuple(shape)
+        self._dtype = dtype
+
+    @property
+    def id(self) -> int:
+        return self._inner.id
+
+    @property
+    def name(self) -> str:
+        return self._inner.name
+
+    @property
+    def status(self) -> Optional[Status]:
+        return self._inner.status
+
+    def poll(self) -> bool:
+        return self._inner.poll()
+
+    def wait(self, timeout: Optional[float] = None):
+        return tensor_to_host(self._inner.wait(timeout=timeout),
+                              self._shape, self._dtype)

@@ -118,9 +118,15 @@ Debug sampling (``BYTEPS_DEBUG_SAMPLE_TENSOR``, JAX
 and result summaries, and a matching sharded-update tensor takes the
 parts fallback instead of the accumulator.  The JAX engine also keeps a
 matching tensor off ``push_pull_local``'s single-process fast path; the
-port has no such path.  Scrape-time gauges:
+port's ``push_pull_local`` has no such path.  Scrape-time gauges:
 :meth:`PushPullEngine.refresh_compression_gauges`, called by the
 ``/metrics`` refresh.
+
+The host-array entry (:meth:`PushPullEngine.push_pull_local_async`, JAX
+``engine.py:1666-1710``) is what the TensorFlow, Keras and MXNet
+adapters call: a numpy array is staged once onto the engine's device,
+pushed as any tensor is, and its handle (:class:`HostHandle`) resolves
+to a numpy array of the input's shape and dtype.
 
 Not ported: AOT warming.  Eager PyTorch compiles no program per shape,
 and the CUDA kernels are built once per process at their first launch,
@@ -137,6 +143,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -147,7 +154,8 @@ from ..comm.mesh import CommContext
 from ..common import flight_recorder as _flight
 from ..common import tracing as _tracing
 from ..common.config import Config
-from ..common.handles import Handle, HandleManager
+from ..common.handles import Handle, HandleManager, HostHandle
+from ..common.host import host_to_tensor
 from ..common.registry import TensorRegistry
 from ..common.scheduler import ChunkPlanner, ChunkScheduler
 from ..common.telemetry import (SpeedMonitor, StepStatsTracker, attribution,
@@ -776,6 +784,30 @@ class PushPullEngine:
     def push_pull(self, tensor: torch.Tensor, name: str, **kw):
         """Synchronous push_pull; returns the reduced tensor."""
         return self.push_pull_async(tensor, name, **kw).wait()
+
+    # ------------------------------------------------- host-array entry
+    def push_pull_local_async(self, x, name: str, op: str = "average",
+                              priority: Optional[int] = None,
+                              compression: Optional[Dict[str, str]] = None,
+                              replicate_out: bool = True) -> "HostHandle":
+        """This process's host array ``x`` through the engine (the entry
+        every framework adapter calls, JAX ``push_pull_local_async``): it
+        is staged once onto the engine's device and pushed as any tensor
+        is; the handle resolves to a numpy array of ``x``'s shape and
+        dtype, the sum or average over the processes.  ``replicate_out``
+        is accepted for the JAX callers and means nothing with one
+        process per device."""
+        del replicate_out
+        arr = np.asarray(x)
+        staged = host_to_tensor(arr).reshape(-1).to(self.device, copy=True)
+        return HostHandle(self._push(staged, name, priority, op,
+                                     compression), arr.shape, arr.dtype)
+
+    def push_pull_local(self, x, name: str, **kw) -> np.ndarray:
+        h = self.push_pull_local_async(x, name, **kw)
+        out = h.wait()
+        self.handles.release(h.id)
+        return out
 
     # ---------------------------------------------------- sharded update
     def declare_update(self, name: str, shape, dtype: torch.dtype, *,

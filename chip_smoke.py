@@ -482,11 +482,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    then MODELPAR_STEPS timed steps: ms, tokens/s, peak memory a rank.
    - (a) ``fsdp_tp``: Llama-3-8B width (hidden 4096, 32 heads, 8 K/V heads
      of 128, SwiGLU 14336, vocab 128256, bf16 compute, f32 parameters) at
-     MODELPAR_LLAMA (4 of 32 layers, 2 sequences of 4096 tokens, one an
+     MODELPAR_LLAMA (2 of 32 layers, 2 sequences of 4096 tokens, one an
      fsdp rank) over ``(fsdp 2, tp 2)``, AdamW, the flash kernels at
      ``[1, 4096, 16, 128]`` a rank, weights drawn leaf by leaf from the
      seed; control: the attention's row-parallel sum skipped.  Each flash
-     kernel must launch 4 times a step on every rank, and each rank's
+     kernel must launch once a layer a step on every rank, and each rank's
      parameters and AdamW state must be 1/4 of the whole model's but for
      the RMSNorm scales, which every rank holds whole;
    - (b) GPT-small (hidden 512, 8 layers, 8 heads of 64, vocab 32768,
@@ -524,10 +524,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Every figure is printed beside the card's name and power limit, and
    the phase's time.
 
+18. the frontends and the bench-smoke gate (``frontends_phase``), one
+   rank, NCCL at a world of one:
+   - (a) ResNet-50 at full width (f32 parameters, bf16 compute, 32 images
+     of 224x224, weights and batch from the seed), 1 warm-up and MX_STEPS
+     timed steps: each step's 161 gradients are copied to host arrays in
+     an NDArray stand-in and handed to
+     ``byteps_tpu_torch.mxnet.DistributedOptimizer`` over numpy SGD
+     (``update`` of every index), every gradient of MX_ONEBIT_BYTES or
+     more declared with ``byteps_compressor_type=onebit``, the others
+     raw; then the host weights go back to the card.  The onebit counters
+     are zeroed before the timed steps and must read 2 packs, 1 merge and
+     1 unpack a onebit chunk and step.  On the last step every reduced
+     gradient must equal ``api.push_pull`` of the same device tensor with
+     the same dict (fresh names) bit for bit, each onebit one the plain
+     chain's on the CPU (``codec_reference``) to rtol 1e-5, and the host
+     weights numpy SGD of the reduced gradients; a control, the raw dict
+     on the largest onebit gradient, must break the bit check.  One more
+     step under torch.profiler must show as many onebit device kernels
+     of each kind as the counters read a step.  It prints a step's ms
+     with forward and backward, host staging (d2h, h2d), the engine and
+     numpy SGD apart, and the profiled step's device-busy share;
+   - (b) the engine and compressed lanes of
+     ``byteps_tpu_torch.tools.bench_smoke`` (``_measure``,
+     ``_measure_compressed``) on the card: the engine's result equals the
+     bare collective's bit for bit, the onebit lane launches every onebit
+     kernel, and the compressed lanes' wire ratio and golden error are
+     within the committed floor's ceilings.  The timing verdict against
+     the floor is printed, not checked.
+   Every figure is printed beside the card's name and power limit, and
+   the phase's time.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
 4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's, 15's,
-16's and 17's processes, which count their own, and phase 14's runs);
+16's and 17's processes, which count their own, and phase 14's and 18's
+runs);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -4766,7 +4798,9 @@ def seqpar_phase(torch, smi):
 MODELPAR_DEVICE = "cuda"
 MODELPAR_MODEL = "full"                  # tools/model_parallel.py --model
 MODELPAR_RANKS = 4                       # processes on the one card, gloo
-MODELPAR_LLAMA = (OBS_LLAMA_LAYERS, 2, 4096)   # layers, sequences, tokens
+# layers (2 of 32: half of phase 8's cut, for the script's time limit),
+# sequences, tokens
+MODELPAR_LLAMA = (2, 2, 4096)
 MODELPAR_GPT = (8, 1024, 4)              # sequences, tokens, microbatches
 MODELPAR_STEPS = 2                       # timed steps an arm, after the first
 # bf16: each rank's gradient slices after the first step against the
@@ -5114,6 +5148,247 @@ def launcher_phase(torch, smi):
     return launches
 
 
+# --------------------------------------- phase 18: frontends, bench smoke
+
+MX_DEVICE = "cuda"
+MX_STEPS = 2                     # timed steps, after 1 warm-up
+MX_LR = 0.1
+MX_ONEBIT_BYTES = 64 << 10       # a gradient this large goes onebit
+
+
+class NDArray:
+    """An mx.nd.NDArray stand-in on a host array: ``asnumpy``, slice
+    assignment (the MXNet adapter is duck-typed to this protocol)."""
+
+    def __init__(self, arr):
+        self._a = arr
+
+    def asnumpy(self):
+        return self._a
+
+    def __setitem__(self, key, value):
+        self._a[key] = value
+
+
+class _HostSGD:
+    """The inner MXNet optimizer: numpy SGD on the host arrays, its time
+    kept apart from the engine's."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def update(self, index, weight, grad, state):
+        t0 = time.perf_counter()
+        for w, g in zip(weight, grad):
+            w[:] = w.asnumpy() - MX_LR * g.asnumpy()
+        self.seconds += time.perf_counter() - t0
+
+
+def frontends_phase(torch, ok, registry, resnet, smi):
+    """Phase 18: (a) the MXNet frontend's DistributedOptimizer over
+    ResNet-50's gradients on the card; (b) the engine and compressed
+    lanes of the port's bench_smoke on the card.  Returns the onebit
+    launches of both main paths."""
+    t_phase = time.perf_counter()
+    launches = mxnet_arm(torch, ok, registry, resnet, smi)
+    torch.cuda.empty_cache()
+    for k, v in bench_smoke_arm(torch, ok, smi).items():
+        launches[k] += v
+    log(f"frontends and bench smoke phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def mxnet_arm(torch, ok, registry, resnet, smi):
+    """Phase 18 (a): ResNet-50's 161 gradients a step, copied to host
+    arrays, through ``byteps_tpu_torch.mxnet.DistributedOptimizer`` over
+    numpy SGD; the host weights back to the card."""
+    import numpy as np
+
+    import byteps_tpu_torch.mxnet as mx
+    from byteps_tpu_torch.core import api
+    from byteps_tpu_torch.mxnet.ops import compression_kwargs
+
+    torch.backends.cudnn.allow_tf32 = False
+    mx.init(device=MX_DEVICE)
+    try:
+        dev = api.device()
+        gen = torch.Generator().manual_seed(18)
+        model = resnet.resnet50(num_classes=CLASSES, generator=gen).to(dev)
+        batch = resnet.synthetic_images(gen, BATCH, IMAGE, CLASSES, dev)
+        params = list(model.parameters())
+        onebit = [p.numel() * 4 >= MX_ONEBIT_BYTES for p in params]
+        for i, big in enumerate(onebit):
+            if big:
+                mx.byteps_declare_tensor(f"gradient_{i}",
+                                         byteps_compressor_type="onebit")
+        sgd = _HostSGD()
+        opt = mx.DistributedOptimizer(sgd)
+        weights = [NDArray(p.detach().cpu().numpy()) for p in params]
+        idx = list(range(len(params)))
+
+        def step(keep=None):
+            t = {}
+            t0 = time.perf_counter()
+            model.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(
+                model(batch["images"]), batch["labels"])
+            loss.backward()
+            torch.cuda.synchronize()
+            t["fwd_bwd"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            grads = [NDArray(p.grad.detach().cpu().numpy()) for p in params]
+            t["d2h"] = time.perf_counter() - t0
+            if keep is not None:
+                keep["raw"] = [g.asnumpy().copy() for g in grads]
+                keep["w0"] = [w.asnumpy().copy() for w in weights]
+            sgd.seconds = 0.0
+            t0 = time.perf_counter()
+            opt.update(idx, weights, grads, [None] * len(idx))
+            t["update"] = time.perf_counter() - t0
+            t["sgd"] = sgd.seconds
+            t["engine"] = t["update"] - t["sgd"]
+            if keep is not None:
+                keep["reduced"] = [g.asnumpy() for g in grads]
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for p, w in zip(params, weights):
+                    p.copy_(torch.from_numpy(w.asnumpy()))
+            torch.cuda.synchronize()
+            t["h2d"] = time.perf_counter() - t0
+            check(bool(torch.isfinite(loss)), f"mxnet: loss {loss.item()}")
+            return loss, t
+
+        t0 = time.perf_counter()
+        loss, _ = step()                                 # warm-up
+        log(f"mxnet [{smi}]: warm-up step {(time.perf_counter() - t0):.2f} "
+            f"s, loss {loss.item():.4f}")
+        eng = api.engine()
+        comp = [eng.registry.get(f"gradient_{i}") for i in idx if onebit[i]]
+        n_chunks = sum(len(c.chunk_bounds) for c in comp)
+        check(all(c.compressor for c in comp) and n_chunks > 0,
+              "mxnet: a onebit-declared gradient carries no compressor")
+        keep, times = {}, []
+        ok.reset_launches()                              # the main path
+        for s in range(MX_STEPS):
+            loss, t = step(keep if s == MX_STEPS - 1 else None)
+            times.append(t)
+        launches = dict(ok.launches)
+        want = {"onebit_pack": 2 * n_chunks * MX_STEPS,
+                "onebit_unpack": n_chunks * MX_STEPS,
+                "onebit_unpack_sum": n_chunks * MX_STEPS}
+        check(launches == want, f"mxnet: onebit launches {launches} over "
+              f"{MX_STEPS} steps, expected {want} ({n_chunks} chunks)")
+
+        def ms(k):
+            return [round(t[k] * 1e3, 2) for t in times]
+
+        step_ms = [round(sum(t[k] for k in ("fwd_bwd", "d2h", "update",
+                                            "h2d")) * 1e3, 2)
+                   for t in times]
+        log(f"mxnet [{smi}]: ResNet-50 batch {BATCH}x{IMAGE}^2, "
+            f"{len(params)} gradients ({sum(onebit)} onebit in {n_chunks} "
+            f"chunks, {len(params) - sum(onebit)} raw); step ms {step_ms}: "
+            f"forward+backward {ms('fwd_bwd')}, host staging d2h "
+            f"{ms('d2h')} and h2d {ms('h2d')}, engine {ms('engine')}, "
+            f"numpy SGD {ms('sgd')}; loss {loss.item():.4f}; launches "
+            f"a step {({k: v // MX_STEPS for k, v in launches.items()})}")
+
+        # the checked step: every reduced gradient is api.push_pull's of
+        # the same device tensor with the same dict (fresh names); the
+        # onebit ones the plain chain's; the weights numpy SGD's
+        raw, reduced, w0 = keep["raw"], keep["reduced"], keep["w0"]
+        for i in idx:
+            kw = compression_kwargs(f"gradient_{i}")
+            ref = api.push_pull(torch.from_numpy(raw[i]).to(dev),
+                                f"mx.ref.{i}", compression=kw).cpu()
+            check(same_bits(torch.from_numpy(reduced[i]), ref),
+                  f"mxnet: gradient {i} ({kw}) differs from api.push_pull's")
+            check(np.array_equal(weights[i].asnumpy(),
+                                 w0[i] - MX_LR * reduced[i]),
+                  f"mxnet: weight {i} is not numpy SGD of its gradient")
+        for i, c in zip([i for i in idx if onebit[i]], comp):
+            snap = [(s.wstate, s.sstate) for s in c.compressor]
+            snap = [(_cpu(a), _cpu(b)) for a, b in snap]
+            plain, _ = codec_reference(
+                torch, registry, {"compressor": "onebit"}, c,
+                torch.from_numpy(raw[i]), snap)
+            # rtol: the scale's L1 sum is taken in another order on the
+            # card (phase 4's bound)
+            torch.testing.assert_close(
+                torch.from_numpy(reduced[i]).reshape(plain.shape), plain,
+                rtol=1e-5, atol=0)
+        big = max((i for i in idx if onebit[i]), key=lambda i: raw[i].size)
+        ctl = api.push_pull(torch.from_numpy(raw[big]).to(dev), "mx.ctl",
+                            compression=None).cpu()
+        check(not same_bits(torch.from_numpy(reduced[big]), ctl),
+              "mxnet: the control (raw on a onebit gradient) passed the "
+              "bit check")
+        log(f"mxnet: all {len(idx)} reduced gradients equal api.push_pull's "
+            f"bit for bit, the {sum(onebit)} onebit ones the plain pack -> "
+            f"merge -> pack -> unpack chain (rtol 1e-5), the host weights "
+            f"numpy SGD's; the control (gradient {big} raw) differs")
+
+        # one more step under torch.profiler: the onebit kernels on the
+        # card, a device kernel for each launch the counters read
+        busy_ms, wall_ms, events, _ = profiled_step(torch, step,
+                                                    by_thread=False)
+        dev_ms = onebit_device_ms(events)
+        per_step = {k: v // MX_STEPS for k, v in launches.items()}
+        check(all(dev_ms[k][0] == per_step[k] for k in KERNELS),
+              f"mxnet: the profiled step's onebit device kernels {dev_ms} "
+              f"are not the {per_step} a step the counters read")
+        log(f"mxnet [{smi}]: a profiled step took {wall_ms:.2f} ms, the "
+            f"device busy {busy_ms:.2f} ms of it ({busy_ms / wall_ms:.1%}); "
+            + ", ".join(f"{k} {n} device kernels, {ms:.4f} ms"
+                        for k, (n, ms) in dev_ms.items()))
+    finally:
+        mx.shutdown()
+    return launches
+
+
+def bench_smoke_arm(torch, ok, smi):
+    """Phase 18 (b): the engine and compressed lanes of the port's
+    bench_smoke on the card.  The engine's result must be the bare
+    collective's bit for bit, and the compressed lanes' wire ratio and
+    golden error within the floor's ceilings; the timing verdict against
+    the floor is printed, not checked."""
+    from byteps_tpu_torch.tools import bench_smoke as bs
+
+    with open(bs.FLOOR_PATH) as f:
+        floor = json.load(f)
+    comm = bs._comm(MX_DEVICE)
+    try:
+        out = bs._measure(comm)
+        ok.reset_launches()                              # the main path
+        out["compressed"] = bs._measure_compressed(comm)
+        launches = dict(ok.launches)
+    finally:
+        comm.close()
+    check(out["engine_equals_fused"],
+          "bench smoke: the engine's push_pull differs from the bare "
+          "collective's")
+    lanes = out["compressed"]
+    check(lanes["onebit"]["wire_ratio"] <= floor["compressed_wire_ratio_max"]
+          and all(v["golden_error"] <= floor["compressed_quality_ceiling"]
+                  for v in lanes.values()),
+          f"bench smoke: compressed lanes outside the floor's ceilings: "
+          f"{lanes}")
+    check(all(launches[k] > 0 for k in KERNELS),
+          f"bench smoke: the onebit lane launched {launches}")
+    verdict, bad = bs.evaluate(out, floor, 0.30)
+    log(f"bench smoke [{smi}]: engine {out['engine_8MB_gbps']} GB/s, bare "
+        f"collective {out['fused_8MB_gbps']} GB/s, ratio "
+        f"{out['engine_vs_fused_ratio']} (same bits); compressed "
+        + ", ".join(f"{k} wire {v['wire_ratio']} golden {v['golden_error']}"
+                    f" {v['gbps']} GB/s ratio {v['throughput_ratio']}"
+                    for k, v in lanes.items())
+        + f"; onebit launches {launches}")
+    log(f"bench smoke timing verdict against the port's floor (printed, "
+        f"not a pass condition): {'pass' if verdict else 'FAIL'} {bad}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5179,15 +5454,17 @@ def main():
     seqpar_flash = seqpar_phase(torch, smi)
     modelpar_flash = modelpar_phase(torch, smi)
     launcher_launches = launcher_phase(torch, smi)
+    frontend_launches = frontends_phase(torch, ok, registry, resnet, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
     # those phase 11's, 12's, 13's, 15's, 16's and 17's processes
-    # counted, and phase 14's
+    # counted, and phase 14's and 18's
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
                         + elastic_launches.get(k, 0)
                         + serve_launches.get(k, 0)
                         + fused_launches.get(k, 0)
-                        + launcher_launches[k])
+                        + launcher_launches[k]
+                        + frontend_launches[k])
     for k in FLASH_KERNELS:
         flash_launches[k] += (fused_flash[k] + seqpar_flash[k]
                               + modelpar_flash[k])

@@ -32,7 +32,31 @@ from byteps_tpu_torch.tools import _bench_util as pbu  # noqa: E402
 from byteps_tpu_torch.tools import (async_bench, mechanism_bench,  # noqa
                                     overlap_bench, serve_bench,
                                     weak_scaling)
+from byteps_tpu_torch.common.scheduler import ChunkScheduler  # noqa: E402
+from byteps_tpu_torch.core.engine import PushPullEngine  # noqa: E402
 from tools import _bench_util as jbu  # noqa: E402
+
+
+class _LoggedQueue(ChunkScheduler):
+    """The Python priority queue, logging each add and pop under its own
+    lock, so the log's order is the order in which they happened.  The
+    blocking pop's wait releases the (reentrant) lock whole."""
+
+    def __init__(self, credit_bytes=0):
+        super().__init__(credit_bytes)
+        self.log = []
+
+    def add_task(self, task):
+        with self._cv:
+            super().add_task(task)
+            self.log.append(("add", task.name))
+
+    def get_task(self, block=False, timeout=None):
+        with self._cv:
+            task = super().get_task(block, timeout)
+            if task is not None:
+                self.log.append(("pop", task.name))
+            return task
 
 
 def _keys(d, prefix=""):
@@ -139,11 +163,44 @@ def test_mechanism_bench_keys(monkeypatch):
                                              reps=2),
             "partitioning": jmb.partition_latency(
                 comm, len(devices), big_mb=1, small_kb=16, reps=2)}
+    # every engine of the tool on a queue that logs its adds and pops in
+    # the order they happened (both inside the queue's own lock)
+    queues = []
+
+    def logged(cfg):
+        q = _LoggedQueue(credit_bytes=cfg.scheduling_credit)
+        queues.append((cfg.enable_priority, q))
+        return q
+
+    monkeypatch.setattr(PushPullEngine, "_make_scheduler",
+                        staticmethod(logged))
     got = mechanism_bench.run("cpu", small=True, reps=2)
     assert _keys(want) <= _keys(got)
     assert {"order_msgs", "order_wait_ms"} <= set(got)
     assert got["size"] == 1 and got["order_msgs"] == 0
-    assert got["priority"]["layer0_ready_ms_priority"] > 0
+    # What the priority measurement rests on, whatever the load: each pop
+    # of the priority arm takes the lowest layer then queued (layer 0
+    # goes ahead of every layer still queued when it was pushed), and
+    # each pop of the fifo arm the earliest pushed.  The latency itself
+    # is not asserted: its clock starts once the six pushes are enqueued,
+    # and on a loaded host layer 0 may be ready before it (the JAX tool's
+    # clock too).
+    layer_queues = {prio: q.log for prio, q in queues
+                    if q.log and q.log[0][1].startswith("layer")}
+    assert set(layer_queues) == {True, False}
+    for prio, log in layer_queues.items():
+        queued = []
+        for event, name in log:
+            if event == "add":
+                queued.append(name)
+                continue
+            want_next = (min(queued, key=lambda n: int(n[len("layer"):]))
+                         if prio else queued[0])
+            assert name == want_next, (prio, log)
+            queued.remove(name)
+        assert not queued
+        # the warm-up's 6 pushes and 2 repetitions of 6
+        assert sum(e == "pop" for e, _ in log) == 18
 
 
 def test_print_line_writes_the_line_and_its_newline_at_once(monkeypatch):

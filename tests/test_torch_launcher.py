@@ -136,8 +136,13 @@ PUSH_PULL = (
     "bps.init(device='cpu')\n"
     "x = torch.arange(4, dtype=torch.float32) * (bps.rank() + 1)\n"
     "y = bps.push_pull(x, name='x', average=False)\n"
-    "print('RANK', bps.rank(), bps.size(), bps.local_rank(),\n"
-    "      bps.local_size(), y.tolist(), flush=True)\n"
+    # one write a line: the two workers share the launcher's pipe, and a
+    # print of several pieces interleaves with the other's when Python
+    # runs unbuffered
+    "import sys\n"
+    "sys.stdout.write(' '.join(map(str, ('RANK', bps.rank(), bps.size(),\n"
+    "    bps.local_rank(), bps.local_size(), y.tolist()))) + '\\n')\n"
+    "sys.stdout.flush()\n"
     "bps.shutdown()\n")
 
 

@@ -106,6 +106,36 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.startswith("ok")
 
 
+def test_the_frontends_are_scanned_and_import_only_where_asked():
+    """The scan below covers the frontends (TensorFlow, Keras, MXNet) and
+    bench_smoke; ``import byteps_tpu_torch`` imports neither TensorFlow
+    nor Keras; with jax blocked and no KERAS_BACKEND given, the port's
+    Keras runs on TensorFlow."""
+    rel = {os.path.relpath(p, REPO) for p in _port_modules()}
+    for sub in ("mxnet/__init__.py", "mxnet/ops.py", "mxnet/compression.py",
+                "tensorflow/__init__.py", "tensorflow/compression.py",
+                "tensorflow/distribute/__init__.py", "keras/__init__.py",
+                "keras/callbacks.py", "tools/bench_smoke.py"):
+        assert os.path.join("byteps_tpu_torch", sub) in rel, sub
+    code = (
+        "import os, sys\n"
+        "os.environ.pop('KERAS_BACKEND', None)\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['byteps_tpu'] = None\n"
+        "import byteps_tpu_torch, byteps_tpu_torch.mxnet\n"
+        "import byteps_tpu_torch.tools.bench_smoke\n"
+        "assert 'tensorflow' not in sys.modules, 'tensorflow'\n"
+        "assert 'keras' not in sys.modules, 'keras'\n"
+        "import byteps_tpu_torch.keras, keras\n"
+        "assert keras.backend.backend() == 'tensorflow'\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "KERAS_BACKEND"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", list(_port_modules()) + [
     os.path.join(REPO, "chip_smoke.py")],
     ids=lambda p: os.path.relpath(p, REPO))

@@ -1,16 +1,20 @@
 """One rank of the root-ordered dispatch tests (tests/test_torch_dispatch_order.py).
 
 Runs the cases named on the command line in turn, each in a process
-group of its own (its own rendezvous port), and saves what each rank
-issued and received.  Rank r contributes row r of seeded numpy arrays.
-Imports neither jax nor byteps_tpu.
+group of its own, and saves what each rank issued and received.  Rank r
+contributes row r of seeded numpy arrays.  Imports neither jax nor
+byteps_tpu.
 
     python -m tests.torch_order_worker OUT.npz CASE [CASE ...]
 
-with DMLC_*/BYTEPS_LOCAL_* set, ORDER_PORTS holding the rendezvous
-ports, one per case and a second for ``suspend``'s resume, and
-ORDER_DEVICE the device (default cpu).  Every rank of one world, and
-the checks that need no JAX, from one command:
+with DMLC_*/BYTEPS_LOCAL_* set, ORDER_DIR a directory of the world's,
+ORDER_WORLD a token of the world's and ORDER_DEVICE the device (default
+cpu).  Each rendezvous (one a case, and a second for ``suspend``'s
+resume) is rank 0's store, bound on a port the system picks at the bind
+(:func:`_rendezvous`): no port is picked ahead and left free until a
+later bind, where another process could take it, and two worlds that run
+at once cannot meet in one store.  Every rank of one world, and the
+checks that need no JAX, from one command:
 
     # CPU, gloo
     python -m tests.torch_order_worker --spawn cpu OUT_DIR 4 order skew_py
@@ -19,14 +23,16 @@ the checks that need no JAX, from one command:
         control skew_py skew_native even paths_skew paths_even
 """
 
+import contextlib
 import os
-import socket
 import subprocess
 import sys
 import time
+import uuid
 
 import numpy as np
 import torch
+from torch.distributed import TCPStore
 
 from byteps_tpu_torch.common.config import Config
 from byteps_tpu_torch.core import api
@@ -95,16 +101,53 @@ def case_order(res, tag, control=False):
     api.shutdown()
 
 
-def _skewed_pushes(tag, res, skew, steps, push):
+def _skewed_pushes(tag, res, skew, steps, push, hold=None):
+    """``steps`` steps of pushes in reverse order, rank 1 sleeping
+    between its pushes under ``skew``; ``hold`` (the skew cases'
+    :func:`_announced_first`) brackets each step's pushes."""
     rank = api.rank()
     for s in range(steps):
         hs = []
-        for i in reversed(range(len(SKEW_SIZES))):
-            hs.append((i, push(s, i)))
-            if skew and rank == 1:
-                time.sleep(SKEW_S)
+        with hold() if hold else contextlib.nullcontext():
+            for i in reversed(range(len(SKEW_SIZES))):
+                hs.append((i, push(s, i)))
+                if skew and rank == 1:
+                    time.sleep(SKEW_S)
         for i, h in hs:
             res[f"{tag}/{s}/{i}"] = h.wait(timeout=60).cpu().numpy()
+
+
+def _announced(order):
+    """The root's announced entries a follower's order has not handed
+    out yet (read under the order's lock)."""
+    with order._cv:
+        return len(order._announced)
+
+
+@contextlib.contextmanager
+def _announced_first(eng, timeout=60.0):
+    """One step of the skew cases with the order's two conditions made
+    sure, whatever the load: the root holds its dispatch until it has
+    enqueued the whole step, so its first pop takes more than one chunk
+    (fewer announcements than chunks); a follower starts its pushes only
+    once the root's first announcement of the step has reached it, so it
+    waits for announced chunks it has not enqueued (``order_wait_ms``)."""
+    if api.rank() == 0:
+        eng.pause_dispatch()
+        try:
+            yield
+        finally:
+            eng.resume_dispatch()
+        return
+    # nothing of this step is enqueued here and every earlier step's
+    # entries were handed out: an entry now is this step's announcement
+    end = time.monotonic() + timeout
+    while not _announced(eng.scheduler):
+        if time.monotonic() > end:
+            raise TimeoutError("no announcement of the root's reached "
+                               "this follower")
+        time.sleep(0.001)
+    yield
 
 
 def case_skew(res, tag, skew, use_native):
@@ -112,7 +155,8 @@ def case_skew(res, tag, skew, use_native):
     for i, n in enumerate(SKEW_SIZES):
         api.declare(f"s{i}", (n,))
     _skewed_pushes(tag, res, skew, STEPS, lambda s, i: api.push_pull_async(
-        _mine(100 * s + i, SKEW_SIZES[i]), f"s{i}"))
+        _mine(100 * s + i, SKEW_SIZES[i]), f"s{i}"),
+        hold=(lambda: _announced_first(eng)) if skew else None)
     res[f"{tag}/issued"] = np.array(issued)
     res[f"{tag}/order_msgs"] = np.array(eng.stats["order_msgs"])
     res[f"{tag}/order_wait_ms"] = np.array(eng.stats["order_wait_ms"])
@@ -174,7 +218,7 @@ def case_suspend(res, tag):
     key0 = api.engine().registry.get("u").declared_key
     api.suspend()
     # a rendezvous of its own: the old group's store may still be up
-    os.environ["DMLC_PS_ROOT_PORT"] = next(_PORTS)
+    _rendezvous("suspend.resume")
     api.resume(config=Config.from_env(), device=DEVICE)
     res[f"{tag}/1"] = api.push_pull(_mine(601, 2000), "u").cpu().numpy()
     res[f"{tag}/keys"] = np.array(
@@ -213,53 +257,76 @@ CASES = {
 }
 
 
-# one rendezvous port per case, and one more for a resume
-PORTS_PER_CASE = {"suspend": 2}
-_PORTS = iter(())
+# the stores rank 0 holds for the case that runs
+_held = []
+
+
+def _rendezvous(tag, timeout=120.0):
+    """This rendezvous's port in DMLC_PS_ROOT_PORT.  Rank 0 binds a store
+    on a port the system picks at the bind, marks it with the world's
+    token and hands the port to the other ranks through a file in
+    ORDER_DIR; ``init_process_group`` at rank 0 then takes that store
+    (a multi-tenant server of this process).  Every other rank checks the
+    token before it joins."""
+    token = os.environ["ORDER_WORLD"]
+    path = os.path.join(os.environ["ORDER_DIR"], f"{token}.{tag}.port")
+    if os.environ["BYTEPS_LOCAL_RANK"] == "0":
+        store = TCPStore("127.0.0.1", 0, is_master=True,
+                         wait_for_workers=False, multi_tenant=True)
+        store.set("order_world", token)
+        _held.append(store)
+        with open(path + ".tmp", "w") as f:
+            f.write(str(store.port))
+        os.replace(path + ".tmp", path)
+        port = store.port
+    else:
+        end = time.monotonic() + timeout
+        while not os.path.exists(path):
+            if time.monotonic() > end:
+                raise TimeoutError(f"rank 0 bound no store for {tag}")
+            time.sleep(0.01)
+        with open(path) as f:
+            port = int(f.read())
+        got = TCPStore("127.0.0.1", port, is_master=False).get(
+            "order_world").decode()
+        if got != token:
+            raise RuntimeError(f"{tag}: the store at port {port} is "
+                               f"another world's ({got} != {token})")
+    os.environ["DMLC_PS_ROOT_PORT"] = str(port)
+    print(f"{tag}: rendezvous on port {port} at t={time.time():.3f}",
+          flush=True)
 
 
 def main(out, cases):
-    global _PORTS
-    _PORTS = iter(os.environ["ORDER_PORTS"].split(","))
     res = {}
     for case in cases:
-        os.environ["DMLC_PS_ROOT_PORT"] = next(_PORTS)
+        _rendezvous(case)
         CASES[case](res)
+        _held.clear()
     np.savez(out, **res)
-
-
-def free_ports(n):
-    socks = []
-    for _ in range(n):
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        socks.append(s)
-    ports = [str(s.getsockname()[1]) for s in socks]
-    for s in socks:
-        s.close()
-    return ports
 
 
 def spawn(world, cases, out_dir, device="cpu", timeout=150):
     """Every rank of one node of ``world`` ranks running ``cases``;
-    returns the results by rank."""
+    returns the results by rank, each with its rank's output under
+    ``log``."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    n_ports = sum(PORTS_PER_CASE.get(c, 1) for c in cases)
-    ports = ",".join(free_ports(n_ports))
+    token = uuid.uuid4().hex
     procs, outs = [], []
     for rank in range(world):
         out = os.path.join(out_dir, f"order_{world}_{rank}.npz")
         env = dict(os.environ, DMLC_NUM_WORKER="1", DMLC_WORKER_ID="0",
                    BYTEPS_LOCAL_SIZE=str(world), BYTEPS_LOCAL_RANK=str(rank),
-                   DMLC_PS_ROOT_URI="127.0.0.1", ORDER_PORTS=ports,
-                   ORDER_DEVICE=device, BYTEPS_MIN_COMPRESS_BYTES="0",
-                   OMP_NUM_THREADS="1", PYTHONPATH=root)
+                   DMLC_PS_ROOT_URI="127.0.0.1", ORDER_DIR=out_dir,
+                   ORDER_WORLD=token, ORDER_DEVICE=device,
+                   BYTEPS_MIN_COMPRESS_BYTES="0", OMP_NUM_THREADS="1",
+                   PYTHONPATH=root)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "tests.torch_order_worker", out, *cases],
             cwd=root, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
         outs.append(out)
-    failed = []
+    failed, logs = [], []
     for rank, p in enumerate(procs):
         try:
             log, _ = p.communicate(timeout=timeout)
@@ -269,12 +336,14 @@ def spawn(world, cases, out_dir, device="cpu", timeout=150):
             log, _ = p.communicate()
             failed.append(f"world {world} rank {rank} timed out:\n{log}")
             continue
+        logs.append(log)
         if p.returncode != 0:
             failed.append(f"world {world} rank {rank} rc={p.returncode}:\n"
                           f"{log[-4000:]}")
     if failed:
         raise RuntimeError("\n".join(failed))
-    return [dict(np.load(o)) for o in outs]
+    return [dict(np.load(o), log=np.array(log))
+            for o, log in zip(outs, logs)]
 
 
 def check(ranks, world):
