@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..fault import injector as _fault
 from .mesh import CommContext
 
 _HALF = (torch.float16, torch.bfloat16)
@@ -156,6 +157,10 @@ def push_pull_array(comm: CommContext, x: torch.Tensor, op: str = "sum",
                     scale: Optional[float] = None) -> torch.Tensor:
     """The collective behind push_pull: the strategy follows the topology
     (hierarchical once the world spans more than one node)."""
+    # the dcn chaos site, as JAX ``push_pull_array`` and
+    # ``push_pull_scaled`` fire it (``collectives.py:371-372``, ``:394-395``)
+    if _fault.ENABLED:
+        _fault.fire("dcn")
     return _reduce_acc(comm, _acc(x).reshape(-1), x.dtype, op == "average",
                        keep_acc, scale, hierarchical).reshape(x.shape)
 
@@ -177,6 +182,9 @@ def push_pull_arrays_batched(comm: CommContext, xs: Sequence[torch.Tensor],
     JAX ``collectives.py:713-718``)."""
     if not xs:
         raise ValueError("push_pull_arrays_batched of no chunks")
+    # JAX ``push_pull_arrays_batched`` (``collectives.py:776-777``)
+    if _fault.ENABLED:
+        _fault.fire("dcn")
     x0 = xs[0]
     n = x0.numel()
     if any(x.numel() != n or x.dtype != x0.dtype for x in xs):
@@ -242,6 +250,9 @@ def push_pull_chunk_scatter(comm: CommContext, flat: torch.Tensor,
     ``buf[col_off:col_off + k*w]``, and at more than one node that slice
     is all-reduced across nodes.  At one rank per node the view is
     ``[1, C]`` and nothing is scattered: the slab is copied into place."""
+    # JAX ``push_pull_chunk_scatter`` (``collectives.py:697-698``)
+    if _fault.ENABLED:
+        _fault.fire("dcn")
     L = comm.local_size
     if buf is None:
         buf = torch.empty(C, dtype=_acc_dtype(flat.dtype),

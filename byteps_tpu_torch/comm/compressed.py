@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..compression.base import Compressor, State
+from ..fault import injector as _fault
 from .mesh import CommContext
 
 
@@ -55,6 +56,9 @@ def fused_compressed_push_pull(comm: CommContext, x: torch.Tensor,
     """Reduce this rank's flat chunk ``x``: returns the merged sum (the
     caller divides for an average) in ``x.dtype``, and the new worker and
     server states."""
+    # JAX ``fused_compressed_push_pull`` (``compressed.py:129-130``)
+    if _fault.ENABLED:
+        _fault.fire("dcn")
     payload, worker_state = worker.compress(x, worker_state)
     gathered = {k: _all_gather(comm, v) for k, v in payload.items()}
     y = worker.decompress_sum(gathered).to(torch.float32)

@@ -22,8 +22,10 @@ import time
 from typing import List, Optional
 
 from .config import ALIGN_BYTES
+from . import flight_recorder as _flight
 from .lock_witness import named_lock
 from .telemetry import attribution as _attribution
+from .telemetry import counters, gauges
 from .types import ChunkTask
 
 
@@ -347,8 +349,9 @@ class ChunkPlanner:
         has its samples."""
         if not self._compressible(nbytes) or seconds <= 0:
             return
+        bucket = nbytes.bit_length()
         with self._lock:
-            st = self._cbuckets.get(nbytes.bit_length())
+            st = self._cbuckets.get(bucket)
             if st is None or st["locked"] is not None:
                 return
             if codec not in {k for k, _, _ in st["cands"]}:
@@ -357,8 +360,17 @@ class ChunkPlanner:
             if any(len(st["samples"].get(k, ())) < _PLAN_SAMPLES
                    for k, _, _ in st["cands"]):
                 return
-            st["locked"] = min((k for k, _, _ in st["cands"]),
-                               key=lambda k: min(st["samples"][k]))
+            locked = min((k for k, _, _ in st["cands"]),
+                         key=lambda k: min(st["samples"][k]))
+            st["locked"] = locked
+        # outside the planner lock, as the JAX planner records it
+        # (``scheduler.py:451-462``): bps_top's CODEC column, /metrics,
+        # the flight recorder
+        counters.inc("compression.planner_locked")
+        gauges.set("compression.codec_locked", 1.0,
+                   bucket=bucket, codec=locked)
+        _flight.record("compression.codec_locked", bucket=bucket,
+                       codec=locked)
 
     def compress_locked(self, nbytes: int) -> bool:
         """Whether a tensor of ``nbytes`` has no codec left to explore."""

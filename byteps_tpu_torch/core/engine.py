@@ -543,6 +543,7 @@ class PushPullEngine:
         credit = self.planner.credit_bytes()
         if credit and self.scheduler.credit_bytes != credit:
             self.scheduler.set_credit_bytes(credit)
+            gauges.set("engine.credit_bytes", credit)
 
     # --------------------------------------------------------------- API
     def declare_tensor(self, name: str, shape, dtype: torch.dtype, *,

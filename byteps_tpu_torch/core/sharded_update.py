@@ -79,6 +79,7 @@ from ..comm.mesh import CommContext
 from ..comm.shard_math import (init_sharded_opt_state, is_sharded_state,
                                set_hyperparameters)
 from ..common.config import Config
+from ..common.telemetry import counters
 from ..compression import registry as codecs
 from .param_codec import BlockCodec
 
@@ -214,6 +215,7 @@ class ShardedUpdateSlot:
         self.optimizer.step()
         self.master.grad = None
         self.applied += 1
+        counters.inc("engine.sharded_updates")
         if self.codec is None:
             return assemble_scatter(self.comm, self.master, self.n, self.C,
                                     self.out_shape, self.dtype)

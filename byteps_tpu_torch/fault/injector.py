@@ -171,7 +171,7 @@ VALID_KINDS = ("bitflip", "conn_reset", "delay", "drop", "kill",
                "partial_write", "partition", "slow", "slow_socket",
                "straggler")
 VALID_SITES = (
-    # kill-only predicate matched in on_step, never a woven fire() site
+    # bpslint: ignore[chaos-site] reason=kill-only predicate matched in on_step (die while hosting the control plane), never a woven fire() site
     "coordinator",
     "dcn",
     # durable-plane disk faults (server/wal.py): disk_full fails an
@@ -180,7 +180,7 @@ VALID_SITES = (
     # it (bitflip) — the torn-tail/corrupt-segment recovery pins
     "disk_full", "dispatch", "fsync", "gossip", "heartbeat", "kv_push",
     "serve_host",
-    # kill-only predicate matched in on_serve_start, never a fire() site
+    # bpslint: ignore[chaos-site] reason=kill-only predicate matched in on_serve_start (die at serve-host startup, before HOST-UP), never a woven fire() site
     "serve_host_start",
     "serve_pull", "server_pull", "server_push", "sync", "transport",
     "wal_write")

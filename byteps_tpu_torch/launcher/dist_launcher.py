@@ -214,6 +214,7 @@ def launch(hosts: List[Tuple[str, str]], cmd: Sequence[str],
                     # only the dead rank restarts; it must come back as
                     # a rejoiner, not a cold bootstrap racing a world
                     # that kept running without it
+                    # bpslint: ignore[env-knob] reason=launcher-to-worker marker WRITTEN into the restarted incarnation's env (the worker reads it before any Config exists); documented in env.md elastic table
                     attempt_env["BYTEPS_ELASTIC_REJOIN"] = "1"
                 argv = ssh_argv(host, port, attempt_env, cmd, username)
                 # restarts append — the first incarnation's logs are the

@@ -198,6 +198,7 @@ def launch_worker(cmd: list, restart_limit: Optional[int] = None) -> int:
     except (_NoDevices, ValueError) as e:
         print(str(e), file=sys.stderr)
         return 2
+    # bpslint: ignore[env-knob] reason=launcher-side wrapper knob applied to the worker argv before any Python/Config starts in the worker
     if env.get("BYTEPS_ENABLE_GDB", "0") == "1":
         # debug wrapping, reference launch.py:146-149: run each worker
         # under gdb so a crash drops a backtrace instead of dying silently

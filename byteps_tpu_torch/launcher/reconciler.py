@@ -140,6 +140,7 @@ class FleetReconciler:
         env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
         if self.directory.bus is not None:
             env["BYTEPS_SERVE_TIER_BUS"] = "%s:%d" % self.directory.bus
+        # bpslint: ignore[env-knob] reason=WRITTEN into the child's environment (per-process launch identity, like DMLC_WORKER_ID), never read through Config here; documented in env.md
         env["BYTEPS_SERVE_HOST_ID"] = str(hid)
         env["BYTEPS_SERVE_TIER_TTL"] = str(self.directory.ttl_s)
         # durable restart-in-place (server/wal.py): a restarted host id

@@ -56,6 +56,7 @@ DCN_COMPRESS_MIN_BYTES = 2 * 1024 * 1024
 def dcn_compress_min_bytes() -> int:
     """``BYTEPS_DCN_COMPRESS_MIN_BYTES``, read at every call (the JAX
     function reads it at every trace), else the default."""
+    # bpslint: ignore[env-knob] reason=read per call (the JAX function reads it per trace) so a mid-session env override re-gates the next call; a Config snapshot would freeze it — documented in env.md Compression table
     v = os.environ.get("BYTEPS_DCN_COMPRESS_MIN_BYTES")
     if v is None or v == "":
         return DCN_COMPRESS_MIN_BYTES

@@ -71,9 +71,10 @@ def main(argv=None) -> int:
     from .serving_tier import ServingHostCore, TierDirectory
 
     cfg = get_config()
-    # a per-process launch identity (like DMLC_WORKER_ID), read once here
+    # bpslint: ignore[env-knob] reason=per-process launch identity (like DMLC_WORKER_ID) consumed once at entrypoint start, before any Config is constructed or shared; documented in env.md
     bind = os.environ.get("BYTEPS_SERVE_HOST_BIND", "127.0.0.1:0")
     bind_host, bind_port = bind.rsplit(":", 1)
+    # bpslint: ignore[env-knob] reason=per-process launch identity (like DMLC_WORKER_ID) consumed once at entrypoint start, before any Config is constructed or shared; documented in env.md
     want_id = os.environ.get("BYTEPS_SERVE_HOST_ID")
     want_id = int(want_id) if want_id not in (None, "") else None
 

@@ -52,6 +52,7 @@ def _free_port() -> int:
 def worker(device: str, mode: str, steps: int = STEPS) -> int:
     """One rank: ``push`` times the engine's push_pull of the gradient,
     ``hier`` the hierarchical all-reduce itself; prints ``WS_RESULT``."""
+    # bpslint: ignore[env-knob] reason=a tool's pin knob, read before any Config exists (the JAX package reads it from the root tools/, outside the linted package); this tool writes it into its own workers' env, so it has no env.md row
     slices = os.environ.get("BYTEPS_WS_PIN")
     if slices:
         mine = slices.split(";")[int(os.environ["BYTEPS_LOCAL_RANK"])]

@@ -208,6 +208,7 @@ class HeartbeatMonitor:
         if coordinator is None:
             host = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")
             port = int(os.environ.get(
+                # bpslint: ignore[env-knob] reason=default is derived from DMLC_PS_ROOT_PORT+1 at bind time; documented in env.md and validated by the socket bind
                 "BYTEPS_HEARTBEAT_PORT",
                 str(int(os.environ.get("DMLC_PS_ROOT_PORT", "9000")) + 1)))
         else:

@@ -429,9 +429,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      for bit where a plain step repeats its bits), the flash forward
      launched twice a layer under remat; ms and peak memory of each;
    - (c) ResNet-50 (cross-replica BatchNorm over the world) and VGG-16
-     at full width, 32 images of 224x224, through
-     ``make_vision_trainer``: 1 warm-up and VISION_STEPS timed steps,
-     images/s, the loss finite.
+     at full width, 32 images of 224x224, through the function behind
+     ``examples.benchmark_resnet`` (``make_vision_trainer``): 1 warm-up
+     and VISION_STEPS timed steps, the loss finite; it prints the
+     example's JSON line (images/s) for each.
    Every time is printed beside the card's name and power limit.
 
 15. sequence and expert parallelism (``seqpar_phase``): SEQPAR_RANKS
@@ -555,11 +556,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Every figure is printed beside the card's name and power limit, and
    the phase's time.
 
+19. repairs and entry points (``repairs_phase``), one rank:
+   - (a) the ``dcn`` chaos site over NCCL at a world of one: one push of
+     DCN_NUMEL floats through each collective entry (``push_pull_array``
+     and its scaled form, ``push_pull_arrays_batched``,
+     ``push_pull_chunk_scatter``, ``fused_compressed_push_pull`` with
+     onebit, which launches pack, merge and unpack), a warm-up and
+     DCN_PLAIN_RUNS times undelayed, then under ``delay:site=dcn:p=1:ms=DCN_DELAY_MS`` and under
+     a control naming ``site=sync``.  Each delayed push must fire once and
+     take at least DCN_DELAY_MS a fire, the control must fire nothing and
+     take less than DCN_DELAY_MS, and every delayed result (onebit's too)
+     must be the undelayed one bit for bit;
+   - (b) the four metrics: a small engine under METRIC_KW pushes a bare
+     tensor of METRIC_NUMEL floats until its partition and codec lock:
+     ``compression.planner_locked`` must grow by the buckets locked, each
+     with a ``compression.codec_locked`` gauge of 1.0 and flight event,
+     and ``engine.credit_bytes`` must equal the scheduler's installed
+     window; then a sharded slot steps SLOT_STEPS times beside one
+     unsharded push, and ``engine.sharded_updates`` must grow by the slot
+     steps;
+   - (c) ``examples.train_mnist_mlp --steps MLP_STEPS`` on the card: its
+     losses finite and falling.
+   Every figure is printed beside the card's name and power limit, and
+   the phase's time.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
 4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's, 15's,
-16's and 17's processes, which count their own, and phase 14's and 18's
-runs);
+16's and 17's processes, which count their own, and phase 14's, 18's and
+19's runs);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -4599,50 +4624,25 @@ def remat_arms(torch, fa, dev, smi):
 
 def vision_arms(torch, comm, smi):
     """ResNet-50 (cross-replica BatchNorm over the world) and VGG-16 at
-    full width, FUSED_VISION images a step, through
-    ``make_vision_trainer`` with SGD(momentum 0.9; lr 0.1 for ResNet-50 as
-    the JAX bench, 0.01 for VGG-16, which has no BatchNorm): 1 warm-up
-    and VISION_STEPS timed steps each, the loss finite at every step."""
-    import math
+    full width, FUSED_VISION images a step, through the function behind
+    ``examples.benchmark_resnet`` (``make_vision_trainer``, SGD momentum
+    0.9; lr 0.1 for ResNet-50 as the example, 0.01 for VGG-16, which has
+    no BatchNorm): 1 warm-up and VISION_STEPS timed steps each, the loss
+    finite at every step.  Prints the example's JSON line for each."""
+    from byteps_tpu_torch.examples import benchmark_resnet
 
-    import torch.distributed as dist
-
-    from byteps_tpu_torch.models import resnet
-
-    dev = comm.device
     n, size = FUSED_VISION
-    for name in ("resnet50", "vgg16"):
-        if name == "resnet50":
-            model = resnet.resnet50(generator=torch.Generator().manual_seed(
-                4), bn_group=dist.group.WORLD).to(dev)
-            lr = 0.1
-        else:
-            model = resnet.vgg16(image_size=size, device=dev,
-                                 generator=torch.Generator(
-                                     device=dev).manual_seed(4),
-                                 dropout_generator=torch.Generator(
-                                     device=dev).manual_seed(5))
-            lr = 0.01
-        step = resnet.make_vision_trainer(
-            comm, model, torch.optim.SGD(model.parameters(), lr=lr,
-                                         momentum=0.9))
-        batch = resnet.synthetic_images(torch.Generator().manual_seed(6), n,
-                                        size, 1000, dev)
-        losses, ms = [step(batch).item()], []
-        for _ in range(VISION_STEPS):
-            t0 = time.perf_counter()
-            losses.append(step(batch).item())      # .item() synchronizes
-            ms.append((time.perf_counter() - t0) * 1e3)
-        dt = sum(ms) / 1e3
+    for name, lr in (("resnet50", 0.1), ("vgg16", 0.01)):
+        line, losses, ms = benchmark_resnet.run(
+            comm, name, n, size, VISION_STEPS, lr=lr, warmup=1)
         check(all(math.isfinite(v) for v in losses),
               f"vision {name}: losses {losses}")
-        log(f"vision {name} [{smi}]: {n} x {size}x{size}, "
-            f"{sum(p.numel() for p in model.parameters())} parameters; "
-            f"{dt / VISION_STEPS * 1e3:.2f} ms a step "
-            f"({', '.join(f'{v:.2f}' for v in ms)}), "
-            f"{VISION_STEPS * n / dt:.1f} images/s over {VISION_STEPS} steps "
-            f"after 1; losses {[round(v, 4) for v in losses]}")
-        del model, step
+        log(f"vision {name} [{smi}]: {n} x {size}x{size}; "
+            f"{sum(ms) / len(ms):.2f} ms a step "
+            f"({', '.join(f'{v:.2f}' for v in ms)}) over {VISION_STEPS} "
+            f"steps after 1; losses {[round(v, 4) for v in losses]}")
+        log(f"benchmark_resnet [{smi}]: {json.dumps(line)}")
+        torch.cuda.empty_cache()
 
 
 # --------------------------- 15. sequence and expert parallelism
@@ -5389,6 +5389,247 @@ def bench_smoke_arm(torch, ok, smi):
     return launches
 
 
+# --------------------------- 19. repairs and entry points
+
+REPAIR_DEVICE = "cuda"
+DCN_DELAY_MS = 20                # the delay spec's ms at site=dcn, p = 1
+DCN_NUMEL = 1 << 20              # one small push (4 MiB of f32)
+DCN_PLAIN_RUNS = 5               # undelayed runs of each entry (the min)
+METRIC_KW = {"partition_bytes": 16384, "partition_pinned": False,
+             "credit_pinned": False, "compress_autotune": True,
+             "min_compress_bytes": 4096}
+METRIC_NUMEL = 40_000            # the ladder's bare tensor
+METRIC_MAX_PUSHES = 200          # until its partition and codec lock
+SLOT_STEPS = 5                   # sharded-update slot steps
+MLP_STEPS = 20                   # examples.train_mnist_mlp --steps
+
+
+def repairs_phase(torch, ok, smi):
+    """Phase 19: (a) the ``dcn`` chaos site at the five collective
+    entries, (b) the four metrics held to what drove them, (c)
+    ``examples.train_mnist_mlp`` on the card.  Returns the onebit
+    launches of (a) and (b)."""
+    t_phase = time.perf_counter()
+    launches = dcn_arm(torch, ok, smi)
+    for k, v in metrics_arm(torch, ok, smi).items():
+        launches[k] += v
+    mlp_arm(smi)
+    log(f"repairs and entry points phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def dcn_arm(torch, ok, smi):
+    """Phase 19 (a): one small push through each collective entry at one
+    rank over NCCL: a warm-up, DCN_PLAIN_RUNS runs undelayed, then one
+    under ``delay:site=dcn:p=1:ms=DCN_DELAY_MS`` and one under a control
+    spec naming another site.  Each delayed push fires once and its wall
+    holds DCN_DELAY_MS a fire, while the control's fires nothing and
+    stays under DCN_DELAY_MS (the growth over the quickest undelayed run
+    is printed); every result under delay (onebit's too) is the
+    undelayed one bit for bit.  The onebit counters are zeroed before the
+    delayed pass and read after it."""
+    from byteps_tpu_torch.comm import collectives as coll
+    from byteps_tpu_torch.comm import compressed
+    from byteps_tpu_torch.comm.mesh import bootstrap, resolve_device
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.common.telemetry import counters
+    from byteps_tpu_torch.compression import registry
+    from byteps_tpu_torch.fault import injector
+
+    comm = bootstrap(Config(), resolve_device(REPAIR_DEVICE))
+    try:
+        dev, n = comm.device, DCN_NUMEL
+        x = torch.randn(n, generator=torch.Generator().manual_seed(19)).to(dev)
+        onebit = {"compressor": "onebit"}
+        wc = registry.create(onebit, n)
+        sc = registry.create(onebit, n, for_server=True)
+        entries = {
+            "push_pull_array": lambda: coll.push_pull_array(
+                comm, x, op="sum"),
+            "push_pull_array(scale=0.5)": lambda: coll.push_pull_array(
+                comm, x, op="sum", scale=0.5),
+            "push_pull_arrays_batched": lambda: coll.push_pull_arrays_batched(
+                comm, [x[:n // 2], x[n // 2:]]),
+            "push_pull_chunk_scatter": lambda: coll.push_pull_chunk_scatter(
+                comm, x, None, 0, n, 1, n),
+            "fused_compressed_push_pull":
+                lambda: compressed.fused_compressed_push_pull(
+                    comm, x, wc, sc, wc.init_state(dev),
+                    sc.init_state(dev))[0],
+        }
+
+        def timed(call):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            before = counters.get("fault.delay")
+            t0 = time.perf_counter()
+            out = _outputs(call())
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return (out, (time.perf_counter() - t0) * 1e3,
+                    counters.get("fault.delay") - before)
+
+        for f in entries.values():
+            timed(f)                                     # warm-up
+        plain = {k: [timed(f) for _ in range(DCN_PLAIN_RUNS)]
+                 for k, f in entries.items()}
+        runs = {}
+        for arm, site in (("dcn", "dcn"), ("control", "sync")):
+            injector.arm(f"delay:site={site}:p=1:ms={DCN_DELAY_MS}", seed=0)
+            try:
+                if arm == "dcn":
+                    ok.reset_launches()                  # the main path
+                runs[arm] = {k: timed(f) for k, f in entries.items()}
+                if arm == "dcn":
+                    launches = dict(ok.launches)
+            finally:
+                injector.disarm()
+    finally:
+        comm.close()
+    fires = sum(r[2] for r in runs["dcn"].values())
+    check(fires == len(entries) and all(r[2] == 1
+                                        for r in runs["dcn"].values()),
+          f"dcn: {fires} fires over {len(entries)} entries: "
+          f"{ {k: r[2] for k, r in runs['dcn'].items()} }")
+    check(all(r[2] == 0 for r in runs["control"].values()),
+          "dcn: the control spec (site=sync) fired at a collective entry")
+    for k, (out, ms, nfire) in runs["dcn"].items():
+        quickest = min(r[1] for r in plain[k])
+        ctl_ms = runs["control"][k][1]
+        # the delayed wall holds the delay; the control's, armed at
+        # another site, holds none
+        check(ms >= DCN_DELAY_MS * nfire and ctl_ms < DCN_DELAY_MS,
+              f"dcn {k}: delayed wall {ms:.3f} ms (at least {DCN_DELAY_MS} "
+              f"ms a fire), control {ctl_ms:.3f} ms (under {DCN_DELAY_MS})")
+        check(all(same_bits(a, b) for a, b in zip(out, plain[k][0][0])),
+              f"dcn {k}: the result under delay is not the undelayed one")
+        log(f"dcn [{smi}]: {k} fired {nfire}, {ms:.3f} ms delayed against "
+            f"{quickest:.3f} undelayed (+{ms - quickest:.3f}); control "
+            f"{runs['control'][k][2]} fires, {runs['control'][k][1]:.3f} "
+            f"ms; bit for bit the undelayed result")
+    if comm.device.type == "cuda":
+        check(launches["onebit_pack"] >= 1
+              and launches["onebit_unpack_sum"] >= 1,
+              f"dcn: the onebit entry launched {launches}")
+    log(f"dcn: {fires} fires at {len(entries)} entries, the control none; "
+        f"onebit launches under delay {launches}")
+    return launches
+
+
+def metrics_arm(torch, ok, smi):
+    """Phase 19 (b): a small engine on the card under METRIC_KW pushes a
+    bare METRIC_NUMEL-float tensor until its partition bucket and its
+    codec have locked, then a sharded slot steps SLOT_STEPS times beside
+    an unsharded push.  ``compression.planner_locked`` must grow by the
+    buckets the planner locked, with a ``compression.codec_locked`` gauge
+    of 1.0 and flight event for each (bucket, codec);
+    ``engine.credit_bytes`` must equal the scheduler's installed window;
+    ``engine.sharded_updates`` must grow by the slot steps only."""
+    from byteps_tpu_torch.common import flight_recorder
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.common.telemetry import counters, gauges
+    from byteps_tpu_torch.core import api
+
+    locked0 = counters.get("compression.planner_locked")
+    t0 = time.monotonic()
+    nb = METRIC_NUMEL * 4
+    launches = {k: 0 for k in KERNELS}
+    api.init(Config(**METRIC_KW), device=REPAIR_DEVICE)
+    try:
+        eng = api.engine()
+        dev = eng.comm.device
+        x = torch.randn(METRIC_NUMEL,
+                        generator=torch.Generator().manual_seed(19)).to(dev)
+        ok.reset_launches()                              # the main path
+        pushes = 0
+        while pushes < METRIC_MAX_PUSHES and not (
+                eng.planner.locked(nb) and eng.planner.compress_locked(nb)):
+            api.push_pull(x, "metrics.bare")
+            pushes += 1
+        api.push_pull(x, "metrics.bare")        # retires under the lock
+        launches = dict(ok.launches)
+        buckets = {int(b): v["locked_codec"] for b, v in
+                   eng.planner.snapshot()["compression"]["buckets"].items()
+                   if v["locked_codec"] is not None}
+        window = eng.scheduler.credit_bytes
+        planned = eng.planner.credit_bytes()
+        credit = gauges.get("engine.credit_bytes")
+    finally:
+        api.shutdown()
+    n_locked = counters.get("compression.planner_locked") - locked0
+    events = sorted((e["bucket"], e["codec"])
+                    for e in flight_recorder.recorder.snapshot()
+                    if e["kind"] == "compression.codec_locked"
+                    and e["mono"] >= t0)
+    check(eng.planner.locked(nb) and buckets,
+          f"metrics: nothing locked after {pushes} pushes")
+    check(n_locked == len(buckets) and events == sorted(buckets.items()),
+          f"metrics: planner_locked +{n_locked}, codec_locked events "
+          f"{events}, the planner's locked buckets {buckets}")
+    check(all(gauges.get("compression.codec_locked", bucket=b, codec=c)
+              == 1.0 for b, c in buckets.items()),
+          f"metrics: a codec_locked gauge is not 1.0 for {buckets}")
+    check(credit == window == planned > 0,
+          f"metrics: engine.credit_bytes {credit}, the installed window "
+          f"{window}, the planner's {planned}")
+    log(f"metrics [{smi}]: after {pushes} pushes planner_locked "
+        f"+{n_locked} = the {len(buckets)} locked bucket(s) {buckets}, a "
+        f"codec_locked gauge 1.0 and event each; engine.credit_bytes "
+        f"{credit:.0f} = the installed window; onebit launches {launches}")
+
+    before = counters.get("engine.sharded_updates")
+    api.init(Config(sharded_update=True), device=REPAIR_DEVICE)
+    try:
+        dev = api.engine().comm.device
+        gen = torch.Generator().manual_seed(20)
+        p = torch.randn(METRIC_NUMEL, generator=gen).to(dev)
+        api.declare_update("metrics.slot", p.shape, torch.float32,
+                           optimizer=(torch.optim.SGD, {"lr": 0.1}),
+                           init_value=p)
+        for _ in range(SLOT_STEPS):
+            p.copy_(api.push_pull_update(
+                torch.randn(METRIC_NUMEL, generator=gen).to(dev),
+                "metrics.slot"))
+        api.push_pull(p, "metrics.unsharded")            # the control
+        applied = api.engine().update_slots["metrics.slot"].applied
+    finally:
+        api.shutdown()
+    steps = counters.get("engine.sharded_updates") - before
+    check(steps == SLOT_STEPS == applied,
+          f"metrics: engine.sharded_updates +{steps}, the slot applied "
+          f"{applied} of {SLOT_STEPS} steps")
+    log(f"metrics [{smi}]: engine.sharded_updates +{steps} = the "
+        f"{SLOT_STEPS} slot steps (an unsharded push beside them counts "
+        f"none)")
+    return launches
+
+
+def mlp_arm(smi):
+    """Phase 19 (c): ``examples.train_mnist_mlp --steps MLP_STEPS`` on the
+    card, in process; its printed losses finite and falling."""
+    import contextlib
+    import io
+
+    from byteps_tpu_torch.examples import train_mnist_mlp
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_mnist_mlp.main(["--steps", str(MLP_STEPS), "--device",
+                              REPAIR_DEVICE])
+    out = buf.getvalue()
+    losses = [float(v) for v in re.findall(r"step +\d+ +loss (\S+)", out)]
+    check(len(losses) == 3 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          f"train_mnist_mlp: losses {losses} do not fall\n{out}")
+    for line in out.strip().splitlines():
+        log(f"train_mnist_mlp [{smi}]: {line}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5455,16 +5696,18 @@ def main():
     modelpar_flash = modelpar_phase(torch, smi)
     launcher_launches = launcher_phase(torch, smi)
     frontend_launches = frontends_phase(torch, ok, registry, resnet, smi)
+    repair_launches = repairs_phase(torch, ok, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
     # those phase 11's, 12's, 13's, 15's, 16's and 17's processes
-    # counted, and phase 14's and 18's
+    # counted, and phase 14's, 18's and 19's
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
                         + elastic_launches.get(k, 0)
                         + serve_launches.get(k, 0)
                         + fused_launches.get(k, 0)
                         + launcher_launches[k]
-                        + frontend_launches[k])
+                        + frontend_launches[k]
+                        + repair_launches[k])
     for k in FLASH_KERNELS:
         flash_launches[k] += (fused_flash[k] + seqpar_flash[k]
                               + modelpar_flash[k])

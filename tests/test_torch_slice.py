@@ -95,9 +95,12 @@ def test_port_imports_with_jax_blocked():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['byteps_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
+        "sys.modules['example'] = None\n"
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'byteps_tpu.'))"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'byteps_tpu.',"
+        " 'tools.', 'example.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -151,8 +154,11 @@ def test_no_jax_or_jax_package_import(path):
             continue
         for m in mods:
             top = m.split(".")[0]
+            # nor the repository's root tools/ and example/, which drive
+            # the JAX package
             assert top not in ("jax", "jaxlib", "flax", "optax",
-                               "byteps_tpu"), f"{path}:{node.lineno} {m}"
+                               "byteps_tpu", "tools", "example"), \
+                f"{path}:{node.lineno} {m}"
 
 
 def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
