@@ -276,16 +276,18 @@ def assemble_scatter(comm: CommContext, buf: torch.Tensor, n: int, C: int,
                      out_shape, dtype: torch.dtype,
                      scale: Optional[float] = None,
                      denom: int = 1) -> torch.Tensor:
-    """Final assembly from an accumulator block: the scale (or divisor)
-    in the accumulation dtype, the cast to ``dtype``, then an all-gather
-    of the blocks over the node, trimmed to ``n`` and shaped
-    ``out_shape``.  The gather ships each rank's block in ``dtype``; the
-    result is a fresh tensor (it never aliases ``buf``)."""
+    """Final assembly from an accumulator block: the scale (or divisor,
+    floored for an integer dtype, as JAX ``_assemble_program``) in the
+    accumulation dtype, the cast to ``dtype``, then an all-gather of the
+    blocks over the node, trimmed to ``n`` and shaped ``out_shape``.
+    The gather ships each rank's block in ``dtype``; the result is a
+    fresh tensor (it never aliases ``buf``)."""
     x = buf
     if scale is not None:
         x = x * scale
     elif denom != 1:
-        x = x / denom
+        x = (x / denom if x.is_floating_point()
+             else torch.div(x, denom, rounding_mode="floor"))
     block = x.to(dtype, copy=x is buf)
     L = comm.local_size
     if L > 1:

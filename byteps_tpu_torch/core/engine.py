@@ -52,22 +52,31 @@ than one rank a collective carries one chunk (a width of 1, as the JAX
 engine has for more than one process,
 ``byteps_tpu/core/engine.py:298``), and the planner does not tune.
 
+Buffer mode, the JAX engine's routing (``byteps_tpu/core/engine.py:
+538-557``): an uncompressed tensor of more than one chunk, or of at
+least ``buffer_min_bytes``, rides the scatter accumulator unless debug
+sampling is on (it reads each chunk's own result) or its chunk bounds
+are ones the column view cannot express.  Each chunk is a column slab
+of the ``[L, C]`` view of the tensor, reduce-scattered into this rank's
+block (``comm/collectives.py``); right after the tensor's last
+reduce-scatter the dispatcher runs one all-gather of the blocks (the
+scale or divisor, then the declared dtype, as ``assemble_scatter``), on
+the engine stream, so the collectives keep one order on every rank and
+the syncer never issues one.  Every other tensor takes the parts path:
+each chunk is all-reduced and the syncer joins the results.
+
 The sharded weight update (``Config.sharded_update``): a tensor declared
 with :meth:`PushPullEngine.declare_update` owns a
 :class:`~.sharded_update.ShardedUpdateSlot`, and its pushes
-(:meth:`PushPullEngine.push_pull_update_async`) ride the scatter
-accumulator: each chunk is a column slab of the ``[L, C]`` view of the
-tensor, reduce-scattered into this rank's block (``comm/collectives.py``).
-Right after the tensor's last reduce-scatter the dispatcher runs the
-slot's optimizer step on that block and the all-gather of the updated
-parameters, on the engine stream, so the collectives keep one order on
-every rank and the syncer never issues one; the handle resolves to the
-parameters.  Chunk bounds the column view cannot express, and small
-single-chunk tensors, take the parts fallback: the chunks are
-all-reduced as usual, the dispatcher merges them and the slot steps its
-block of the merged gradient.  ``stats`` counts the wire bytes of each
-leg (``wire_push``, ``wire_pull``): push N, and pull N/R on the buffer
-path, N on the fallback and for every other tensor.
+(:meth:`PushPullEngine.push_pull_update_async`) take the same route.  On
+the accumulator the dispatcher runs the slot's optimizer step on this
+rank's block in place of the gradient's all-gather, then the all-gather
+of the updated parameters; the handle resolves to the parameters.  On
+the parts path (the fallback) the dispatcher merges the all-reduced
+chunks and the slot steps its block of the merged gradient.  ``stats``
+counts the wire bytes of each leg (``wire_push``, ``wire_pull``): push
+N, and pull N/R on a slot's buffer path, N on its fallback and for
+every other tensor (the JAX engine's count).
 
 The quantized parameter leg (``Config.sharded_param_codec``) is the
 slot's (``core/sharded_update.py``, ``core/param_codec.py``): its pull
@@ -115,10 +124,10 @@ counted in ``membership.stale_chunks_dropped`` with an
 
 Debug sampling (``BYTEPS_DEBUG_SAMPLE_TENSOR``, JAX
 ``engine.py:1125-1150``): the syncer logs each matching chunk's input
-and result summaries, and a matching sharded-update tensor takes the
-parts fallback instead of the accumulator.  The JAX engine also keeps a
-matching tensor off ``push_pull_local``'s single-process fast path; the
-port's ``push_pull_local`` has no such path.  Scrape-time gauges:
+and result summaries; while it is on, every tensor takes the parts path
+instead of the accumulator, as in the JAX engine.  The JAX engine also
+keeps a matching tensor off ``push_pull_local``'s single-process fast
+path; the port's ``push_pull_local`` has no such path.  Scrape-time gauges:
 :meth:`PushPullEngine.refresh_compression_gauges`, called by the
 ``/metrics`` refresh.
 
@@ -147,7 +156,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..comm.collectives import (push_pull_array, push_pull_arrays_batched,
+from ..comm.collectives import (assemble_scatter, push_pull_array,
+                                push_pull_arrays_batched,
                                 push_pull_chunk_scatter, scatter_layout)
 from ..comm.compressed import fused_compressed_push_pull
 from ..comm.mesh import CommContext
@@ -214,18 +224,17 @@ def _wait_done(done) -> None:
 def _plan_batch(batch: List[ChunkTask]):
     """Group a popped, priority-ordered task batch into dispatch units:
 
-    - ``("run", tasks)``: contiguous equal-length chunks of ONE
-      uncompressed multi-chunk tensor, or of one sharded-update tensor.
-      For a tensor on the scatter accumulator (a sharded-update tensor's
-      buffer mode) that is JAX's run: contiguous equal-width column slabs,
-      one reduce-scatter.  Otherwise it is the slice of the caller's flat
-      tensor that its chunks cover, reduced as one collective whose one
-      cast-copy reads it (no per-chunk copy-in).  A sharded-update
-      tensor's chunks never join a group with other tensors: its slot
-      steps when its own last chunk is dispatched;
-    - ``("group", tasks)``: consecutive uncompressed chunks of distinct
-      single-chunk tensors with equal length, dtype and scale: one buffer,
-      one collective (``push_pull_arrays_batched``).  JAX compares the
+    - ``("run", tasks)``: contiguous equal-length chunks of ONE tensor
+      on the scatter accumulator (JAX's buffer-mode run: equal-width
+      column slabs, one reduce-scatter), or of one sharded-update tensor
+      on the parts fallback (the slice of the caller's flat tensor that
+      its chunks cover, reduced as one collective whose one cast-copy
+      reads it).  Such chunks never join a group with another tensor's:
+      the tensor's all-gather (or its slot's step) follows its own last
+      chunk;
+    - ``("group", tasks)``: consecutive uncompressed chunks on the parts
+      path with equal length, dtype and scale: one buffer, one
+      collective (``push_pull_arrays_batched``).  JAX compares the
       chunks' stacked shapes; the port's chunks are flat, so it compares
       lengths;
     - ``("single", [task])``: everything else (compressed chunks, odd
@@ -240,7 +249,7 @@ def _plan_batch(batch: List[ChunkTask]):
     i = 0
     while i < len(batch):
         t = batch[i]
-        if t.pending is not None and t.pending.multi_chunk:
+        if t.pending is not None and t.pending.runs_alone:
             run = [t]
             j = i + 1
             while (j < len(batch)
@@ -259,7 +268,7 @@ def _plan_batch(batch: List[ChunkTask]):
             while (j < len(batch)
                    and batch[j].compression is None
                    and not (batch[j].pending is not None
-                            and batch[j].pending.multi_chunk)
+                            and batch[j].pending.runs_alone)
                    and batch[j].num_elems == t.num_elems
                    and batch[j].data.dtype == t.data.dtype
                    and batch[j].scale == t.scale):
@@ -287,8 +296,8 @@ def _wire_nbytes(task: ChunkTask) -> int:
 
 def _joined(parts: List[torch.Tensor]) -> Optional[torch.Tensor]:
     """One flat view of ``parts`` when they lie end to end in one buffer
-    (the chunks of one run), else None.  Only a run's buffer holds chunks
-    of one tensor alone, so the view overlaps no other handle's result."""
+    (neighbouring chunks of one group), else None.  The view covers this
+    tensor's chunks alone, so it overlaps no other handle's result."""
     p0 = parts[0]
     base, off = p0.untyped_storage().data_ptr(), p0.storage_offset()
     for p in parts:
@@ -318,14 +327,16 @@ class _CompressionSlot:
 class _PendingTensor:
     """Collects the finished chunks of one push_pull.
 
-    A sharded-update push (``slot``) is finished on the dispatcher: it
-    counts the chunks dispatched, keeps the accumulator (``scatter``:
-    the ``(layout, C)`` of buffer mode) or the fallback's merged chunk
-    results, and after the last chunk stores the slot's emitted
-    parameters in ``result``, which assembly returns."""
+    A push on the scatter accumulator (``scatter``: the ``(layout, C)``
+    of buffer mode) or of a sharded-update tensor (``slot``) is finished
+    on the dispatcher: it counts the chunks dispatched, keeps the
+    accumulator or the slot fallback's merged chunk results, and after
+    the last chunk stores the all-gathered tensor (or the slot's emitted
+    parameters) in ``result``, which assembly returns.  The syncer then
+    counts the finished chunks of such a push instead of keeping them."""
 
     def __init__(self, handle: Handle, ctx: TensorContext, out_shape,
-                 denom: int, total: int, compressed: bool, slot=None,
+                 denom: int, total: int, slot=None,
                  scatter=None, scale: Optional[float] = None,
                  hyperparameters=None):
         self.handle = handle
@@ -333,13 +344,14 @@ class _PendingTensor:
         self.out_shape = out_shape
         self.denom = denom        # divisor applied at assembly (1 = none)
         self.total = total
-        # chunks that form runs of their own, never groups: those of an
-        # uncompressed tensor of several chunks, and any of a
-        # sharded-update tensor (its slot steps after its own last chunk)
-        self.multi_chunk = (total > 1 and not compressed) or slot is not None
+        # finished on the dispatcher; its chunks form runs of their own,
+        # never groups (JAX ``use_buffer``, and a slot steps after its
+        # own last chunk)
+        self.runs_alone = scatter is not None or slot is not None
         self.slot = slot
         self.scatter = scatter
-        self.scale = scale        # buffer mode's 1/R, applied by the slot
+        self.scale = scale        # buffer mode's 1/R, applied at the end
+        self.done = 0             # chunks retired (runs_alone)
         self.hyperparameters = hyperparameters
         self.parts: Dict[int, Any] = {}
         self.resolved = False     # the handle has been (or is being) set
@@ -365,8 +377,12 @@ class _PendingTensor:
         with self.lock:
             if self.resolved:
                 return False
-            self.parts[part_idx] = data
-            self.resolved = len(self.parts) == self.total
+            if self.runs_alone:
+                self.done += 1
+                self.resolved = self.done == self.total
+            else:
+                self.parts[part_idx] = data
+                self.resolved = len(self.parts) == self.total
             return self.resolved
 
     def fail(self) -> bool:
@@ -378,8 +394,7 @@ class _PendingTensor:
             return first
 
     def assemble(self) -> torch.Tensor:
-        if self.slot is not None:
-            self.parts.clear()
+        if self.runs_alone:
             out, self.result = self.result, None
             return out
         return self.merge([self.parts.pop(i) for i in range(self.total)])
@@ -651,7 +666,7 @@ class PushPullEngine:
                               or "none") if ctx.compression_kwargs else "none"
                 tuned = bool(ctx.compression_tuned)
                 scatter = (self._scatter_layout_locked(ctx)
-                           if slot is not None else None)
+                           if slots is None else None)
             return self._enqueue(tensor, name, ctx, priority, op, bounds,
                                  keys, slots, est_nbytes, part_used,
                                  codec_used, tuned, slot, scatter,
@@ -669,14 +684,15 @@ class PushPullEngine:
         return bool(pat) and pat in name
 
     def _scatter_layout_locked(self, ctx: TensorContext):
-        """A sharded-update tensor's column layout ``(layout, C)`` on the
-        scatter accumulator, or None for the parts fallback: chunk bounds
-        the ``[L, C]`` view cannot express, a single chunk under
-        ``buffer_min_bytes`` (the JAX engine's buffer-mode rule), or a
-        tensor debug sampling watches (sampling reads each chunk's own
-        result, which the accumulator never holds).  Computed once per
-        chunk geometry; the caller holds ``ctx.lock``."""
-        if self._sampled(ctx.name):
+        """An uncompressed tensor's column layout ``(layout, C)`` on the
+        scatter accumulator, or None for the parts path, by the JAX
+        engine's buffer-mode predicate (``byteps_tpu/core/engine.py:
+        547-557``): a single chunk under ``buffer_min_bytes``, chunk
+        bounds the ``[L, C]`` view cannot express, or debug sampling on
+        (it reads each chunk's own result, which the accumulator never
+        holds).  Computed once per chunk geometry; the caller holds
+        ``ctx.lock``."""
+        if self.cfg.debug_sample_tensor:
             return None
         if ctx.scatter_layout is None:
             layout = None
@@ -709,7 +725,7 @@ class PushPullEngine:
         if denom != 1 and slots is None and tensor.is_floating_point():
             # fused scale: the collective multiplies by 1/R before the
             # downcast, and assembly is a reshape (on the scatter
-            # accumulator the slot applies it to its block)
+            # accumulator it is applied to this rank's block)
             scale, denom = 1.0 / denom, 1
         # the planner's samples: wall seconds from enqueue to resolution,
         # for the chunk size until the tensor's size bucket locks, then,
@@ -735,8 +751,8 @@ class PushPullEngine:
             flat.record_stream(self.stream)
         handle = self.handles.allocate(name)
         pending = _PendingTensor(handle, ctx, tuple(tensor.shape), denom,
-                                 len(bounds), compressed=slots is not None,
-                                 slot=update_slot, scatter=scatter,
+                                 len(bounds), slot=update_slot,
+                                 scatter=scatter,
                                  scale=scale,
                                  hyperparameters=hyperparameters)
         pending.trace = tctx
@@ -1040,8 +1056,11 @@ class PushPullEngine:
                 fresh = []
                 for t in batch:
                     if _dispatch_stale(t, ep):
-                        if t.pending.slot is not None:
+                        if t.pending.runs_alone:
+                            # the tensor is dropped whole: its later
+                            # chunks gather (or step) nothing
                             t.pending.dispatch_failed = True
+                            t.pending.buf = None
                         self._sync_q.put(([t], None, None, None,
                                           _drop_stale(t, ep, "dispatch")))
                     else:
@@ -1116,8 +1135,8 @@ class PushPullEngine:
                 else:
                     outs = [push_pull_array(self.comm, _chunk(t0), op="sum",
                                             keep_acc=True, scale=t0.scale)]
-                if pending is not None and pending.slot is not None:
-                    outs = self._advance_slot(pending, unit, outs)
+                if pending is not None and pending.runs_alone:
+                    outs = self._advance(pending, unit, outs)
                 done = self._record()
             self._sync_q.put((unit, outs, done, rollback, None))
         except Exception as e:  # noqa: BLE001 — report on the handles
@@ -1125,30 +1144,39 @@ class PushPullEngine:
             _flight.record("engine.dispatch_failed", tensor=t0.name,
                            error=str(e))
             self._restore(rollback)
-            if t0.pending is not None and t0.pending.slot is not None:
+            if t0.pending is not None and t0.pending.runs_alone:
                 t0.pending.dispatch_failed = True
                 t0.pending.buf = None
                 t0.pending.merged.clear()
             self._sync_q.put((unit, None, None, None, e))
 
-    @staticmethod
-    def _advance_slot(pending: _PendingTensor, unit: List[ChunkTask],
-                      outs) -> list:
-        """After a sharded-update tensor's unit: keep the fallback's
-        merged chunks, and once its last chunk is dispatched run the
-        slot's step and all-gather here, on the dispatcher and the
-        engine stream, behind the tensor's last reduction.  The units
-        carry no per-chunk result: assembly returns the slot's."""
+    def _advance(self, pending: _PendingTensor, unit: List[ChunkTask],
+                 outs) -> list:
+        """After a unit of a tensor finished on the dispatcher: keep a
+        slot fallback's merged chunks, and once the tensor's last chunk
+        is dispatched run its end here, on the dispatcher and the engine
+        stream, behind its last reduction: the accumulator's all-gather
+        (``assemble_scatter``), or the slot's step and the all-gather of
+        its parameters.  The units carry no per-chunk result: assembly
+        returns the tensor's."""
         if pending.scatter is None:
             for t, o in zip(unit, outs):
                 pending.merged[t.offset_elems] = o
         pending.dispatched += len(unit)
         if pending.dispatched == pending.total:
             if pending.dispatch_failed:
+                pending.buf = None
                 raise RuntimeError(f"an earlier chunk of {unit[0].name} "
-                                   f"failed: the slot does not step")
+                                   f"failed: the tensor is not assembled")
             slot, hyper = pending.slot, pending.hyperparameters
-            if pending.scatter is not None:
+            if pending.scatter is not None and slot is None:
+                ctx = pending.ctx
+                pending.result = assemble_scatter(
+                    self.comm, pending.buf, ctx.num_elems,
+                    pending.scatter[1], pending.out_shape, ctx.dtype,
+                    scale=pending.scale, denom=pending.denom)
+                pending.buf = None
+            elif pending.scatter is not None:
                 pending.result = slot.apply_buffer(pending.buf,
                                                    pending.scale, hyper)
                 pending.buf = None

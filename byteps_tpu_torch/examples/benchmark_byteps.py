@@ -1,13 +1,16 @@
 """Synthetic gradient push_pull benchmark; port of
 ``example/pytorch/benchmark_byteps.py``: timed push_pull of model-sized
-gradients, optionally compressed.  With ``--compressor onebit`` it also
-prints the onebit kernel launches the engine made, in one JSON line.
+gradients, optionally compressed.  It ends with one JSON line: the rank,
+the MB/s, the onebit kernel launches the engine made (and the merge's by
+its ranks R), and a SHA-256 of the last iteration's results, which is the
+same on every rank when every rank received the same bits.
 
 Run:  python -m byteps_tpu_torch.examples.benchmark_byteps [--num-iters N]
       [--compressor onebit|topk|randomk|dithering] [--device cuda|cpu]
 """
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -47,9 +50,12 @@ def main(argv=None):
     for _ in range(args.num_iters):
         hs = [bps.push_pull_async(g, name=f"bench.{i}", compression=comp)
               for i, g in enumerate(grads)]
-        for h in hs:
-            bps.synchronize(h)
+        outs = [bps.synchronize(h) for h in hs]
     dt = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for o in outs:
+        digest.update(o.detach().contiguous().view(torch.uint8).cpu()
+                      .numpy().tobytes())
     total_mb = args.num_iters * args.num_tensors * args.tensor_mb
     print(f"{total_mb / dt:.1f} MB/s pushed+pulled "
           f"({args.num_tensors} x {args.tensor_mb} MB x "
@@ -66,6 +72,9 @@ def main(argv=None):
                        "mb_per_s": total_mb / dt, "chunks": chunks,
                        "iters": args.num_iters + 1,
                        "launches": dict(onebit_kernels.launches),
+                       "merge_ranks": {str(r): n for r, n in sorted(
+                           onebit_kernels.merge_ranks.items())},
+                       "result_sha256": digest.hexdigest(),
                        **order_stats(eng.stats)})
     # one write: the ranks share the launcher's pipe
     sys.stdout.write(line + "\n")

@@ -69,11 +69,14 @@ WS_HEAD = 32
 # kernel launches per wrapper since the last reset_launches()
 launches: Dict[str, int] = {"onebit_pack": 0, "onebit_unpack": 0,
                             "onebit_unpack_sum": 0}
+# onebit_unpack_sum's launches by the ranks R it merged
+merge_ranks: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    merge_ranks.clear()
 
 
 def padded_lanes(numel: int) -> int:
@@ -273,4 +276,5 @@ def onebit_unpack_sum(words: torch.Tensor, scales: torch.Tensor,
                                           _stream(words))
     _raise_on(rc, "onebit_unpack_sum")
     launches["onebit_unpack_sum"] += 1
+    merge_ranks[R] = merge_ranks.get(R, 0) + 1
     return out

@@ -139,18 +139,22 @@ def _arm(torch, args, mesh, model, init_state, data, kind, ref, fa):
     finally:
         ring_flash._q_offset = saved
     if args.check:
+        # gloo takes no CUDA tensor in send/recv (``mesh_util.shift_path``),
+        # NCCL only CUDA tensors
+        wire = (mesh.device if dist.get_backend() == "nccl"
+                else torch.device("cpu"))
         if mesh.rank == 0:
             ref_loss, ref_flat, names = ref
             shares = [grad_share(torch, got["flat"], ref_flat, names)]
-            buf = torch.empty_like(got["flat"])
+            buf = torch.empty_like(got["flat"], device=wire)
             for r in range(1, mesh.size):
                 dist.recv(buf, src=r)
-                shares.append(grad_share(torch, buf, ref_flat, names))
+                shares.append(grad_share(torch, buf.cpu(), ref_flat, names))
             out["grad_share_by_rank"] = [s for s, _ in shares]
             out["grad_share_where"] = [w for _, w in shares]
             out["ref_loss"] = ref_loss
         else:
-            dist.send(got["flat"], dst=0)
+            dist.send(got["flat"].to(wire), dst=0)
     if control:
         return out
     ms, losses = [], []

@@ -19,7 +19,8 @@ Arms (a world of 4 ranks; each arm builds its own mesh):
   ``--layers`` layers over ``(fsdp 2, tp 2)``, ``--batch`` sequences of
   ``--seq`` tokens (one sequence an fsdp rank), AdamW 3e-4, the flash
   kernels as its attention (``ops/flash_attention.py``); weights drawn
-  leaf by leaf from the seed (``init_llama_params_sharded``);
+  leaf by leaf from the seed (``init_llama_params_sharded``); with
+  ``--remat`` each block is checkpointed;
 - ``tp``, ``pp``, ``3d``: GPT-small (hidden 512, 8 layers, 8 heads of 64,
   vocab 32768, bf16 compute) with exact attention, ``--gpt-batch``
   sequences of ``--gpt-seq`` tokens, AdamW 3e-4, over ``(dp 2, tp 2)``,
@@ -95,6 +96,8 @@ def _configs(args):
     else:
         lcfg = llama.llama_tiny()
         gcfg = gpt.gpt_tiny()
+    if args.remat:
+        lcfg = dataclasses.replace(lcfg, remat=True)
     return lcfg, gcfg
 
 
@@ -460,6 +463,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=("full", "tiny"), default="full")
     ap.add_argument("--layers", type=int, default=4,
                     help="Llama-3-8B layers (fsdp_tp)")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint each Llama block (fsdp_tp)")
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--gpt-seq", type=int, default=1024)

@@ -580,11 +580,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Every figure is printed beside the card's name and power limit, and
    the phase's time.
 
+20. buffer mode (``buffer_phase``), one rank, NCCL at a world of one, the
+   engine's defaults with the chunk size pinned: a flat gradient of
+   ResNet-50's parameter count (BUFFER_NUMEL floats, several chunks) and
+   a control of BUFFER_CONTROL_NUMEL floats (one chunk under
+   ``buffer_min_bytes``), each pushed once under torch.profiler after a
+   warm-up.  The gradient
+   must ride the scatter accumulator: every unit a run on it, its slabs
+   covering every chunk once, one ``assemble_scatter`` and no
+   ``push_pull_array``; the control the parts path (one
+   ``push_pull_array``, no accumulator).  The collectives issued
+   (``torch.distributed``) and the NCCL kernels the profile shows are
+   printed for each: at a world of one the node's reduce-scatter and
+   all-gather are a copy and a cast, so the gradient must issue no
+   collective at all and the control one all-reduce (the NCCL kernels of
+   the reduce-scatters and the all-gather show at four cards,
+   ``tools/multi_card.py``).  The gradient's result must be the parts
+   path's bit for bit (the same push with debug sampling on, which keeps
+   every tensor off the accumulator).  Figures beside the card's name
+   and power limit, and the phase's time.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
 4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's, 15's,
 16's and 17's processes, which count their own, and phase 14's, 18's and
-19's runs);
+19's runs; phase 20 launches none of them);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
@@ -5630,6 +5650,146 @@ def mlp_arm(smi):
         log(f"train_mnist_mlp [{smi}]: {line}")
 
 
+# ------------------------------------------------------ 20. buffer mode
+
+BUFFER_NUMEL = 25_557_032          # ResNet-50's parameters, one flat gradient
+BUFFER_CONTROL_NUMEL = 1000        # one chunk under buffer_min_bytes
+BUFFER_DEVICE = "cuda"
+BUFFER_COLLECTIVES = ("all_reduce", "reduce_scatter_tensor",
+                      "all_gather_into_tensor", "all_gather", "broadcast")
+
+
+def _buffer_push(torch, api, eng, x, name, smi):
+    """One push of ``x`` (after a warm-up) under torch.profiler, with
+    the engine's units, its collective entries and ``torch.distributed``'s
+    calls counted; returns the result and the counts."""
+    import torch.distributed as dist
+    from byteps_tpu_torch.core import engine as engine_mod
+
+    entries = ("push_pull_chunk_scatter", "assemble_scatter",
+               "push_pull_array", "push_pull_arrays_batched")
+    api.push_pull(x, name)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    units, calls = [], collections.Counter()
+    real_unit = eng._dispatch_unit
+    real = {("dist", k): getattr(dist, k) for k in BUFFER_COLLECTIVES}
+    real.update({("engine", k): getattr(engine_mod, k) for k in entries})
+
+    def counted(key):
+        fn = real[key]
+
+        def wrapper(*a, **kw):
+            calls[key[1]] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def recording(kind, unit):
+        units.append((kind, len(unit), unit[0].pending.scatter is not None))
+        real_unit(kind, unit)
+
+    eng._dispatch_unit = recording
+    for (mod, k) in real:
+        setattr(dist if mod == "dist" else engine_mod, k, counted((mod, k)))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if x.is_cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = api.push_pull(x, name)
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng._dispatch_unit = real_unit
+        for (mod, k), fn in real.items():
+            setattr(dist if mod == "dist" else engine_mod, k, fn)
+    kernels = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels["all"] += 1
+            for k in ("AllReduce", "ReduceScatter", "AllGather"):
+                kernels[k] += k in e.name
+    chunks = len(eng.registry.get(name).chunk_bounds)
+    return out, {"units": units, "calls": dict(calls), "chunks": chunks,
+                 "kernels": dict(kernels), "ms": ms}
+
+
+def buffer_phase(torch, smi):
+    """Phase 20: a ResNet-50-sized gradient on the scatter accumulator
+    against a control on the parts path, at a world of one."""
+    import numpy as np
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.config import Config
+    from byteps_tpu_torch.core import api
+
+    t_phase = time.perf_counter()
+    # the default chunk size, pinned: a world of one's planner would try
+    # the whole tensor as one chunk at the next push
+    bps.init(Config(partition_pinned=True), device=BUFFER_DEVICE)
+    try:
+        eng = api.engine()
+        dev = api.device()
+        rng = np.random.RandomState(20)
+        g = torch.from_numpy(rng.randn(BUFFER_NUMEL).astype(np.float32)
+                             ).to(dev)
+        c = torch.from_numpy(rng.randn(BUFFER_CONTROL_NUMEL).astype(
+            np.float32)).to(dev)
+        out_g, rg = _buffer_push(torch, api, eng, g, "buffer.gradient", smi)
+        out_c, rc = _buffer_push(torch, api, eng, c, "buffer.control", smi)
+        check(rg["chunks"] > 1 and all(kind == "run" and on_acc
+                                       for kind, _, on_acc in rg["units"])
+              and sum(w for _, w, _ in rg["units"]) == rg["chunks"],
+              f"buffer: the gradient's units {rg['units']} are not runs on "
+              f"the accumulator covering its {rg['chunks']} chunks")
+        calls = rg["calls"]
+        check(calls.get("push_pull_chunk_scatter") == len(rg["units"])
+              and calls.get("assemble_scatter") == 1
+              and not calls.get("push_pull_array")
+              and not calls.get("push_pull_arrays_batched"),
+              f"buffer: the gradient's collective entries {calls}")
+        check(not any(calls.get(k) for k in BUFFER_COLLECTIVES)
+              and not rg["kernels"].get("AllReduce"),
+              f"buffer: the gradient issued collectives {calls}, NCCL "
+              f"kernels {rg['kernels']} at a world of one")
+        check(rc["units"] and not any(on_acc for *_, on_acc in rc["units"])
+              and rc["calls"].get("push_pull_array") == 1
+              and rc["calls"].get("all_reduce") == 1
+              and not rc["calls"].get("push_pull_chunk_scatter"),
+              f"buffer: the control's units {rc['units']}, entries "
+              f"{rc['calls']}")
+        for name, r in (("gradient", rg), ("control", rc)):
+            log(f"buffer {name} [{smi}]: {r['chunks']} chunk(s) in units "
+                f"{[(k, w) for k, w, _ in r['units']]} "
+                f"(on the accumulator: {[a for *_, a in r['units']]}); "
+                f"entries and torch.distributed calls {r['calls']}; device "
+                f"kernels {r['kernels']}; {r['ms']:.2f} ms")
+        # the parts path: debug sampling keeps every tensor off the
+        # accumulator (a pattern that names no tensor logs nothing)
+        eng.cfg.debug_sample_tensor = "buffer.no-such-tensor"
+        try:
+            out_p, rp = _buffer_push(torch, api, eng, g, "buffer.gradient",
+                                     smi)
+        finally:
+            eng.cfg.debug_sample_tensor = ""
+        check(not any(on_acc for *_, on_acc in rp["units"])
+              and rp["calls"].get("push_pull_array", 0)
+              + rp["calls"].get("push_pull_arrays_batched", 0) >= 1,
+              f"buffer: the parts-path push's units {rp['units']}")
+        check(same_bits(out_g, out_p) and same_bits(out_g, g)
+              and same_bits(out_c, c),
+              "buffer: the accumulator's result differs from the parts "
+              "path's (or from the input, at a world of one)")
+        log(f"buffer [{smi}]: the accumulator's {BUFFER_NUMEL} floats equal "
+            f"the parts path's bit for bit ({rp['ms']:.2f} ms there, "
+            f"units {[(k, w) for k, w, _ in rp['units']]})")
+    finally:
+        bps.shutdown()
+    log(f"buffer mode phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5697,6 +5857,7 @@ def main():
     launcher_launches = launcher_phase(torch, smi)
     frontend_launches = frontends_phase(torch, ok, registry, resnet, smi)
     repair_launches = repairs_phase(torch, ok, smi)
+    buffer_phase(torch, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
     # those phase 11's, 12's, 13's, 15's, 16's and 17's processes
     # counted, and phase 14's, 18's and 19's

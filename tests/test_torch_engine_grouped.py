@@ -40,7 +40,7 @@ class _JaxPending:
 
 
 class _PortPending:
-    multi_chunk = True
+    runs_alone = True
 
 
 class _Arr:

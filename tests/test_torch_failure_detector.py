@@ -509,10 +509,16 @@ def test_sync_deadline_routes_through_reconcile_not_exit(member_exits):
         m.stop()
 
 
-def test_stall_during_inflight_shrink_does_not_double_exit(member_exits):
+def test_stall_during_inflight_shrink_does_not_double_exit(member_exits,
+                                                          monkeypatch):
     """A stall report landing while another thread applies a world
     change follows that change (``wait_ready``): no second transition,
-    no exit."""
+    no exit.
+
+    The two threads are ordered by hooks, not by timing: the applier
+    marks that its transition has begun (inside ``_maybe_apply``, at the
+    engine's resume) and holds there until the report is following it,
+    so the report can land neither before the transition nor after it."""
     from byteps_tpu_torch.fault import membership as mm
     port = free_port()
     # the applied view resumes an engine (as the JAX one does): on the
@@ -520,14 +526,31 @@ def test_stall_during_inflight_shrink_does_not_double_exit(member_exits):
     m = mm.ElasticMembership(0, [0], f"127.0.0.1:{port}",
                              rendezvous_timeout_s=2.0, sync_timeout_s=5.0,
                              device="cpu").start()
+    began, following = threading.Event(), threading.Event()
+    resume = mm._resume_for_world
+    wait_ready = m.wait_ready
+
+    def resume_once_followed(view, device):
+        began.set()
+        following.wait(timeout=60)
+        return resume(view, device)
+
+    def wait_ready_marked(epoch, timeout=None):
+        following.set()
+        return wait_ready(epoch, timeout=timeout)
+
+    monkeypatch.setattr(mm, "_resume_for_world", resume_once_followed)
+    monkeypatch.setattr(m, "wait_ready", wait_ready_marked)
     try:
         install_failure_action(m.on_failure)
         applier = threading.Thread(
             target=lambda: m._maybe_apply(mm.MembershipView(1, (0,))))
         mm.set_epoch(1)          # the shrink's guard is already up
         applier.start()
+        assert began.wait(timeout=60), "the transition never began"
         fd_mod.data_path_stalled(3.0, "watchdog during shrink")
         applier.join(timeout=30)
+        assert following.is_set()
         assert m.view().epoch == 1
         assert counters.get("membership.reconcile_started") == 0
         assert member_exits == []

@@ -11,10 +11,24 @@ its parameters after the steps under the whole model's name with its
 slice's bounds.  Imports neither jax nor byteps_tpu.
 
     python -m tests.torch_mp_worker IN.npz CASES.json OUT.npz
+    python -m tests.torch_mp_worker --spawn cuda OUT_DIR WORLD
+    python -m tests.torch_mp_worker --spawn cpu CPU_DIR WORLD
+    python -m tests.torch_mp_worker --compare OUT_DIR CPU_DIR
+
+The ``--spawn`` form runs every rank of :data:`CARD_CASES` that take
+``WORLD`` ranks: on the card, a card a rank (``CUDA_VISIBLE_DEVICES``)
+over NCCL, or on the CPU over gloo.  The inputs are the CPU tests'
+sizes, made without JAX (:func:`card_inputs`: the port's models drawn
+from a seed, as flax trees).  ``--compare`` holds every rank's losses
+and parameter slices of the card run against the CPU run's at the CPU
+tests' tolerances, and each control's against its case's CPU run, which
+it must miss; it prints every disagreement and exits 1 on any.
 """
 
 import dataclasses
 import json
+import os
+import re
 import sys
 
 import numpy as np
@@ -90,9 +104,10 @@ def build(mesh, c, inp):
     cfg = CONFIGS[c["config"]]()
     params = nest(inp, c["params"] + "/")
     names = {}
+    dev = mesh.device
     if kind == "fsdp_tp":
         model = llama.Llama(cfg, tp_axis=mesh.axis("tp"),
-                            fsdp_axis=mesh.axis("fsdp"))
+                            fsdp_axis=mesh.axis("fsdp"), device=dev)
         llama.load_flax_llama(model, params)
         opt = torch.optim.SGD(model.parameters(), lr=c["lr"])
         step = fsdp_tp.make_fsdp_tp_train_step(mesh, model, opt)
@@ -101,7 +116,7 @@ def build(mesh, c, inp):
         tp = mesh.axis("tp") if kind in ("tp", "3d") else None
         layers = (pipeline.stage_layers(mesh, cfg.num_layers)
                   if kind in ("pp", "3d") else None)
-        model = gpt.GPT(cfg, tp_axis=tp, layers=layers)
+        model = gpt.GPT(cfg, tp_axis=tp, layers=layers, device=dev)
         gpt.load_flax_gpt(model, params)
         opt = torch.optim.SGD(model.parameters(), lr=c["lr"])
         if kind == "tp":
@@ -142,7 +157,7 @@ def run_case(meshes, inp, res, c):
     places = tp_layers.param_placements(model)
     for n, p in model.named_parameters():
         g = names.get(n, n)
-        res[f"{name}/param/{g}"] = p.detach().numpy()
+        res[f"{name}/param/{g}"] = p.detach().cpu().numpy()
         res[f"{name}/bounds/{g}"] = np.array(
             tp_layers.bounds(tuple(
                 s * (1 if a is None else a.size)
@@ -206,13 +221,14 @@ def compare(results, name, losses, params, loss_rtol=1e-5, loss_atol=1e-6,
 
 
 def main(in_path, cases_path, out_path, device="cpu"):
+    torch.backends.cuda.matmul.allow_tf32 = False
     comm = bootstrap(Config.from_env(), resolve_device(device))
     torch.manual_seed(0)
     inp = dict(np.load(in_path))
     with open(cases_path) as f:
         cases = json.load(f)
     meshes = Meshes(comm)
-    res = {}
+    res = {"meta/backend": np.array(comm.backend)}
     try:
         for c in cases:
             if comm.size in c.get("worlds", [comm.size]):
@@ -222,11 +238,11 @@ def main(in_path, cases_path, out_path, device="cpu"):
     np.savez(out_path, **res)
 
 
-def spawn(world, in_path, cases_path, out_dir, timeout=240):
+def spawn(world, in_path, cases_path, out_dir, timeout=240, device="cpu"):
     """Every rank of a one-node world of ``world`` ranks; returns the
     result paths by rank."""
     return _spawn(world, in_path, cases_path, out_dir, timeout=timeout,
-                  module="tests.torch_mp_worker")
+                  device=device, module="tests.torch_mp_worker")
 
 
 def lm_batch(seed, vocab, b=8, t=16):
@@ -260,5 +276,145 @@ def start(tmp, inp, cases, worlds):
     return results, pool
 
 
+# --- the card check ----------------------------------------------------------
+
+STEPS, LR = 3, 0.1
+# the CPU tests' cases and sizes (tests/test_torch_{tensor_parallel,
+# pipeline,three_d,fsdp_tp}.py); a control names the case it must miss
+_GPT = {"config": "gpt_tiny_f32", "params": "gpt", "batch": "gpt_batch",
+        "steps": STEPS, "lr": LR}
+_GPT4 = dict(_GPT, config="gpt_tiny4_f32", params="gpt4",
+             batch="gpt4_batch")
+_LLAMA = {"type": "fsdp_tp", "config": "llama_tiny_f32", "params": "llama",
+          "batch": "llama_batch", "steps": STEPS, "lr": LR, "worlds": [4]}
+CARD_CASES = (
+    [dict(_GPT, type="tp", name=f"tp_{d}x{t}", mesh=[d, t], worlds=[d * t])
+     for d, t in ((1, 2), (2, 2))]
+    + [dict(_GPT, type="tp", name="tp_1x2_bias_control", mesh=[1, 2],
+            control="bias_every_rank", misses="tp_1x2", worlds=[2])]
+    + [dict(_GPT4, type="pp", name=f"pp_{d}x{p}_m{m}", mesh=[d, p],
+            microbatches=m, worlds=[d * p])
+       for d, p, m in ((1, 2, 1), (1, 2, 2), (1, 2, 4), (2, 2, 2),
+                       (1, 4, 4))]
+    + [dict(_GPT4, type="pp", name="pp_2x2_m2_ends_control", mesh=[2, 2],
+            microbatches=2, control="ends_over_dp", misses="pp_2x2_m2",
+            worlds=[4])]
+    + [dict(_GPT4, type="3d", name="3d_1x2x2_m2", mesh=[1, 2, 2],
+            microbatches=2, worlds=[4])]
+    + [dict(_LLAMA, name=f"ft_{f}x{t}", mesh=[f, t])
+       for f, t in ((2, 2), (1, 4), (4, 1))]
+    + [dict(_LLAMA, name="ft_1x4_kv_control", mesh=[1, 4],
+            control="kv_local_index", misses="ft_1x4"),
+       dict(_LLAMA, name="ft_odd_2x2", mesh=[2, 2], params="odd",
+            batch="odd_batch", config="llama_odd_vocab_f32")])
+# the CPU tests' tolerances (loss rtol / atol, parameters rtol / atol)
+LOSS_TOL, PARAM_TOL = (1e-5, 1e-6), (2e-4, 2e-5)
+
+
+def flax_tree(model):
+    """A port model's parameters as the flat ``{"h0/attn/q/kernel": f32
+    array}`` that :func:`~.torch_sp_worker.nest` and ``load_flax_*`` take
+    back (``h.{i}`` is scope ``h{i}``)."""
+    return {re.sub(r"^h\.(\d+)\.", r"h\1.", n).replace(".", "/"):
+            p.detach().float().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def card_inputs():
+    """The inputs of :data:`CARD_CASES`: each whole model drawn from its
+    seed by the port (biases drawn too, so that a bias added on every tp
+    rank shows from the first step), and an LM batch of each, made with
+    numpy."""
+    inp = {}
+    models = {"gpt": (gpt.GPT, "gpt_tiny_f32", 0),
+              "gpt4": (gpt.GPT, "gpt_tiny4_f32", 1),
+              "llama": (llama.Llama, "llama_tiny_f32", 3),
+              "odd": (llama.Llama, "llama_odd_vocab_f32", 4)}
+    for key, (cls, config, seed) in models.items():
+        cfg = CONFIGS[config]()
+        model = cls(cfg, generator=torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(100 + seed)
+            for n, p in model.named_parameters():
+                if n.endswith("bias"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+        for k, v in flax_tree(model).items():
+            inp[f"{key}/{k}"] = v
+        for k, v in lm_batch(seed, cfg.vocab_size).items():
+            inp[f"{key}_batch/{k}"] = v
+    return inp
+
+
+def spawn_card_check(device, out_dir, world, timeout=300):
+    """Every rank of the :data:`CARD_CASES` that take ``world`` ranks, on
+    ``device``; returns the result paths by rank."""
+    os.makedirs(out_dir, exist_ok=True)
+    in_path = os.path.join(out_dir, "inputs.npz")
+    cases_path = os.path.join(out_dir, "cases.json")
+    np.savez(in_path, **card_inputs())
+    with open(cases_path, "w") as f:
+        json.dump(CARD_CASES, f)
+    return spawn(world, in_path, cases_path, out_dir, timeout=timeout,
+                 device=device)
+
+
+def _agree(a, b, tol):
+    return a.shape == b.shape and np.allclose(a, b, rtol=tol[0], atol=tol[1])
+
+
+def compare_dirs(dir_a, dir_b):
+    """Every rank's results in ``dir_a`` (the card's) against ``dir_b``'s
+    (the CPU's): each case's losses and parameter slices at LOSS_TOL and
+    PARAM_TOL, its bounds and stage forwards exactly; each control's
+    against the case it ``misses``, which must disagree.  Returns
+    ``(disagreements, arrays compared, controls that missed)``."""
+    controls = {c["name"]: c["misses"] for c in CARD_CASES
+                if c.get("misses")}
+    bad, n, missed = [], 0, set()
+    files = sorted(f for f in os.listdir(dir_a)
+                   if f.startswith("sp_") and f.endswith(".npz"))
+    if not files:
+        bad.append(f"no results in {dir_a}")
+    for f in files:
+        a, b = np.load(os.path.join(dir_a, f)), np.load(os.path.join(dir_b, f))
+        for k in a.files:
+            case, kind = k.split("/")[:2]
+            if case == "meta":
+                continue
+            if case in controls:
+                want_key = k.replace(case, controls[case], 1)
+                tol = LOSS_TOL if kind == "loss" else PARAM_TOL
+                if kind in ("loss", "param") and not _agree(
+                        a[k], b[want_key], tol):
+                    missed.add(case)
+                continue
+            n += 1
+            if kind in ("bounds", "stage_forwards"):
+                ok = np.array_equal(a[k], b[k])
+            else:
+                ok = _agree(a[k], b[k], LOSS_TOL if kind == "loss"
+                            else PARAM_TOL)
+            if not ok:
+                err = (np.abs(a[k] - b[k]).max() if a[k].shape == b[k].shape
+                       else "shape")
+                bad.append(f"{f} {k}: max |diff| {err}")
+    ran = {k.split("/")[0] for f in files
+           for k in np.load(os.path.join(dir_a, f)).files}
+    ran.discard("meta")
+    for c in sorted(set(controls) & ran - missed):
+        bad.append(f"control {c} agrees with {controls[c]}: it must miss")
+    return bad, n, sorted(missed)
+
+
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    if sys.argv[1] == "--spawn":
+        spawn_card_check(sys.argv[2], sys.argv[3], int(sys.argv[4]))
+    elif sys.argv[1] == "--compare":
+        bad, n, missed = compare_dirs(sys.argv[2], sys.argv[3])
+        for b in bad:
+            print(b)
+        print(f"compared {n} arrays, {len(bad)} disagree; controls that "
+              f"missed {missed}")
+        sys.exit(1 if bad else 0)
+    else:
+        main(*sys.argv[1:])

@@ -262,15 +262,18 @@ _held = []
 
 
 def _rendezvous(tag, timeout=120.0):
-    """This rendezvous's port in DMLC_PS_ROOT_PORT.  Rank 0 binds a store
-    on a port the system picks at the bind, marks it with the world's
-    token and hands the port to the other ranks through a file in
-    ORDER_DIR; ``init_process_group`` at rank 0 then takes that store
+    """This rendezvous's port in DMLC_PS_ROOT_PORT.  Rank 0 (of the world:
+    worker 0's local rank 0) binds a store on a port the system picks at
+    the bind, marks it with the world's token and hands the port to the
+    other ranks through a file in ORDER_DIR; ``init_process_group`` at rank 0 then takes that store
     (a multi-tenant server of this process).  Every other rank checks the
     token before it joins."""
     token = os.environ["ORDER_WORLD"]
     path = os.path.join(os.environ["ORDER_DIR"], f"{token}.{tag}.port")
-    if os.environ["BYTEPS_LOCAL_RANK"] == "0":
+    rank = (int(os.environ.get("DMLC_WORKER_ID", "0"))
+            * int(os.environ.get("BYTEPS_LOCAL_SIZE", "1"))
+            + int(os.environ["BYTEPS_LOCAL_RANK"]))
+    if rank == 0:
         store = TCPStore("127.0.0.1", 0, is_master=True,
                          wait_for_workers=False, multi_tenant=True)
         store.set("order_world", token)
