@@ -34,7 +34,23 @@ attributes every step, keeps a black box, and serves ``/metrics``,
 package's names; ``metrics_snapshot()`` reads it in process.  Under
 ``Config.sharded_param_codec`` the sharded update's pull leg carries a
 codec's payload (``core/param_codec.py``).
+
+The package exports the JAX package's top level (``byteps_tpu/__init__.py``)
+beside the adapter's names: the serving plane (``start_serving``,
+``start_serving_tier``, ``PullClient``, ``ServingPlane``, ``ServingTier``,
+``SnapshotStore``), ``durable_kv_store`` and ``__version__``.  The JAX
+names the port leaves out stand, each with its reason, in ``_jax_only.py``.
 """
 
-from .torch import *  # noqa: F401,F403 — the adapter is the public surface
-from .torch import __all__  # noqa: F401
+__version__ = "0.1.0"
+
+from .torch import *  # noqa: F401,F403,E402 — the adapter's surface
+from .torch import __all__ as _adapter_all  # noqa: E402
+from .core.api import (durable_kv_store, start_serving,  # noqa: F401,E402
+                       start_serving_tier)
+from .server import (PullClient, ServingPlane, ServingTier,  # noqa: F401,E402
+                     SnapshotStore)
+
+__all__ = [*_adapter_all, "start_serving", "start_serving_tier",
+           "durable_kv_store", "PullClient", "ServingPlane", "ServingTier",
+           "SnapshotStore"]

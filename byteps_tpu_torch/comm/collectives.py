@@ -165,6 +165,15 @@ def push_pull_array(comm: CommContext, x: torch.Tensor, op: str = "sum",
                        keep_acc, scale, hierarchical).reshape(x.shape)
 
 
+def push_pull_array_scaled(comm: CommContext, x: torch.Tensor, scale: float,
+                           hierarchical: Optional[bool] = None
+                           ) -> torch.Tensor:
+    """The sum over ranks times ``scale``, in ``x``'s dtype: the JAX
+    package's name for ``push_pull_array(..., scale=)`` (the scale is
+    applied to the accumulation-dtype sum, before any downcast)."""
+    return push_pull_array(comm, x, hierarchical=hierarchical, scale=scale)
+
+
 def push_pull_arrays_batched(comm: CommContext, xs: Sequence[torch.Tensor],
                              scale: Optional[float] = None
                              ) -> List[torch.Tensor]:

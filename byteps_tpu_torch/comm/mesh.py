@@ -14,12 +14,17 @@ DMLC/BYTEPS environment:
 Global rank is ``host_id * local_size + local_rank``.  With no
 environment the world is one process on ``tcp://127.0.0.1:<free port>``,
 so the collective leg is a real collective even on one card.
+
+:func:`bootstrap` records the context it builds as the process's, which
+:func:`get_comm` returns until :meth:`CommContext.close` or
+:func:`shutdown_comm` ends it, as the JAX module's process-wide context.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import socket
+import threading
 from typing import Any, Optional
 
 import torch
@@ -59,9 +64,39 @@ class CommContext:
     # rank: the engine's root order talks through it
     rendezvous: Optional[str] = None
 
+    @property
+    def num_ranks(self) -> int:
+        return self.size
+
     def close(self) -> None:
+        global _comm
+        with _lock:
+            if _comm is self:
+                _comm = None
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+_comm: Optional[CommContext] = None
+_lock = threading.Lock()
+
+
+def get_comm() -> CommContext:
+    """This process's context, from the last :func:`bootstrap`."""
+    if _comm is None:
+        raise RuntimeError("byteps_tpu_torch is not initialized: call init()")
+    return _comm
+
+
+def comm_initialized() -> bool:
+    return _comm is not None
+
+
+def shutdown_comm() -> None:
+    """Leave the process group of this process's context, if any."""
+    comm = _comm
+    if comm is not None:
+        comm.close()
 
 
 def resolve_device(device, local_rank: int = 0) -> torch.device:
@@ -88,6 +123,7 @@ def bootstrap(cfg: Config, device: torch.device,
     names one: gloo on the card runs its collectives through the host,
     which is how several ranks share one card (NCCL refuses two ranks of
     a communicator on one device)."""
+    global _comm
     if dist.is_initialized():
         raise RuntimeError("a torch.distributed process group is already "
                            "initialized in this process")
@@ -129,4 +165,6 @@ def bootstrap(cfg: Config, device: torch.device,
                        else None)
     _log.info("process group up: rank %d of %d (%d node(s) x %d), %s on %s",
               rank, world, N, L, backend, device)
+    with _lock:
+        _comm = comm
     return comm

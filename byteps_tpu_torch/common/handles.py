@@ -97,6 +97,10 @@ class HandleManager:
             self._live[h.id] = h
             return h
 
+    def get(self, handle_id: int) -> Optional[Handle]:
+        with self._lock:
+            return self._live.get(handle_id)
+
     def release(self, handle_id: int) -> None:
         with self._lock:
             self._live.pop(handle_id, None)

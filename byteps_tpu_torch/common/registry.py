@@ -137,3 +137,8 @@ class TensorRegistry:
         with self._lock:
             return sorted(self._by_name,
                           key=lambda n: self._by_name[n].declared_key)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._by_name.clear()
+            self._next_key = 0

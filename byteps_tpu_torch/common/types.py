@@ -14,6 +14,9 @@ import enum
 import threading
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
+import torch
+
 
 class StatusCode(enum.Enum):
     OK = 0
@@ -34,6 +37,10 @@ class Status:
         return cls(StatusCode.OK)
 
     @classmethod
+    def in_progress(cls) -> "Status":
+        return cls(StatusCode.IN_PROGRESS)
+
+    @classmethod
     def error(cls, reason: str) -> "Status":
         return cls(StatusCode.UNKNOWN_ERROR, reason)
 
@@ -41,6 +48,54 @@ class Status:
         if self.code not in (StatusCode.OK, StatusCode.IN_PROGRESS):
             raise RuntimeError(
                 f"byteps_tpu_torch: {self.code.name}: {self.reason}")
+
+
+class Stage(enum.Enum):
+    """The logical stages of a push_pull task, the JAX package's members
+    and values (the reference's 12 QueueTypes, common.h:88-102, folded to
+    the stages that remain)."""
+
+    PARTITION = 0       # split the tensor into chunks
+    COMPRESS = 1        # worker-side compressor
+    REDUCE_SCATTER = 2  # inside the node
+    CROSS_REDUCE = 3    # across nodes
+    ALL_GATHER = 4      # inside the node
+    DECOMPRESS = 5      # worker-side decompressor
+    CALLBACK = 6        # fire the user callback
+
+
+class DeviceKind(enum.Enum):
+    TPU = "tpu"
+    CPU = "cpu"
+    GPU = "gpu"
+
+
+# the dtypes push_pull takes, by name (the reference's DataType enum,
+# common.h:41-55, with bfloat16)
+DATA_TYPES: Dict[str, torch.dtype] = {
+    "uint8": torch.uint8,
+    "int8": torch.int8,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+}
+
+
+def dtype_name(dtype) -> str:
+    """The name of a torch or numpy dtype (or of anything ``np.dtype``
+    takes) among :data:`DATA_TYPES`; TypeError for any other."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    elif isinstance(dtype, str) and dtype in DATA_TYPES:
+        name = dtype
+    else:
+        name = np.dtype(dtype).name
+    if name not in DATA_TYPES:
+        raise TypeError(f"unsupported dtype for push_pull: {name}")
+    return name
 
 
 MAX_PARTS_PER_TENSOR = 1 << 16

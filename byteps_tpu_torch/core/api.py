@@ -267,7 +267,8 @@ def suspend(wait: bool = True) -> None:
 def resume(config: Optional[Config] = None,
            num_workers: Optional[int] = None,
            global_rank: Optional[int] = None,
-           device=None) -> None:
+           device=None,
+           num_servers: Optional[int] = None) -> None:
     """Start the engine again after :func:`suspend`, with the tensors
     declared again in their original order (reference byteps_resume,
     operations.cc:107-119; JAX ``api.resume``).  With nothing suspended
@@ -275,19 +276,28 @@ def resume(config: Optional[Config] = None,
     before it, as the JAX ``resume`` does (a rejoining process declares
     the survivors' names, then resumes).
 
-    ``num_workers`` / ``global_rank`` update the DMLC environment as the
-    reference's ``BytePSBasics.resume`` does, and the config is then read
-    from the environment; with neither and no ``config`` the suspended
-    engine's config is used again (the environment's, when nothing was
-    suspended).  ``device`` defaults to the suspended engine's device,
-    else ``"cuda"``."""
+    ``num_workers`` / ``num_servers`` / ``global_rank`` update the
+    environment as the reference's ``BytePSBasics.resume`` does
+    (``common/__init__.py:75-81``; ``DMLC_NUM_WORKER``,
+    ``DMLC_NUM_SERVER``, ``DMLC_WORKER_ID`` and ``BYTEPS_GLOBAL_RANK``),
+    and the config is then read from the environment; ``num_servers`` is
+    written and otherwise ignored (the port runs no server processes), as
+    in the JAX package.  With no ``num_workers``, no ``global_rank`` and
+    no ``config`` the suspended engine's config is used again (the
+    environment's, when nothing was suspended).  ``device`` (the JAX
+    ``devices``) defaults to the suspended engine's device, else
+    ``"cuda"``."""
     global _suspended
     if initialized():
         raise RuntimeError("resume() while the engine is running: call "
                            "suspend() first")
     if num_workers is not None:
         os.environ["DMLC_NUM_WORKER"] = str(num_workers)
+    if num_servers is not None:
+        os.environ["DMLC_NUM_SERVER"] = str(num_servers)
     if global_rank is not None:
+        # bpslint: ignore[env-knob] reason=reference-parity marker WRITTEN for BytePSBasics.resume compatibility, never read by this stack; recorded in the env.md disposition table
+        os.environ["BYTEPS_GLOBAL_RANK"] = str(global_rank)
         os.environ["DMLC_WORKER_ID"] = str(global_rank)
     if _suspended is None:
         _start(config or Config.from_env(),
@@ -413,20 +423,20 @@ def declare_update(name: str, shape, dtype: torch.dtype = torch.float32,
                               restore=restore).declared_key
 
 
-def push_pull_update_async(tensor: torch.Tensor, name: str,
+def push_pull_update_async(x: torch.Tensor, name: str,
                            hyperparameters=None) -> Handle:
-    """Push this rank's gradient of a :func:`declare_update` tensor; the
+    """Push this rank's gradient ``x`` of a :func:`declare_update` tensor; the
     handle resolves to the owner-updated parameters.
     ``hyperparameters`` (a param group's lr, betas, ...) reach the slot's
     optimizer before this push's step."""
     return _require().push_pull_update_async(
-        tensor, name, hyperparameters=hyperparameters)
+        x, name, hyperparameters=hyperparameters)
 
 
-def push_pull_update(tensor: torch.Tensor, name: str,
+def push_pull_update(x: torch.Tensor, name: str,
                      hyperparameters=None) -> torch.Tensor:
     return push_pull_update_async(
-        tensor, name, hyperparameters=hyperparameters).wait()
+        x, name, hyperparameters=hyperparameters).wait()
 
 
 def push_pull_async(tensor: torch.Tensor, name: str, op: str = "average",

@@ -1,6 +1,6 @@
-"""ctypes bindings for the native core (``core.cc``); port of the
-scheduler, Elias-delta, host-reducer and CRC32C parts of
-``byteps_tpu/native/__init__.py``.
+"""ctypes bindings for the native core (``core.cc``); port of
+``byteps_tpu/native/__init__.py``: the scheduler, the Elias-delta coder,
+the host reducers and CRC32C.
 
 :func:`load` compiles ``core.cc`` with ``g++`` at first use into
 ``byteps_tpu_torch/_build/``, under a file name that carries a hash of
@@ -15,6 +15,11 @@ selects the Python heap explicitly; the Elias coder and the CRC32C have
 no other implementation outside the tests.  :func:`inplace_add` adds
 with the native reducer for the dtypes it has (f32, f64, i32, i64,
 bf16) and with a plain ``add`` otherwise, as the JAX package does.
+:func:`available` and :func:`inplace_scaled_add` keep the JAX bindings'
+contract: the native core where it is enabled and loads, else the same
+result in Python.  :func:`make_key` and :func:`chunk_bounds` keep the JAX
+bindings' names and results, computed by the port's Python partitioner
+and key packing, which the engine runs.
 """
 
 from __future__ import annotations
@@ -26,15 +31,17 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..common import partitioner
+
 SOURCE = Path(__file__).resolve().with_name("core.cc")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
-ABI_VERSION = 3
+ABI_VERSION = 4
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -77,8 +84,26 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """True when the native core is loaded, or ``Config.use_native`` is
+    set and it builds and loads (the JAX ``available``)."""
+    from ..common.config import get_config
+    if _lib is not None:
+        return True
+    if not get_config().use_native:
+        return False
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _declare_signatures(lib: ctypes.CDLL) -> None:
     i64, u64, p = ctypes.c_int64, ctypes.c_uint64, ctypes.c_void_p
+    lib.bps_reduce_scaled_f32.restype = None
+    lib.bps_reduce_scaled_f32.argtypes = [p, p, ctypes.c_float, i64,
+                                          ctypes.c_int]
     lib.bps_sched_create.restype = p
     lib.bps_sched_create.argtypes = [i64]
     lib.bps_sched_destroy.restype = None
@@ -165,6 +190,47 @@ def inplace_add(dst: HostArray, src: HostArray,
     n = int(np.prod(dshape, dtype=np.int64))
     getattr(lib, _REDUCE_FNS[dt])(dp, sp, n, nthreads)
     return dst
+
+
+def inplace_scaled_add(dst: HostArray, src: HostArray, alpha: float,
+                       nthreads: int = 0) -> HostArray:
+    """``dst += alpha * src``: the native reducer for two C-contiguous f32
+    host arrays of one shape (CPU tensors or numpy arrays), else a plain
+    sum in the destination's dtype, as in the JAX package.  Returns
+    ``dst``."""
+    dp, dt, dc, dshape = _describe(dst)
+    sp, st, sc, sshape = _describe(src)
+    if dt != torch.float32 or st != torch.float32 or not (dc and sc) \
+            or dshape != sshape or not available():
+        if isinstance(dst, torch.Tensor):
+            if isinstance(src, np.ndarray):   # may be a read-only view
+                src = torch.from_numpy(np.array(src))
+            dst.add_((alpha * src).to(dst.dtype).reshape(dshape))
+        else:
+            dst += (alpha * np.asarray(src)).astype(dst.dtype, copy=False)
+        return dst
+    if nthreads <= 0:
+        nthreads = min(8, os.cpu_count() or 1)
+    n = int(np.prod(dshape, dtype=np.int64))
+    load().bps_reduce_scaled_f32(dp, sp, float(alpha), n, nthreads)
+    return dst
+
+
+# ------------------------------------------------------ keys, partitioner
+
+def make_key(declared: int, part: int) -> int:
+    """64-bit chunk key ``declared << 16 | part`` as the JAX binding packs
+    it: ``part`` masked to 16 bits, no range check (that is
+    ``common.types.make_key``'s)."""
+    return ((declared << 16) | (part & 0xFFFF)) & 0xFFFF_FFFF_FFFF_FFFF
+
+
+def chunk_bounds(num_elems: int, itemsize: int, partition_bytes: int,
+                 align_elems: int = partitioner.ALIGN_ELEMS
+                 ) -> List[Tuple[int, int]]:
+    """``common.partitioner.chunk_bounds`` under the JAX binding's name."""
+    return partitioner.chunk_bounds(num_elems, itemsize, partition_bytes,
+                                    align_elems)
 
 
 # ------------------------------------------------------------------ crc32c

@@ -16,9 +16,11 @@
 // server/engine.py) and bps_crc32c (the integrity envelope's checksum,
 // common/integrity.py) are copied from the same file (ABI 3).
 //
-// Not copied: the partition arithmetic and key packing (the port's Python
-// versions are the ones it uses) and the scaled f32 reducer, which no
-// ported module calls.
+// The scaled f32 reducer bps_reduce_scaled_f32 (native/__init__.py's
+// inplace_scaled_add) is copied from the same file too (ABI 4).
+//
+// Not copied: the partition arithmetic and key packing; the port's Python
+// versions (common/partitioner.py, common/types.py) are the only ones.
 
 #include <algorithm>
 #include <chrono>
@@ -189,7 +191,7 @@ int64_t bps_sched_drain(void* p, int64_t* out_ids, int64_t cap) {
   return n;
 }
 
-int bps_native_abi_version() { return 3; }
+int bps_native_abi_version() { return 4; }
 
 }  // extern "C"
 
@@ -338,6 +340,11 @@ void add_range(T* dst, const T* src, int64_t begin, int64_t end) {
   for (int64_t i = begin; i < end; ++i) dst[i] += src[i];
 }
 
+template <typename T>
+void scaled_range(T* dst, const T* src, T alpha, int64_t begin, int64_t end) {
+  for (int64_t i = begin; i < end; ++i) dst[i] += alpha * src[i];
+}
+
 inline float bf16_to_f32(uint16_t v) {
   uint32_t u = static_cast<uint32_t>(v) << 16;
   float f;
@@ -401,6 +408,14 @@ void bps_reduce_sum_i64(int64_t* dst, const int64_t* src, int64_t n,
                         int nthreads) {
   parallel_for(n, nthreads,
                [=](int64_t b, int64_t e) { add_range(dst, src, b, e); });
+}
+
+// dst += alpha * src, in f32 (the JAX core's, line for line).
+void bps_reduce_scaled_f32(float* dst, const float* src, float alpha,
+                           int64_t n, int nthreads) {
+  parallel_for(n, nthreads, [=](int64_t b, int64_t e) {
+    scaled_range(dst, src, alpha, b, e);
+  });
 }
 
 // bf16 sum in f32 precision with round-to-nearest-even writeback (the

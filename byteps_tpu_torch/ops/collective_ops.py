@@ -39,7 +39,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..comm.collectives import _acc_dtype
-from ..comm.compressed import all_gather_bytes
+# the module, not its name: comm.compressed imports compression, whose
+# onebit codec imports this package (ops/__init__.py exports this module)
+from ..comm import compressed as _compressed
 from ..comm.mesh import CommContext
 from ..common.logging import get_logger
 
@@ -244,7 +246,8 @@ def hierarchical_push_pull(comm: CommContext, x: torch.Tensor,
     if compress is not None:
         payload = compress(shard)
         if N > 1:
-            gathered = {k: all_gather_bytes(v, N, comm.inter_group)
+            gathered = {k: _compressed.all_gather_bytes(v, N,
+                                                        comm.inter_group)
                         for k, v in payload.items()}
         else:
             # one node: no cross-node collective (the JAX all_gather over

@@ -33,13 +33,11 @@ from typing import Optional
 
 import torch
 
-from ..ops import flash_attention as fa
+from ..ops.flash_attention import _NEG, delta, flash_bwd, flash_fwd
 from .mesh_util import MeshAxis, shift
 from .sequence import _from3, _to3, ring_backward
 
 __all__ = ["ring_flash_attention"]
-
-_NEG = fa._NEG
 
 
 def _merge(o_acc, lse_acc, o_b, lse_b):
@@ -72,7 +70,7 @@ class _RingFlash(torch.autograd.Function):
         for step in range(n):
             src = (my - step) % n
             if not causal or src <= my:
-                o_b, lse_b = fa.flash_fwd(
+                o_b, lse_b = flash_fwd(
                     q3, k_cur, v_cur, scale, causal,
                     _q_offset(my, src, t_local, causal), t_local)
                 o_acc, lse_acc = _merge(o_acc, lse_acc, o_b, lse_b)
@@ -88,14 +86,14 @@ class _RingFlash(torch.autograd.Function):
         q3, k3, v3, out, lse = ctx.saved_tensors
         axis, scale, causal = ctx.args
         g = g.contiguous()
-        dlt = fa.delta(g, out)
+        dlt = delta(g, out)
         t_local = k3.shape[1]
         my = axis.index
 
         def block_grads(k_blk, v_blk, src):
             if causal and src > my:
                 return None
-            return fa.flash_bwd(q3, k_blk, v_blk, g, lse, dlt, scale, causal,
+            return flash_bwd(q3, k_blk, v_blk, g, lse, dlt, scale, causal,
                                 _q_offset(my, src, t_local, causal), t_local)
 
         dq, dk, dv = ring_backward(axis, q3, k3, v3, block_grads)

@@ -26,7 +26,8 @@ import byteps_tpu_torch as bps
 from byteps_tpu_torch.common.config import Config
 from byteps_tpu_torch.core import api
 from byteps_tpu_torch.models import gpt, llama
-from byteps_tpu_torch.ops import flash_attention as fa
+from importlib import import_module
+fa = import_module("byteps_tpu_torch.ops.flash_attention")
 torch.backends.cuda.matmul.allow_tf32 = False
 km = {k: 0.0 for k in cs.FLASH_KERNELS}
 cs.lm_slice_phase(torch, bps, api, fa, Config, "gpt slice", gpt.GPT,

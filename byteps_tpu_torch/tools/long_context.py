@@ -53,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from importlib import import_module
 
 KINDS = ("ring", "striped", "ring_flash", "ulysses", "ulysses_flash")
 LR = 3e-4
@@ -182,7 +183,7 @@ def _peak_gib(torch, dev):
 
 def run_sp(torch, args, comm):
     from ..models.gpt import GPT, gpt_small, gpt_tiny
-    from ..ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
     from ..parallel.long_context import replicate, synthetic_lm_batch
     from ..parallel.mesh_util import shift_path
     from ..parallel.sequence import make_sp_mesh
@@ -221,7 +222,7 @@ def _share(torch, got, want):
 
 def run_ep(torch, args, comm):
     from ..models.gpt import GPT, gpt_small, gpt_tiny
-    from ..ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
     from ..parallel.expert import make_ep_mesh
     from ..parallel.long_context import synthetic_lm_batch
     from ..parallel.moe_lm import make_moe_lm_train_step, shard_moe_lm_batch

@@ -60,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from importlib import import_module
 
 ARMS = ("fsdp_tp", "tp", "pp", "3d")
 LR = 3e-4
@@ -219,7 +220,7 @@ def _build(torch, args, comm, arm, lcfg, gcfg):
     """This rank's mesh, model and step maker of ``arm``; the batch and a
     builder of the one-rank reference model."""
     from ..models.gpt import GPT
-    from ..ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
     from ..parallel import fsdp_tp, pipeline, tensor_parallel, three_d
     dev = comm.device
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
@@ -358,7 +359,7 @@ def _state_bytes(torch, model, opt, whole):
 
 def run_arm(torch, args, comm, arm, lcfg, gcfg):
     import torch.distributed as dist
-    from ..ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
     dev = comm.device
     mesh, data, whole, make, stepper, shard = _build(torch, args, comm, arm,
                                                     lcfg, gcfg)

@@ -75,14 +75,35 @@ def _anon_name() -> str:
     return f"torch.tensor_{next(_anon_ids)}"
 
 
-def push_pull_async(tensor: torch.Tensor, average: bool = True,
+def _averaged(average: Optional[bool], op: Optional[str]) -> bool:
+    """Whether ``push_pull[_async]`` averages.  ``op`` (``"average"`` or
+    ``"sum"``, the JAX top level's keyword) and ``average`` (the
+    reference byteps.torch's bool) name one choice: either may be given,
+    both only where they agree, and neither means average."""
+    if isinstance(average, str):
+        # bps.push_pull(x, "name") in the JAX top level's order
+        raise TypeError(f"push_pull's second argument is average (a bool), "
+                        f"got {average!r}: pass the name as name=")
+    if op is None:
+        return True if average is None else bool(average)
+    if op not in ("average", "sum"):
+        raise ValueError(f"op must be 'average' or 'sum', got {op!r}")
+    if average is not None and bool(average) != (op == "average"):
+        raise ValueError(f"average={average!r} contradicts op={op!r}")
+    return op == "average"
+
+
+def push_pull_async(tensor: torch.Tensor, average: Optional[bool] = None,
                     name: Optional[str] = None,
                     priority: Optional[int] = None,
-                    compression: Optional[Dict[str, str]] = None) -> Handle:
-    """Async reduce of this process's tensor across all processes."""
-    return _api.push_pull_async(tensor, name or _anon_name(),
-                                op="average" if average else "sum",
-                                priority=priority, compression=compression)
+                    compression: Optional[Dict[str, str]] = None,
+                    op: Optional[str] = None) -> Handle:
+    """Async reduce of this process's tensor across all processes;
+    ``average`` / ``op`` as :func:`_averaged` reads them."""
+    return _api.push_pull_async(
+        tensor, name or _anon_name(),
+        op="average" if _averaged(average, op) else "sum",
+        priority=priority, compression=compression)
 
 
 class BytePSPushPull(torch.autograd.Function):
@@ -90,28 +111,33 @@ class BytePSPushPull(torch.autograd.Function):
     reduces the incoming gradient under the same name and op."""
 
     @staticmethod
-    def forward(ctx, tensor, average, name, compression):
+    def forward(ctx, tensor, average, name, compression, priority=None):
         ctx.average = average
         ctx.name = name
         ctx.compression = compression
+        ctx.priority = priority
         return push_pull_async(tensor, average=average, name=name,
+                               priority=priority,
                                compression=compression).wait()
 
     @staticmethod
     def backward(ctx, grad_output):
         out = push_pull_async(grad_output.contiguous(), average=ctx.average,
-                              name=ctx.name,
+                              name=ctx.name, priority=ctx.priority,
                               compression=ctx.compression).wait()
-        return out, None, None, None
+        return out, None, None, None, None
 
 
-def push_pull(tensor: torch.Tensor, average: bool = True,
+def push_pull(tensor: torch.Tensor, average: Optional[bool] = None,
               name: Optional[str] = None,
-              compression: Optional[Dict[str, str]] = None) -> torch.Tensor:
-    """Reduce ``tensor`` across processes; differentiable."""
+              compression: Optional[Dict[str, str]] = None,
+              op: Optional[str] = None,
+              priority: Optional[int] = None) -> torch.Tensor:
+    """Reduce ``tensor`` across processes; differentiable.  ``average`` /
+    ``op`` as :func:`_averaged` reads them."""
     # one name for forward and backward: both key the same engine tensor
-    return BytePSPushPull.apply(tensor, average, name or _anon_name(),
-                                compression)
+    return BytePSPushPull.apply(tensor, _averaged(average, op),
+                                name or _anon_name(), compression, priority)
 
 
 def _sharded_update_default() -> bool:

@@ -600,17 +600,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every tensor off the accumulator).  Figures beside the card's name
    and power limit, and the phase's time.
 
+21. the README quickstart (``quickstart_phase``), one rank, NCCL at a
+   world of one, through the package-level names only (``import
+   byteps_tpu_torch as bps``, ``from byteps_tpu_torch.models import
+   resnet50``, ``from byteps_tpu_torch.ops import flash_attention``; a
+   name that does not resolve fails the run): ResNet-50 at full width
+   (batch 32 x 224 x 224, bf16 compute, seeded) through
+   ``bps.DistributedOptimizer`` with onebit + EF for QUICK_STEPS steps,
+   each loss finite and the onebit launches 2 packs, 3 unpacks and 1
+   merge per compressed chunk and step; then one ``flash_attention``
+   forward at QUICK_FLASH_SHAPE, bf16, causal, one forward launch, held
+   against ``flash_fwd_plain(..., block_k=FWD_BLOCK_K)`` with phase 6's
+   bf16 forward bound.  The figures beside the card's name and power
+   limit, and the phase's time.
+
 The run prints its total time.  The line before the last is a JSON
 object with one entry per kernel (launches: the main paths' runs, phase
 4, the two LM slices', phase 10's arms, phase 11's, 12's, 13's, 15's,
-16's and 17's processes, which count their own, and phase 14's, 18's and
-19's runs; phase 20 launches none of them);
+16's and 17's processes, which count their own, and phase 14's, 18's,
+19's and 21's runs; phase 20 launches none of them);
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero and prints no result.
 """
 
 import collections
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -5790,6 +5805,104 @@ def buffer_phase(torch, smi):
     log(f"buffer mode phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------- 21. the README quickstart
+
+QUICK_STEPS = 2
+QUICK_FLASH_SHAPE = (1, 4096, 32, 128)   # [B, T, H, D], bf16, causal
+
+
+def quickstart(torch, bps, resnet50, flash_attention):
+    """The port's README quickstart, as a user types it: ResNet-50 through
+    ``DistributedOptimizer`` with onebit + EF, then one flash forward.
+    Returns the losses and the attention's inputs and output."""
+    bps.init()                   # device="cuda" by default; raises without
+    dev = bps.device()
+    gen = torch.Generator().manual_seed(0)
+    model = resnet50(generator=gen).to(dev)   # bf16 compute, f32 weights
+    bps.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = bps.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression={"compressor": "onebit", "ef": "vanilla"})
+    images = torch.randn(32, 224, 224, 3, generator=gen).to(dev)   # NHWC
+    labels = torch.randint(0, 1000, (32,), generator=gen).to(dev)
+    losses = []
+    for _ in range(QUICK_STEPS):
+        opt.zero_grad()
+        loss = torch.nn.functional.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    q, k, v = (torch.randn(*QUICK_FLASH_SHAPE, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v, causal=True)   # [B, T, H, D]
+    return losses, (q, k, v), out
+
+
+def quickstart_phase(torch, smi):
+    """Phase 21: the README quickstart through the package-level names
+    only; returns the kernels' launches on its path."""
+    t_phase = time.perf_counter()
+    try:
+        import byteps_tpu_torch as bps
+        from byteps_tpu_torch.models import resnet50
+        from byteps_tpu_torch.ops import flash_attention
+        for name in ("init", "device", "broadcast_parameters",
+                     "DistributedOptimizer", "shutdown"):
+            getattr(bps, name)
+    except (ImportError, AttributeError) as e:
+        check(False, f"quickstart: a package-level name does not resolve: "
+                     f"{e}")
+    from byteps_tpu_torch.core import api
+    from byteps_tpu_torch.ops import onebit_kernels as ok
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    ok.reset_launches()
+    fa.reset_launches()
+    try:
+        losses, (q, k, v), out = quickstart(torch, bps, resnet50,
+                                            flash_attention)
+        torch.cuda.synchronize()
+        launches = {**ok.launches, **fa.launches}
+        eng = api.engine()
+        n_chunks = sum(len(c.chunk_bounds) for c in (
+            eng.registry.get(n)
+            for n in eng.registry.names_in_declaration_order())
+            if c.compressor)
+    finally:
+        bps.shutdown()
+    check(all(math.isfinite(x) for x in losses),
+          f"quickstart: losses {losses}")
+    want = {"onebit_pack": 2 * n_chunks * QUICK_STEPS,
+            "onebit_unpack": 3 * n_chunks * QUICK_STEPS,
+            "onebit_unpack_sum": n_chunks * QUICK_STEPS,
+            "flash_fwd": 1, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    check(n_chunks > 0 and launches == want,
+          f"quickstart: launches {launches}, expected {want}")
+    # the forward against its plain version, as phase 6 holds the bf16
+    # forward: P rounded against each FWD_BLOCK_K-wide key tile's max
+    b, t, h, d = QUICK_FLASH_SHAPE
+    to3 = lambda x: x.transpose(1, 2).reshape(b * h, t, d)  # noqa: E731
+    plain, _ = fa.flash_fwd_plain(to3(q), to3(k), to3(v), 1 / math.sqrt(d),
+                                  True, 0, t, block_k=fa.FWD_BLOCK_K)
+    plain = plain.reshape(b, h, t, d).transpose(1, 2)
+    rs, frac = bf16_errors(out, plain)
+    rs_tol, frac_tol = FLASH_BF16_TOL[0]
+    check(out.shape == plain.shape and out.dtype == torch.bfloat16
+          and rs <= rs_tol and frac <= frac_tol,
+          f"quickstart: flash_attention {tuple(out.shape)} {out.dtype} "
+          f"differs from its plain version: row share {rs:.3g}, {frac:.3g} "
+          f"of elements differ")
+    secs = time.perf_counter() - t_phase
+    log(f"quickstart [{smi}]: ResNet-50 losses {losses} over {QUICK_STEPS} "
+        f"steps ({n_chunks} compressed chunks), launches {launches}; "
+        f"flash_attention {list(QUICK_FLASH_SHAPE)} bf16 causal within "
+        f"phase 6's bounds of its plain version (row share {rs:.3e}, "
+        f"{frac:.3e} of elements differ)")
+    log(f"quickstart phase: {secs:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5802,7 +5915,7 @@ def main():
     from byteps_tpu_torch.core import api
     from byteps_tpu_torch.models import gpt, llama, resnet
     from byteps_tpu_torch.ops import build
-    from byteps_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
     from byteps_tpu_torch.ops import onebit_kernels as ok
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions
@@ -5858,9 +5971,10 @@ def main():
     frontend_launches = frontends_phase(torch, ok, registry, resnet, smi)
     repair_launches = repairs_phase(torch, ok, smi)
     buffer_phase(torch, smi)
+    quick_launches = quickstart_phase(torch, smi)
     # the main paths' launches: phase 4's and the LM slices', phase 10's,
     # those phase 11's, 12's, 13's, 15's, 16's and 17's processes
-    # counted, and phase 14's, 18's and 19's
+    # counted, and phase 14's, 18's, 19's and 21's
     for k in KERNELS:
         launches[k] += (fault_launches.get(k, 0)
                         + elastic_launches.get(k, 0)
@@ -5868,10 +5982,11 @@ def main():
                         + fused_launches.get(k, 0)
                         + launcher_launches[k]
                         + frontend_launches[k]
-                        + repair_launches[k])
+                        + repair_launches[k]
+                        + quick_launches[k])
     for k in FLASH_KERNELS:
         flash_launches[k] += (fused_flash[k] + seqpar_flash[k]
-                              + modelpar_flash[k])
+                              + modelpar_flash[k] + quick_launches[k])
     for row in observed:
         for k in KERNELS:
             launches[k] += row["launches"][k]

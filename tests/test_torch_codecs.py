@@ -431,7 +431,7 @@ def test_generic_wire_frame_round_trips():
 
 def test_native_coder_is_the_ports_own_library():
     lib = native.load()
-    assert lib.bps_native_abi_version() == native.ABI_VERSION == 3
+    assert lib.bps_native_abi_version() == native.ABI_VERSION == 4
     assert native.library_path().parent == native.BUILD_DIR
 
 

@@ -14,6 +14,8 @@ tolerances stated in ``test_flash_kernels_match_plain``, which are
 ``chip_smoke.py``'s (its ``row_share`` and ``FLASH_BF16_TOL``).
 """
 
+from importlib import import_module
+
 import numpy as np
 import pytest
 import torch
@@ -520,7 +522,7 @@ def test_flash_kernels_match_plain_at_ring_block_offsets(card, dtype, blocks,
 
 
 def _check_flash(card, dtype, bh, tq, tk, d, causal, q_off, kv_len):
-    from byteps_tpu_torch.ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
 
     q, k, v, do = _flash_inputs(card, bh, tq, tk, d, dtype, tq + d)
     scale = 1.0 / np.sqrt(d)
@@ -559,7 +561,7 @@ def _check_flash(card, dtype, bh, tq, tk, d, causal, q_off, kv_len):
 def test_flash_forward_and_backward_are_repeatable(card):
     """Two runs of each bf16 kernel (the forward's O and lse, dK/dV, dQ)
     give the same bits: no atomics, no order that changes between runs."""
-    from byteps_tpu_torch.ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
 
     q, k, v, do = _flash_inputs(card, 8, 512, 512, 128, torch.bfloat16, 12)
     args = (1.0 / np.sqrt(128), True, 0, 512)
@@ -577,7 +579,7 @@ def test_flash_forward_rejects_misaligned_bf16(card, which):
     stores O 16 bytes a lane, so its [BH, T, D] tensors must be 16-byte
     aligned: a contiguous view one element into its storage is refused
     with a RuntimeError, before any launch."""
-    from byteps_tpu_torch.ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
 
     bh, t, d = 2, 64, 64
     xs = {n: torch.randn(bh, t, d, device=card, dtype=torch.bfloat16)
@@ -592,7 +594,7 @@ def test_flash_forward_rejects_misaligned_bf16(card, which):
 
 
 def test_flash_wrappers_count_and_reject(card):
-    from byteps_tpu_torch.ops import flash_attention as fa
+    fa = import_module("byteps_tpu_torch.ops.flash_attention")
 
     fa.reset_launches()
     q = torch.randn(2, 64, 4, 64, device=card, requires_grad=True)

@@ -12,6 +12,7 @@ In bf16 the two sides are held to the rounding points instead (see
 """
 
 import math
+from importlib import import_module
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +24,10 @@ import chip_smoke
 from byteps_tpu.ops.flash_attention import _bwd_impl, _delta, _fwd
 from byteps_tpu.ops.flash_attention import flash_attention as jax_flash
 from byteps_tpu.parallel import full_attention as jax_full_attention
-from byteps_tpu_torch.ops import flash_attention as fa
 from byteps_tpu_torch.parallel.sequence import full_attention
+
+# the module (the package exports the function under its name)
+fa = import_module("byteps_tpu_torch.ops.flash_attention")
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-4, atol=5e-4)
