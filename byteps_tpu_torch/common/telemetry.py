@@ -6,8 +6,9 @@
   pulled, the payload for a compressed chunk).
 - :class:`StepStatsTracker`: a step is the tracer's (per-tensor push
   counts, the max is the global step).  The engine feeds pushes, the
-  syncer's blocked time (``sync``), each retired unit's queue wait, and
-  its own dispatch and assembly time; the process-wide
+  syncer's blocked time (``sync``), each retired unit's queue wait, the
+  caller's enqueue, and its own dispatch and assembly time (the same
+  readings it keeps, always, in ``engine.stats``); the process-wide
   :data:`attribution` sink takes the components that happen off the
   engine's threads (the envelope's ``wire`` hops, the server engine's
   ``merge``).  Each finished step is published as the ``step.*`` gauges
@@ -15,10 +16,10 @@
   ``step_stats`` flight event and a bounded history; ``other`` is the
   rest of the wall time, so the components and ``other`` add up to
   ``wall_ms`` whenever they do not overlap.
-- The ``compile`` component stays in the schema and reads 0: eager
+- The JAX package's ``compile`` component has no counterpart: eager
   PyTorch compiles no program per shape (the CUDA kernels are built
-  once per process, before the first step is timed), so nothing feeds
-  it.
+  once per process, before the first step is timed), so nothing would
+  feed it.
 - The metrics views of ``common/metrics.py`` (``counters``, ``gauges``,
   ``histograms``) are re-exported, as in the JAX package.
 """
@@ -47,7 +48,6 @@ ATTRIB_GAUGE_NAMES = {
     "wire": "step.attrib_wire_ms",
     "merge": "step.attrib_merge_ms",
     "sync": "step.attrib_sync_ms",
-    "compile": "step.attrib_compile_ms",     # reads 0 (eager PyTorch)
     "dispatch": "step.attrib_dispatch_ms",
     "assemble": "step.attrib_assemble_ms",
     "other": "step.attrib_other_ms",
@@ -61,8 +61,8 @@ class AttributionSink:
     Components that happen OFF the engine's own threads — the sealed
     envelope wire hops (``wire``, incl. retransmit rounds), the server
     engine's merge work (``merge``), scheduler credit-gated waits
-    (``credit``), compile stalls detected on the dispatch path
-    (``compile``) — land here as they occur; the active
+    (``credit``) — and the dispatcher's ``dispatch`` land here as they
+    occur; the active
     :class:`StepStatsTracker` snapshots the totals at each step boundary
     and publishes the per-step deltas as ``step.attrib_*`` gauges.  One
     lock + one dict add per event: cheap enough to stay unconditional
@@ -172,10 +172,11 @@ class StepStats:
     retransmits: int
     wall_ms: float
     overlap_fraction: float
-    # per-step critical-path breakdown (ms) — queue wait,
+    # per-step critical-path breakdown (ms) — enqueue, queue wait,
     # credit stall, wire (incl. retransmits), server merge, sync block,
-    # compile, plus an "other" residual so the components always account
-    # for the full wall time.  Empty dict on pre-attribution records.
+    # dispatch, assembly, plus an "other" residual so the components
+    # always account for the full wall time.  Empty dict on
+    # pre-attribution records.
     attrib: Dict[str, float] = dataclasses.field(default_factory=dict)
     # the tensor whose unit retired LAST in this step — the chain the
     # step's completion actually waited on
@@ -277,7 +278,7 @@ class StepStatsTracker:
         wall_ms = max((time.perf_counter() - self._t0) * 1e3, 1e-6)
         retx = counters.get("integrity.retransmit")
         # Per-step attribution: deltas of the process-wide
-        # sink (wire / merge / credit / compile / dispatch) + locally
+        # sink (wire / merge / credit / dispatch) + locally
         # fed components (enqueue / queue / assemble) + the syncer's
         # block time (sync).  "other" is max(0, wall - sum): components
         # are wall-time integrals of each activity, so on a serialized
@@ -335,7 +336,7 @@ class StepStatsTracker:
             # an f-string fallback would silently bypass the bpslint
             # metric-name check the map exists for
             gauges.set(ATTRIB_GAUGE_NAMES[comp], ms)
-        # zero components absent THIS step (a step-5 compile stall must
+        # zero components absent THIS step (a step-5 credit stall must
         # not haunt every later scrape — the gauge set always describes
         # ONE step, summing to its wall_ms)
         for comp in self._pub_attrib - set(stats.attrib):

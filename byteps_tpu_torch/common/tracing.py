@@ -3,10 +3,12 @@ of ``byteps_tpu/common/tracing.py``.
 
 ``BYTEPS_TRACE_ON`` / ``_START_STEP`` / ``_END_STEP`` / ``_DIR`` select a
 window of training steps (a step is a tensor's push count, the max over
-tensors).  The engine records three stages per chunk, with the tensor
-name as the track: ENQUEUE (push_pull called -> scheduler), DISPATCH
-(scheduler -> collective issued) and EXECUTE (issued -> completion seen
-by the syncer).  On top of that:
+tensors).  For each captured chunk the engine's syncer records two
+spans on the tensor's track: ``queued`` (enqueue -> dispatch) and
+``push_pull`` (dispatch -> retirement).  A unit whose head chunk is
+captured also gets its engine threads' spans, on tracks named after the
+threads: ``bps.dispatch`` on ``bps-dispatch``, ``bps.sync`` and
+``bps.assemble`` on ``bps-sync``.  On top of that:
 
 - **Trace contexts** (:class:`TraceContext`): a captured push carries a
   cluster-unique ``trace_id``; its spans carry the id in ``args`` and
@@ -39,7 +41,20 @@ there is a card, CUDA activities, over the same step window; it writes a
 Chrome trace ``device_rank{R}_{pid}.json`` under ``<trace_dir>/
 torch_profile``.  The profiler must start and stop on one thread, and
 the window opens and closes on whatever thread pushes, so it runs on a
-thread of its own (:class:`_DeviceProfiler`).
+thread of its own (:class:`_DeviceProfiler`), recording every thread
+(``profile_all_threads``) where the torch build has that option.
+
+**Host spans** (:func:`span_begin`, :func:`span_end`): the ``bps.*``
+ranges of a gradient's host path, opened through ``torch.profiler`` so
+they share the kernels' clock: ``bps.enqueue`` (the caller's push),
+``bps.wait`` and ``bps.update`` (``DistributedOptimizer``) on the
+calling thread when that thread is recorded (a thread-local
+``torch.profiler`` or the device profiler); ``bps.dispatch``,
+``bps.sync`` and ``bps.assemble`` on the engine's threads only while the
+device profiler records every thread.  With neither on, a span costs
+the gate's check and opens nothing.  The profiler's ranges carry only
+their names (``record_function``'s argument string does not reach the
+exported trace); the comm file's spans carry the arguments.
 """
 
 from __future__ import annotations
@@ -53,6 +68,9 @@ import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
 
 from .config import get_config
 from .logging import get_logger
@@ -112,6 +130,42 @@ def begin_sample(site: str) -> Tuple[Optional[TraceContext], float]:
     if ctx is None:
         ctx = tracer().maybe_sample(site)
     return ctx, (time.monotonic() if ctx is not None else 0.0)
+
+
+# -- host spans in torch.profiler -------------------------------------------
+
+# True while the device profiler records every thread: the engine's
+# threads open their spans only then (a thread-local profiler, such as a
+# benchmark's, records none of theirs)
+_all_threads = False
+# whether torch.profiler records the calling thread (thread-local)
+_thread_profiled = torch._C._autograd._profiler_enabled
+
+
+def span_begin(name: str, engine: bool = False):
+    """Open the range ``name`` in ``torch.profiler`` if this thread is
+    being recorded, and return it for :func:`span_end`; else None.  A
+    caller's thread (``engine=False``) is recorded under its own
+    profiler or the device profiler; an engine thread only under the
+    device profiler."""
+    if not _all_threads and (engine or not _thread_profiled()):
+        return None
+    rf = record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def span_end(rf, trace_id: int = 0, name: str = "", track: str = "",
+             t_begin: float = 0.0, t_end: float = 0.0,
+             args: Optional[dict] = None) -> None:
+    """Close what :func:`span_begin` opened; for a captured unit
+    (``trace_id``) also record ``name`` from the caller's monotonic
+    timestamps on ``track`` of the comm file, with ``args``."""
+    if rf is not None:
+        rf.__exit__(None, None, None)
+    if trace_id:
+        tracer().record_traced(trace_id, name, track, t_begin, t_end,
+                               **(args or {}))
 
 
 # -- flight-recorder stamp ---------------------------------------------------
@@ -600,7 +654,9 @@ class _DeviceProfiler:
     its own (the profiler refuses to stop on another thread than the
     one that started it).  CPU activity always, CUDA activity where a
     card is present; the card's kernels are recorded whatever thread
-    launches them."""
+    launches them, and the host's operators and ``bps.*`` spans of every
+    thread where the build offers ``profile_all_threads`` (else of the
+    profiler's own thread alone: said once in the log)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -612,20 +668,24 @@ class _DeviceProfiler:
                                         name="bps-device-profiler")
 
     def _run(self) -> None:
-        import torch
+        global _all_threads
         from torch.profiler import ProfilerActivity, profile
         try:
             acts = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
-            prof = profile(activities=acts)
+            every = _every_thread_config()
+            prof = (profile(activities=acts, experimental_config=every)
+                    if every is not None else profile(activities=acts))
             prof.start()
         except BaseException as e:  # noqa: BLE001 — reported by start()
             self._error = e
             self._started.set()
             return
+        _all_threads = every is not None
         self._started.set()
         self._go.wait()
+        _all_threads = False
         try:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
@@ -650,6 +710,25 @@ class _DeviceProfiler:
         if not self._stopped.is_set():
             raise TimeoutError("device profiler did not stop")
         return self.path
+
+
+_every_thread_warned = False
+
+
+def _every_thread_config():
+    """``torch.profiler``'s config that records every thread, or None
+    where this torch build lacks the option (logged once)."""
+    global _every_thread_warned
+    try:
+        return torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        if not _every_thread_warned:
+            _every_thread_warned = True
+            get_logger().warning(
+                "this torch build cannot profile every thread: the device "
+                "trace holds the engine threads' kernels, not their spans")
+        return None
 
 
 # -- the process-wide tracer -------------------------------------------------
@@ -681,9 +760,10 @@ def set_tracer(t: Optional[Tracer]) -> Optional[Tracer]:
 
 
 def _reset_for_tests() -> None:
-    global _tracer, _last_stamp
+    global _tracer, _last_stamp, _all_threads
     with _tracer_lock:
         _tracer = None
     _last_stamp = (0, 0)
+    _all_threads = False
     with _clock_lock:
         _clock.update({"offset_s": None, "err_s": None, "source": None})

@@ -89,14 +89,21 @@ with tracing off the enqueue path takes no tracer lock), and the syncer
 records each captured chunk's ``queued`` (enqueue -> dispatch) and
 ``push_pull`` (dispatch -> retirement) spans with the push's flow arc
 (``s`` at its first chunk's enqueue, ``f`` at its last chunk's
-retirement).  With ``telemetry_on`` the :class:`StepStatsTracker` takes
-every push, the syncer's blocked time (``sync``), each unit's queue wait
-(``queue``), the dispatch call (``dispatch``), the caller's staging
-(``enqueue``) and the retirement callbacks (``assemble``); the wire
-counters carry each leg (``wire_bytes{leg=}``).  The flight recorder
-gets ``engine.init``, ``engine.dispatch_failed`` and
-``engine.shutdown``, and shutdown flushes the last step, the trace and
-the exit dump.
+retirement).  Each step of a gradient's host path is timed once, where
+it happens, always, into cumulative ms in ``stats``: ``enqueue_ms`` (the
+caller's whole call, entry to the tasks in the queue), ``queue_ms``
+(each retired unit's head chunk in the queue), ``dispatch_ms`` (each
+unit's dispatch call; ``codec_dispatch_ms`` the part on compressed
+units), ``sync_ms`` (the syncer blocked on a unit, the chaos ``sync``
+site included) and ``assemble_ms`` (the callbacks and assembly after
+it); ``DistributedOptimizer`` adds ``wait_ms`` and ``update_ms``.  The
+same intervals are the ``bps.*`` spans (``common/tracing.py``
+:func:`span_begin`), and with ``telemetry_on`` the
+:class:`StepStatsTracker`'s components (``enqueue``, ``queue``,
+``dispatch``, ``sync``, ``assemble``); the wire counters carry each leg
+(``wire_bytes{leg=}``).  The flight recorder gets ``engine.init``,
+``engine.dispatch_failed`` and ``engine.shutdown``, and shutdown
+flushes the last step, the trace and the exit dump.
 
 Fault plane, at the JAX engine's sites: the injector's ``on_step`` (one
 step per enqueued tensor, which ``kill:step=N`` counts), ``dispatch``
@@ -137,9 +144,9 @@ adapters call: a numpy array is staged once onto the engine's device,
 pushed as any tensor is, and its handle (:class:`HostHandle`) resolves
 to a numpy array of the input's shape and dtype.
 
-Not ported: AOT warming.  Eager PyTorch compiles no program per shape,
-and the CUDA kernels are built once per process at their first launch,
-so there is nothing to warm (the ``compile`` attribution reads 0).  A
+Not ported: AOT warming and the ``compile`` attribution.  Eager PyTorch
+compiles no program per shape, and the CUDA kernels are built once per
+process at their first launch, so there is nothing to warm or to time.  A
 sharded-update slot's ``export_shards`` feeds the serving tier's
 shard-published cuts (``server/serving_tier.py``).
 """
@@ -430,10 +437,15 @@ class PushPullEngine:
         self.handles = HandleManager()
         # collectives issued vs chunk tasks consumed; bytes on the wire of
         # each leg of every retired chunk; the root order's messages and
-        # waits (more than one rank, core/root_order.py)
+        # waits (more than one rank, core/root_order.py); the host path's
+        # cumulative ms (the module docstring), each key written by one
+        # thread or under a lock its site holds
         self.stats = {"dispatches": 0, "chunks": 0, "wire_push": 0,
                       "wire_pull": 0, "order_msgs": 0, "order_send_ms": 0.0,
-                      "order_wait_ms": 0.0, "order_lag_ms": 0.0}
+                      "order_wait_ms": 0.0, "order_lag_ms": 0.0,
+                      "enqueue_ms": 0.0, "queue_ms": 0.0, "dispatch_ms": 0.0,
+                      "codec_dispatch_ms": 0.0, "sync_ms": 0.0,
+                      "assemble_ms": 0.0, "wait_ms": 0.0, "update_ms": 0.0}
         self.scheduler = (self._make_scheduler(cfg) if comm.size == 1
                           else self._ordered_scheduler(cfg, comm))
         self.planner = ChunkPlanner(cfg, num_procs=comm.size)
@@ -592,9 +604,25 @@ class PushPullEngine:
         """
         return self._push(tensor, name, priority, op, compression)
 
-    def _push(self, tensor: torch.Tensor, name: str, priority, op: str,
-              compression, slot: Optional[ShardedUpdateSlot] = None,
+    def _push(self, tensor, name: str, priority, op: str, compression,
+              slot: Optional[ShardedUpdateSlot] = None,
               hyperparameters=None) -> Handle:
+        """The caller's push, ``bps.enqueue``, timed from here until its
+        tasks are in the queue; a host array (``push_pull_local_async``)
+        is staged onto the engine's device inside it."""
+        t_entry = time.monotonic()
+        rf = _tracing.span_begin("bps.enqueue")
+        try:
+            if isinstance(tensor, np.ndarray):
+                tensor = host_to_tensor(tensor).reshape(-1).to(self.device,
+                                                               copy=True)
+            return self._push_timed(tensor, name, priority, op, compression,
+                                    slot, hyperparameters, t_entry)
+        finally:
+            _tracing.span_end(rf)
+
+    def _push_timed(self, tensor, name, priority, op, compression, slot,
+                    hyperparameters, t_entry: float) -> Handle:
         if not self._running:
             raise RuntimeError("engine is shut down")
         if tensor.device != self.device:
@@ -670,7 +698,7 @@ class PushPullEngine:
             return self._enqueue(tensor, name, ctx, priority, op, bounds,
                                  keys, slots, est_nbytes, part_used,
                                  codec_used, tuned, slot, scatter,
-                                 hyperparameters)
+                                 hyperparameters, t_entry)
         except BaseException:
             # the done callback never got the claim: release it, or the
             # tensor could never be re-carved again
@@ -707,7 +735,7 @@ class PushPullEngine:
 
     def _enqueue(self, tensor, name, ctx, priority, op, bounds, keys, slots,
                  est_nbytes, part_used, codec_used, tuned, update_slot,
-                 scatter, hyperparameters) -> Handle:
+                 scatter, hyperparameters, t_entry: float) -> Handle:
         if self.tracer.active:
             # windowed and/or sampled capture, decided here; None for a
             # push that records nothing
@@ -715,9 +743,6 @@ class PushPullEngine:
         else:   # the hot enqueue path stays lock-free with tracing off
             step, tctx = 0, None
         telemetry = self.cfg.telemetry_on
-        # the caller's staging until the tasks enter the queue is the
-        # step's "enqueue" component
-        t_api0 = time.monotonic() if tctx is not None or telemetry else 0.0
         if telemetry:
             self.step_stats.on_push(name, est_nbytes)
         denom = self.comm.size if op == "average" else 1
@@ -758,9 +783,6 @@ class PushPullEngine:
         pending.trace = tctx
         t_enq = time.perf_counter()
         t_queued = time.monotonic()
-        if telemetry:
-            self.step_stats.add_component("enqueue",
-                                          (t_queued - t_api0) * 1e3)
         prio = self._priority(ctx, priority)
         with self._enq_lock:
             for i, (off, ln) in enumerate(task_bounds):
@@ -774,6 +796,11 @@ class PushPullEngine:
                     trace_id=tctx.trace_id if tctx is not None else 0)
                 task.callback = self._make_chunk_callback(pending, i)
                 self.scheduler.add_task(task)
+            # the caller's whole call, until its tasks are in the queue
+            enqueue_ms = (time.monotonic() - t_entry) * 1e3
+            self.stats["enqueue_ms"] += enqueue_ms
+        if telemetry:
+            self.step_stats.add_component("enqueue", enqueue_ms)
 
         def on_done(h: Handle) -> None:
             with ctx.lock:
@@ -816,9 +843,8 @@ class PushPullEngine:
         process per device."""
         del replicate_out
         arr = np.asarray(x)
-        staged = host_to_tensor(arr).reshape(-1).to(self.device, copy=True)
-        return HostHandle(self._push(staged, name, priority, op,
-                                     compression), arr.shape, arr.dtype)
+        return HostHandle(self._push(arr, name, priority, op, compression),
+                          arr.shape, arr.dtype)
 
     def push_pull_local(self, x, name: str, **kw) -> np.ndarray:
         h = self.push_pull_local_async(x, name, **kw)
@@ -1078,17 +1104,38 @@ class PushPullEngine:
                 if telemetry:
                     histograms.observe("engine.dispatch_unit_width",
                                        len(unit))
-                    t_d0 = time.perf_counter()
+                # the dispatch call's wall: issuing the collective (and a
+                # slot's step, a codec's chain) is host work on the
+                # critical path
+                head = unit[0]
+                rf = _tracing.span_begin("bps.dispatch", engine=True)
+                t_d0 = time.monotonic()
                 self._dispatch_unit(kind, unit)
+                t_d1 = time.monotonic()
+                _tracing.span_end(
+                    rf, head.trace_id, "bps.dispatch", "bps-dispatch", t_d0,
+                    t_d1, self._unit_args(kind, unit)
+                    if head.trace_id else None)
+                dispatch_ms = (t_d1 - t_d0) * 1e3
+                self.stats["dispatch_ms"] += dispatch_ms
+                if head.compression is not None:
+                    self.stats["codec_dispatch_ms"] += dispatch_ms
                 if telemetry:
-                    # the dispatch call's wall: issuing the collective
-                    # (and a slot's step) is host work on the critical
-                    # path; eager PyTorch has no compile to tell apart
-                    attribution.add("dispatch",
-                                    (time.perf_counter() - t_d0) * 1e3)
+                    attribution.add("dispatch", dispatch_ms)
             # a task holds its tensor (a gradient the caller frees at the
             # next step): hold none while blocked in the next pop
-            task = t2 = batch = unit = None
+            task = t2 = batch = unit = head = None
+
+    @staticmethod
+    def _unit_args(kind: str, unit: List[ChunkTask]) -> dict:
+        """A captured unit's ``bps.dispatch`` arguments in the comm file."""
+        head = unit[0]
+        codec = "none"
+        if head.compression is not None and head.pending is not None:
+            codec = (head.pending.ctx.compression_kwargs or {}).get(
+                "compressor", "?")
+        return {"kind": kind, "chunks": len(unit), "codec": codec,
+                "tensor": head.name}
 
     def _dispatch_unit(self, kind: str, unit: List[ChunkTask]) -> None:
         """Issue one unit's collective on the engine stream and hand the
@@ -1226,6 +1273,7 @@ class PushPullEngine:
         """Retire one dispatch unit: one wait, one return of credits, then
         every task's callback (a failed unit fails every task in it)."""
         telemetry = self.cfg.telemetry_on
+        head = tasks[0]
         if err is None:
             # stamp the unit for the deadline thread; the stamp covers the
             # chaos "sync" site too, the test double of a wedged collective
@@ -1233,7 +1281,8 @@ class PushPullEngine:
                 with self._sync_block_lock:
                     self._sync_block = (time.monotonic(),
                                         [t.name for t in tasks])
-            t_blk = time.perf_counter()
+            rf = _tracing.span_begin("bps.sync", engine=True)
+            t_blk = time.monotonic()
             try:
                 if _fault.ENABLED:
                     _fault.fire("sync")
@@ -1245,7 +1294,12 @@ class PushPullEngine:
                 if self._deadline_on:
                     with self._sync_block_lock:
                         self._sync_block = None
-            dt_blk = time.perf_counter() - t_blk
+            t_blk1 = time.monotonic()
+            _tracing.span_end(rf, head.trace_id, "bps.sync", "bps-sync",
+                              t_blk, t_blk1, {"tensor": head.name}
+                              if head.trace_id else None)
+            dt_blk = t_blk1 - t_blk
+            self.stats["sync_ms"] += dt_blk * 1e3
             if telemetry:
                 # this thread's time blocked on the card: the step's
                 # sync stall (the communication left un-overlapped)
@@ -1257,16 +1311,16 @@ class PushPullEngine:
         # credits back before the callbacks: the dispatcher can issue the
         # next window while this thread assembles
         self.scheduler.report_finish(sum(t.nbytes for t in tasks))
-        head = tasks[0]
-        if telemetry:
-            if head.t_dispatch:
+        if head.t_dispatch:
+            # how long the unit's head chunk sat in the priority queue
+            queue_ms = (head.t_dispatch - head.t_enqueue) * 1e3
+            self.stats["queue_ms"] += queue_ms
+            if telemetry:
                 histograms.observe(
                     "engine.unit_sync_ms",
                     (time.monotonic() - head.t_dispatch) * 1e3)
-                # queue attribution: how long the unit's head chunk sat
-                # in the priority queue
-                self.step_stats.add_component(
-                    "queue", (head.t_dispatch - head.t_enqueue) * 1e3)
+                self.step_stats.add_component("queue", queue_ms)
+        if telemetry:
             # the last unit retired before a step finalizes names the
             # chain the step waited on
             self.step_stats.note_retire(tasks[-1].name)
@@ -1296,7 +1350,8 @@ class PushPullEngine:
             if t.trace_id and self.tracer.active:
                 self._trace_chunk(t)
         self.speed.record(wire)
-        t_cb0 = time.perf_counter()
+        rf = _tracing.span_begin("bps.assemble", engine=True)
+        t_cb0 = time.monotonic()
         ep = _membership.current_epoch()
         for i, task in enumerate(tasks):
             if isinstance(err, Status):    # dropped stale at dispatch
@@ -1311,10 +1366,16 @@ class PushPullEngine:
                 if outs[i] is not None and self._sampled(task.name):
                     self._debug_sample(task, outs[i])
                 task.callback(outs[i], Status.ok())
+        # assembly and the callbacks: the tail of a push's path
+        t_cb1 = time.monotonic()
+        _tracing.span_end(rf, head.trace_id, "bps.assemble", "bps-sync",
+                          t_cb0, t_cb1, {"tensor": head.name,
+                                         "chunks": len(tasks)}
+                          if head.trace_id else None)
+        assemble_ms = (t_cb1 - t_cb0) * 1e3
+        self.stats["assemble_ms"] += assemble_ms
         if telemetry:
-            # assembly and the callbacks: the tail of a push's path
-            self.step_stats.add_component(
-                "assemble", (time.perf_counter() - t_cb0) * 1e3)
+            self.step_stats.add_component("assemble", assemble_ms)
 
     @staticmethod
     def _debug_sample(task: ChunkTask, out: torch.Tensor) -> None:

@@ -20,11 +20,13 @@ from __future__ import annotations
 import contextlib
 import itertools
 import threading
-from typing import Dict, Iterable, Optional, Tuple
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from ..comm.collectives import broadcast
+from ..common import tracing as _tracing
 from ..common.config import Config
 from ..common.handles import Handle
 from ..core import api as _api
@@ -176,6 +178,27 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
         broadcast_parameters(tensors, root_rank=root_rank)
 
 
+def _engine_stats() -> dict:
+    """The running engine's ``stats``, which the optimizer's waits and
+    update add to (a throwaway dict with no engine running)."""
+    if _api.initialized():
+        return _api.engine().stats
+    return {"wait_ms": 0.0, "update_ms": 0.0}
+
+
+@contextlib.contextmanager
+def _update(stats: dict):
+    """``DistributedOptimizer``'s work after its waits: a ``bps.update``
+    span, counted in ``update_ms``."""
+    rf = _tracing.span_begin("bps.update")
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        stats["update_ms"] += (time.monotonic() - t0) * 1e3
+        _tracing.span_end(rf)
+
+
 class DistributedOptimizer(torch.optim.Optimizer):
     """Wraps a torch optimizer: gradients are push_pull-averaged through
     the engine before every step.
@@ -209,6 +232,12 @@ class DistributedOptimizer(torch.optim.Optimizer):
     reference's ``byteps.torch`` API): room to work on the averaged
     gradients between the two, as an elastic member does when it
     all-gathers them over the membership bus.
+
+    The running engine's ``stats`` count the host time of both halves:
+    ``wait_ms``, blocked on the handles (each wait a ``bps.wait`` span),
+    and ``update_ms``, the rest after the waits: the copies into
+    ``p.grad`` (sharded: into ``p``) and the inner optimizer's step
+    (``bps.update``).
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
@@ -300,20 +329,40 @@ class DistributedOptimizer(torch.optim.Optimizer):
     def zero_grad(self, set_to_none: bool = True):
         return self._inner.zero_grad(set_to_none=set_to_none)
 
+    def _results(self, stats: dict) -> List[tuple]:
+        """Wait for every outstanding handle, in the hooks' order:
+        ``(parameter, result)`` pairs.  Each wait is a ``bps.wait`` span
+        and counts in ``wait_ms``."""
+        with self._lock:
+            handles, self._handles = self._handles, {}
+        out = []
+        for p, h in handles.items():
+            rf = _tracing.span_begin("bps.wait")
+            t0 = time.monotonic()
+            try:
+                out.append((p, h.wait()))
+            finally:
+                stats["wait_ms"] += (time.monotonic() - t0) * 1e3
+                _tracing.span_end(rf)
+        return out
+
+    def _write_grads(self, results: List[tuple]) -> None:
+        with torch.no_grad():
+            for p, avg in results:
+                if self._bpps > 1:
+                    avg = avg / self._bpps
+                p.grad.copy_(avg)
+
     def synchronize(self) -> None:
         """Wait for every outstanding push_pull and write the averaged
         gradients into ``p.grad``."""
         if self._sharded:
             raise ValueError("synchronize() has no gradient to write under "
                              "sharded_update: the engine steps")
-        with self._lock:
-            handles, self._handles = self._handles, {}
-        with torch.no_grad():
-            for p, h in handles.items():
-                avg = h.wait()
-                if self._bpps > 1:
-                    avg = avg / self._bpps
-                p.grad.copy_(avg)
+        stats = _engine_stats()
+        results = self._results(stats)
+        with _update(stats):
+            self._write_grads(results)
 
     @contextlib.contextmanager
     def skip_synchronize(self):
@@ -331,22 +380,26 @@ class DistributedOptimizer(torch.optim.Optimizer):
             if closure is not None:
                 with torch.enable_grad():
                     loss = closure()
-            with self._lock:
-                handles, self._handles = self._handles, {}
-            with torch.no_grad():
-                for p, h in handles.items():
-                    p.copy_(h.wait())
+            stats = _engine_stats()
+            results = self._results(stats)
+            with _update(stats), torch.no_grad():
+                for p, new in results:
+                    p.copy_(new)
             # the inner optimizer's step ran in the engine: tell an
             # lr_scheduler attached to it that it did
             self._inner._opt_called = True
             return loss
         if self._skip_sync:
-            return self._inner.step(closure)
+            with _update(_engine_stats()):
+                return self._inner.step(closure)
         with self._lock:
             if not self._handles and self._bpps > 1:
                 return None  # micro-step: nothing was communicated
-        self.synchronize()
-        return self._inner.step(closure)
+        stats = _engine_stats()
+        results = self._results(stats)
+        with _update(stats):
+            self._write_grads(results)
+            return self._inner.step(closure)
 
     def state_dict(self):
         return self._inner.state_dict()

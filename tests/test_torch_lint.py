@@ -22,6 +22,10 @@ EXCLUSIONS = {
         "AOT warming is JAX-only (nothing in the port compiles ahead of "
         "time), and docs/env.md belongs to the JAX package, which keeps "
         "the row",
+    ("metric-name", "docs/observability.md", "'step.attrib_compile_ms'"):
+        "the compile attribution is JAX-only (eager PyTorch compiles no "
+        "program per shape, so the port has no such component), and the "
+        "row documents the JAX package's gauge, which it keeps",
 }
 
 
